@@ -1,0 +1,918 @@
+"""The OoO VLIW JIT runtime — real, event-driven execution path.
+
+The counterpart of the JAX package's ``core/jit.py``, per-layer regime.
+Multiple tenant streams, each an *instruction stream* of declared kernel
+ops, are multiplexed onto one device by (a) clustering and coalescing
+compatible GEMMs into superkernels (the hand-written ``coalesced_gemm``
+kernel, through ``core/dispatch.py``) and (b) OoO, SLO-aware interleaving
+of the streams.
+
+Execution model: a tenant's decode step is compiled into a
+``KernelProgram`` — an alternating sequence of GEMM stages (declared to the
+JIT, coalescible across tenants) and glue stages (norms, rope, cache
+updates, softmax — plain PyTorch, per tenant). Prompt prefills compile the
+same way (``build_dense_prefill_template``): the prompt length is the GEMM
+m dimension, padded to a power-of-two bucket (``prefill_bucket``), and the
+program epilogue writes the request's KV rows into the tenant's slotted
+cache — so prompts enter the live op pool and coalesce with decode traffic.
+
+The runtime is a virtual-time event loop. A ``JitSession`` keeps the
+scheduler, the live op pool and the stats open across calls, so programs
+are admitted mid-flight between superkernel dispatches, the next known
+admission feeds the scheduler's stagger/WAIT branch, and per-request SLOs
+flow into per-op ``latest_start_t``. ``VLIWJit.run`` is the closed-world
+wrapper. Program templates and block plans live in persistent plan caches
+owned by the ``VLIWJit``; packed weights live in the executor's cache.
+
+KV-cache updates are functional: every epilogue returns NEW cache tensors
+and leaves the bound ones as they were. The serving engine binds
+``tenant.cache`` into programs and relies on that.
+
+Only the per-layer emission (``stacked=False``) is ported. The JAX
+package's default, layer-stacked templates (one scanned body per
+homogeneous sub-stack) are ROADMAP queue 1 item 7; asking for them raises.
+MoE and SSM templates are item 8.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.clustering import shared_weight_key, weight_key
+from repro_torch.core.coalescer import Coalescer
+from repro_torch.core.costmodel import CostModel, GemmShape, H100
+from repro_torch.core.dispatch import DispatchStats, SuperkernelExecutor
+from repro_torch.core.kernelspec import make_op, op_aspect
+from repro_torch.core.plancache import PlanCache, PlanCacheStats
+from repro_torch.core.scheduler import OoOScheduler, SchedulerConfig
+from repro_torch.models.layers import apply_rope, rmsnorm, silu_mul
+
+_STACKED_NOT_PORTED = (
+    "layer-stacked templates are not ported yet (ROADMAP queue 1 item 7: "
+    "stacked templates); use stacked=False")
+
+NEG_INF = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# kernel programs
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GemmStage:
+    tag: str                       # cluster tag, e.g. "ffn_gate"
+    weight_key: Tuple              # identity key for operand sharing
+    # returns the ORIGINAL weight tensor (the same object every call: the
+    # executor's packed-weight guard compares with ``is``)
+    weight_fn: Callable[[], torch.Tensor]
+    # consumes env, returns the activation matrix [m, k]
+    input_fn: Callable[[Dict[str, Any]], torch.Tensor]
+    # receives (env, gemm_output)
+    output_fn: Callable[[Dict[str, Any], torch.Tensor], None]
+    # statically-known problem shape (deadline annotation costs the stage
+    # without materializing its weight)
+    shape: Optional[GemmShape] = None
+    # declared access sets: the env keys input_fn/output_fn touch
+    reads: Optional[Tuple] = None
+    writes: Optional[Tuple] = None
+
+
+@dataclasses.dataclass
+class GlueStage:
+    fn: Callable[[Dict[str, Any]], None]
+    reads: Optional[Tuple] = None
+    writes: Optional[Tuple] = None
+
+
+Stage = Any  # GemmStage | GlueStage
+
+# monotonically-increasing KernelProgram instance ids (trace identity)
+_PROG_UIDS = itertools.count(1)
+
+
+@dataclasses.dataclass
+class KernelProgram:
+    """One tenant step: stages + a private environment."""
+    stream_id: int
+    stages: List[Stage]
+    env: Dict[str, Any]
+    pc: int = 0
+    slo_s: float = float("inf")
+    arrival_t: float = 0.0
+    # absolute request deadline; inf falls back to arrival_t + slo_s
+    deadline_t: float = float("inf")
+    batch: int = 1                 # activation rows (m) of every GEMM stage
+    # "decode" (one step of a slotted batch) or "prefill" (a whole prompt
+    # pass whose epilogue writes the request's KV rows into the cache)
+    kind: str = "decode"
+    # (req_id, final deadline) per request batched into this step
+    req_deadlines: Tuple = ()
+    # KV-cache rows this program writes, as ("kv", owner, slot) resources
+    kv_writes: Tuple = ()
+    uid: int = dataclasses.field(
+        default_factory=lambda: next(_PROG_UIDS), compare=False)
+    _gemm_suffix: Optional[List[float]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _suffix_fn: Optional[Callable[[CostModel], List[float]]] = \
+        dataclasses.field(default=None, repr=False, compare=False)
+
+    def advance_glue(self) -> Optional[Stage]:
+        """Run glue stages until the next GEMM stage (or completion)."""
+        while self.pc < len(self.stages):
+            st = self.stages[self.pc]
+            if isinstance(st, GemmStage):
+                return st
+            st.fn(self.env)
+            self.pc += 1
+        return None
+
+    @property
+    def effective_deadline(self) -> float:
+        return self.deadline_t if math.isfinite(self.deadline_t) \
+            else self.arrival_t + self.slo_s
+
+    def remaining_gemm_time(self, cost: CostModel, pc: int) -> float:
+        """Modeled critical-path seconds of the GEMM stages in
+        ``stages[pc:]``."""
+        if self._gemm_suffix is None:
+            if self._suffix_fn is not None:
+                self._gemm_suffix = self._suffix_fn(cost)
+            else:
+                self._gemm_suffix = _gemm_suffix_table(self.stages,
+                                                       self.batch, cost)
+        return self._gemm_suffix[pc]
+
+
+def _gemm_suffix_table(stages: List[Stage], batch: int,
+                       cost: CostModel) -> List[float]:
+    """suffix[i] = modeled seconds of the GEMM stages in ``stages[i:]``."""
+    suf = [0.0] * (len(stages) + 1)
+    for i in range(len(stages) - 1, -1, -1):
+        st = stages[i]
+        dt = 0.0
+        if isinstance(st, GemmStage):
+            shape = st.shape
+            if shape is None:
+                w = st.weight_fn()
+                shape = GemmShape(m=batch, n=int(w.shape[1]),
+                                  k=int(w.shape[0]))
+            dt = cost.gemm_time(shape)
+        suf[i] = suf[i + 1] + dt
+    return suf
+
+
+# ---------------------------------------------------------------------------
+# program templates — the unit the plan cache stores
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ProgramTemplate:
+    """A compiled-once tenant step: the stage list, glue closures and weight
+    keys, with NO per-step state. ``bind()`` rebinds only the per-step
+    environment (tokens, KV cache refs, deadlines) into a fresh
+    ``KernelProgram``. Templates are keyed by (model identity, batch m,
+    dtype, cache geometry) and identity-guarded on the params object."""
+
+    stages: List[Stage]
+    batch: int
+    model_name: str = ""
+    # "decode": tokens bound as [m, 1]; "prefill": tokens bound as
+    # [1, batch] — the padded prompt IS the GEMM m dimension
+    kind: str = "decode"
+    _suffix: Optional[List[float]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _suffix_cost_id: Optional[int] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def gemm_suffix(self, cost: CostModel) -> List[float]:
+        """Memoized per cost model — bound programs share one table."""
+        if self._suffix is None or self._suffix_cost_id != id(cost):
+            self._suffix = _gemm_suffix_table(self.stages, self.batch, cost)
+            self._suffix_cost_id = id(cost)
+        return self._suffix
+
+    def bind(self, *, stream_id: int, tokens: torch.Tensor, cache,
+             slo_s: float = float("inf"), arrival_t: float = 0.0,
+             deadline_t: float = float("inf"),
+             req_deadlines: Tuple = (),
+             kv_writes: Tuple = (),
+             env_extra: Optional[Dict[str, Any]] = None) -> KernelProgram:
+        """Instantiate one step: fresh env + deadlines, shared stages.
+        ``env_extra`` merges per-step entries (the prefill path binds
+        ``real_len`` / ``slot`` / ``req``)."""
+        if self.kind == "prefill":
+            assert int(tokens.shape[1]) == self.batch, \
+                (tokens.shape, self.batch)
+        else:
+            assert int(tokens.shape[0]) == self.batch, \
+                (tokens.shape, self.batch)
+        env: Dict[str, Any] = {"tokens": tokens, "cache": cache,
+                               "new_layers": {"k": [], "v": []}}
+        if env_extra:
+            env.update(env_extra)
+        return KernelProgram(stream_id=stream_id, stages=self.stages,
+                             env=env, slo_s=slo_s, arrival_t=arrival_t,
+                             deadline_t=deadline_t, batch=self.batch,
+                             kind=self.kind,
+                             req_deadlines=tuple(req_deadlines),
+                             kv_writes=tuple(kv_writes),
+                             _suffix_fn=self.gemm_suffix)
+
+
+def dense_program_cache_key(model, params, batch: int, cache, *,
+                            stacked: bool = False) -> Tuple:
+    """Plan-cache key for a dense decode template: (model identity, active
+    batch m, dtype, cache geometry). Params identity is NOT in the key — a
+    weight hot-swap lands on the same slot and is caught by the cache's
+    identity guard (``guard=(model, params)`` at the lookup site)."""
+    kc = cache["layers"]["k"]
+    return ("dense-decode", model.cfg.name, id(model), batch,
+            str(params["embed"].dtype), str(kc.dtype), tuple(kc.shape),
+            ("stacked", bool(stacked), model.cfg.num_layers))
+
+
+# ---------------------------------------------------------------------------
+# program builders for dense GQA
+# ---------------------------------------------------------------------------
+
+# Views of params tensors, memoized per (base tensor identity, key): the
+# per-layer views ``w[l]`` of the stacked [L, ...] params and the tied
+# unembed ``embed.T``. Every template of one params tree — decode at any
+# batch size, prefill at any bucket, one per tenant — must hand the executor
+# the SAME view object for one weight key. Its packed-weight cache guards on
+# identity, and its shared regime requires equal keys to mean the identical
+# tensor; a fresh view per template breaks both (the JAX package's
+# per-layer regime, which slices per template, raises OperandIdentityHazard
+# when two templates of one params tree coalesce), and would repack the
+# model's largest matrix on every batch-size flip. Base and view are held
+# weakly, so discarding an engine frees them; the base ref doubles as the
+# id-recycling guard.
+_VIEWS: Dict[Tuple[int, object], Tuple["weakref.ref", "weakref.ref"]] = {}
+
+
+def _stable_view(base: torch.Tensor, key, make) -> torch.Tensor:
+    """``make(base)``, the same object on every call while it lives."""
+    ent = _VIEWS.get((id(base), key))
+    if ent is not None:
+        b, view = ent[0](), ent[1]()
+        if b is base and view is not None:
+            return view
+    view = make(base)
+    if len(_VIEWS) > 4096:                 # prune dead refs opportunistically
+        for k in [k for k, (b, v) in _VIEWS.items()
+                  if b() is None or v() is None]:
+            del _VIEWS[k]
+    _VIEWS[(id(base), key)] = (weakref.ref(base), weakref.ref(view))
+    return view
+
+
+def _layer_views(blocks, l: int):
+    """Layer ``l``'s params as (memoized) views into the stacked tree."""
+    return {k: (_layer_views(v, l) if isinstance(v, dict)
+                else _stable_view(v, l, lambda w: w[l]))
+            for k, v in blocks.items()}
+
+
+def _emit_dense_body(cfg: ModelConfig, params, stages: List[Stage], *,
+                     m_rows: int, attend_for,
+                     attend_reads: Tuple = ("wq", "wk", "wv", "cache")
+                     ) -> None:
+    """Emit the per-layer stage scaffolding shared by the dense DECODE and
+    PREFILL builders: pre-norm, the wq/wk/wv projections, the phase-specific
+    attention glue (``attend_for(l, lp, is_global)``), wo, post-norm and the
+    gated FFN. Exactly one copy: cross-phase operand sharing requires both
+    builders to emit identical weight keys and tags.
+
+    ``m_rows`` is the activation-row count of every GEMM stage — the slotted
+    batch for decode, the padded prompt length for prefill."""
+    hd = cfg.resolved_head_dim
+    blocks = params["blocks"]
+    # weight identity includes the params object: two tenants share
+    # operands only when they serve the very same weights
+    pid = id(params)
+
+    def glue(fn, reads=None, writes=None):
+        stages.append(GlueStage(fn, reads=reads, writes=writes))
+
+    def gemm(tag, wkey, wfn, infn, outfn, n, k, reads, writes):
+        stages.append(GemmStage(tag, wkey, wfn, infn, outfn,
+                                shape=GemmShape(m=m_rows, n=n, k=k),
+                                reads=reads, writes=writes))
+
+    for l in range(cfg.num_layers):
+        lp = _layer_views(blocks, l)
+        is_global = cfg.layer_is_global(l)
+
+        def pre_attn(env, lp=lp):
+            env["h"] = rmsnorm(env["x"], lp["ln1"], cfg.norm_eps)
+
+        glue(pre_attn, reads=("x",), writes=("h",))
+        for name, n_heads in (("wq", cfg.num_heads), ("wk", cfg.num_kv_heads),
+                              ("wv", cfg.num_kv_heads)):
+            gemm(f"attn_{name}", weight_key(cfg.name, pid, name, layer=l),
+                 lambda lp=lp, name=name: lp["attn"][name],
+                 lambda env: env["h"],
+                 lambda env, out, name=name: env.__setitem__(name, out),
+                 n_heads * hd, cfg.d_model, ("h",), (name,))
+
+        glue(attend_for(l, lp, is_global), reads=attend_reads,
+             writes=("attn_out", "new_layers"))
+        gemm("attn_wo", weight_key(cfg.name, pid, "wo", layer=l),
+             lambda lp=lp: lp["attn"]["wo"],
+             lambda env: env["attn_out"],
+             lambda env, out: env.__setitem__("attn_proj", out),
+             cfg.d_model, cfg.num_heads * hd, ("attn_out",), ("attn_proj",))
+
+        def post_attn(env, lp=lp):
+            env["x"] = env["x"] + env["attn_proj"]
+            env["h2"] = rmsnorm(env["x"], lp["ln2"], cfg.norm_eps)
+
+        glue(post_attn, reads=("x", "attn_proj"), writes=("x", "h2"))
+        gemm("ffn_gate", weight_key(cfg.name, pid, "w_gate", layer=l),
+             lambda lp=lp: lp["mlp"]["w_gate"],
+             lambda env: env["h2"],
+             lambda env, out: env.__setitem__("gate", out),
+             cfg.d_ff, cfg.d_model, ("h2",), ("gate",))
+        gemm("ffn_up", weight_key(cfg.name, pid, "w_up", layer=l),
+             lambda lp=lp: lp["mlp"]["w_up"],
+             lambda env: env["h2"],
+             lambda env, out: env.__setitem__("up", out),
+             cfg.d_ff, cfg.d_model, ("h2",), ("up",))
+
+        def act(env):
+            env["act"] = silu_mul(env["gate"], env["up"])
+
+        glue(act, reads=("gate", "up"), writes=("act",))
+        gemm("ffn_down", weight_key(cfg.name, pid, "w_down", layer=l),
+             lambda lp=lp: lp["mlp"]["w_down"],
+             lambda env: env["act"],
+             lambda env, out: env.__setitem__("down", out),
+             cfg.d_model, cfg.d_ff, ("act",), ("down",))
+
+        def post_ffn(env):
+            env["x"] = env["x"] + env["down"]
+
+        glue(post_ffn, reads=("x", "down"), writes=("x",))
+
+
+def _embed_scale(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """sqrt(d_model) as a float32 scalar cast to ``x``'s dtype (the JAX
+    package's ``jnp.asarray(jnp.sqrt(d), x.dtype)``)."""
+    return torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
+                        device=x.device).to(x.dtype)
+
+
+def _emit_decode_embed(cfg: ModelConfig, params, stages: List[Stage]) -> None:
+    """Token-embedding prologue of the decode builder: scaled embed of the
+    step's [B, 1] tokens squeezed to [B, d], plus the cache-position
+    snapshot."""
+
+    def embed(env):
+        x = params["embed"][env["tokens"]]
+        env["x"] = (x * _embed_scale(cfg, x))[:, 0]
+        env["pos"] = env["cache"]["pos"]
+
+    stages.append(GlueStage(embed, reads=("tokens", "cache"),
+                            writes=("x", "pos")))
+
+
+def _emit_final_logits(cfg: ModelConfig, params, stages: List[Stage], *,
+                       m_rows: int) -> None:
+    """Final-norm + unembed tail of the decode builder."""
+
+    def final_norm(env):
+        env["hf"] = rmsnorm(env["x"], params["final_norm"], cfg.norm_eps)
+
+    stages.append(GlueStage(final_norm, reads=("x",), writes=("hf",)))
+    _emit_unembed(cfg, params, stages, m_rows=m_rows)
+
+
+def _emit_unembed(cfg: ModelConfig, params, stages: List[Stage], *,
+                  m_rows: int) -> None:
+    """Emit the unembedding GEMM over ``env['hf']`` into ``env['logits']``
+    (shared by both builders; ``m_rows`` = the normed rows to unembed)."""
+    pid = id(params)
+    if cfg.tie_embeddings:
+        wT = _stable_view(params["embed"], "T", lambda e: e.T)
+        wfn, n = (lambda: wT), int(params["embed"].shape[0])
+    else:
+        wfn, n = (lambda: params["unembed"]), int(params["unembed"].shape[1])
+    stages.append(GemmStage(
+        "unembed", weight_key(cfg.name, pid, "unembed"), wfn,
+        lambda env: env["hf"],
+        lambda env, out: env.__setitem__("logits", out),
+        shape=GemmShape(m=m_rows, n=n, k=cfg.d_model),
+        reads=("hf",), writes=("logits",)))
+
+
+def _gqa_decode_attend(cfg: ModelConfig, B: int, q_flat, k_flat, v_flat,
+                       kc, vc, pos, is_global: bool, out_dtype
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer of single-token slotted-cache GQA attention. ``kc``/``vc``
+    are the layer's cache slices [B, Hkv, S, hd]; ``pos`` [B] the per-row
+    write index. Returns (attn_out [B, H·hd], new kc, new vc) — the caches
+    are new tensors, the inputs are left as they were."""
+    hd = cfg.resolved_head_dim
+    q = q_flat.reshape(B, 1, cfg.num_heads, hd)
+    k = k_flat.reshape(B, 1, cfg.num_kv_heads, hd)
+    v = v_flat.reshape(B, 1, cfg.num_kv_heads, hd)
+    pos = pos.long()
+    posb = pos[:, None]
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k = apply_rope(k, posb, cfg.rope_theta)
+    rows = torch.arange(B, device=kc.device)
+    kc = kc.clone()
+    vc = vc.clone()
+    kc[rows, :, pos] = k[:, 0].to(kc.dtype)
+    vc[rows, :, pos] = v[:, 0].to(vc.dtype)
+    S = kc.shape[2]
+    G = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(B, 1, cfg.num_kv_heads, G, hd)
+    scores = torch.einsum("bshgd,bhtd->bhgst", qg.float(), kc.float())
+    scores = scores / math.sqrt(hd)
+    idx = torch.arange(S, device=kc.device)
+    ok = idx[None, :] <= pos[:, None]
+    if cfg.window_size > 0 and not is_global:
+        ok = ok & (idx[None, :] > (pos[:, None] - cfg.window_size))
+    scores = torch.where(ok[:, None, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgst,bhtd->bshgd", p, vc.float())
+    return o.reshape(B, cfg.num_heads * hd).to(out_dtype), kc, vc
+
+
+def _decode_attend_for(cfg: ModelConfig, B: int):
+    """Single-token slotted-cache attention glue factory."""
+
+    def attend_for(l, lp, is_global):
+        def attend(env, l=l, is_global=is_global):
+            cache = env["cache"]
+            pos = torch.broadcast_to(cache["pos"], (B,))
+            attn_out, kc, vc = _gqa_decode_attend(
+                cfg, B, env["wq"], env["wk"], env["wv"],
+                cache["layers"]["k"][l], cache["layers"]["v"][l], pos,
+                is_global, env["h"].dtype)
+            env["new_layers"]["k"].append(kc)
+            env["new_layers"]["v"].append(vc)
+            env["attn_out"] = attn_out
+
+        return attend
+
+    return attend_for
+
+
+def _build_gqa_decode_template(model, params, batch: int) -> ProgramTemplate:
+    """Decode-template scaffold: embed glue, the per-layer attention + FFN
+    body, final norm, unembed and the KV-cache write-back epilogue."""
+    cfg: ModelConfig = model.cfg
+    B = batch
+    stages: List[Stage] = []
+
+    _emit_decode_embed(cfg, params, stages)
+    _emit_dense_body(cfg, params, stages, m_rows=B,
+                     attend_for=_decode_attend_for(cfg, B))
+    _emit_final_logits(cfg, params, stages, m_rows=B)
+
+    def finish(env):
+        cache = env["cache"]
+        env["cache"] = {
+            "pos": cache["pos"] + 1,
+            "layers": {
+                "k": torch.stack(env["new_layers"]["k"]),
+                "v": torch.stack(env["new_layers"]["v"]),
+            },
+        }
+
+    stages.append(GlueStage(finish, reads=("cache", "new_layers"),
+                            writes=("cache",)))
+    return ProgramTemplate(stages=stages, batch=B, model_name=cfg.name)
+
+
+def build_dense_decode_template(model, params, batch: int, *,
+                                stacked: bool = False) -> ProgramTemplate:
+    """Compile the decode step of a dense GQA model into a ProgramTemplate.
+
+    Equivalent to ``Model.decode_step`` but with every projection GEMM
+    declared to the JIT. Per-step inputs (tokens [B, 1], KV cache) are read
+    from the bound program's env, so one template serves every step."""
+    if stacked:
+        raise NotImplementedError(_STACKED_NOT_PORTED)
+    assert model.cfg.arch_type == "dense", model.cfg.arch_type
+    return _build_gqa_decode_template(model, params, batch)
+
+
+# ---------------------------------------------------------------------------
+# prefill programs — the prompt pass as first-class declared ops
+# ---------------------------------------------------------------------------
+
+def prefill_bucket(prompt_len: int, minimum: int = 8) -> int:
+    """Power-of-two padding bucket for a prompt length. Padded tail rows
+    are computed and discarded — causal masking keeps them out of every
+    real row's softmax, and the epilogue copies only the real positions."""
+    assert prompt_len >= 1, prompt_len
+    return max(minimum, 1 << (prompt_len - 1).bit_length())
+
+
+def _causal_prefill_attend(cfg: ModelConfig, Sp: int, q_flat, k_flat,
+                           v_flat, positions, is_global: bool, out_dtype
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """One layer of causal prompt attention. Returns (attn_out [Sp, H·hd],
+    k [1, Hkv, Sp, hd] rope'd, v [1, Hkv, Sp, hd] raw) — the k/v pair in
+    decode-cache layout."""
+    hd = cfg.resolved_head_dim
+    q = q_flat.reshape(1, Sp, cfg.num_heads, hd)
+    k = k_flat.reshape(1, Sp, cfg.num_kv_heads, hd)
+    v = v_flat.reshape(1, Sp, cfg.num_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    G = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(1, Sp, cfg.num_kv_heads, G, hd)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
+    scores = scores / math.sqrt(hd)
+    idx = torch.arange(Sp, device=q.device)
+    ok = idx[None, :] <= idx[:, None]
+    if cfg.window_size > 0 and not is_global:
+        ok = ok & (idx[None, :] > (idx[:, None] - cfg.window_size))
+    scores = torch.where(ok[None, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgst,bthd->bshgd", p, v.float())
+    return (o.reshape(Sp, cfg.num_heads * hd).to(out_dtype),
+            k.transpose(1, 2), v.transpose(1, 2))
+
+
+def prefill_program_cache_key(model, params, seq_len: int, cache, *,
+                              stacked: bool = False) -> Tuple:
+    """Plan-cache key for a dense prefill template: (model identity, padded
+    prompt bucket, dtype, cache geometry); params identity is guarded at
+    the lookup site."""
+    kc = cache["layers"]["k"]
+    return ("dense-prefill", model.cfg.name, id(model), seq_len,
+            str(params["embed"].dtype), str(kc.dtype), tuple(kc.shape),
+            ("stacked", bool(stacked), model.cfg.num_layers))
+
+
+def build_dense_prefill_template(model, params, seq_len: int, *,
+                                 stacked: bool = False) -> ProgramTemplate:
+    """Compile the PROMPT pass of a dense GQA model into a ProgramTemplate.
+
+    Every projection GEMM is declared with m = ``seq_len`` (the padded
+    prefill bucket). Equivalent to ``Model.prefill``, last-position logits
+    only. Per-request env entries (bound via ``bind``'s ``env_extra``):
+    ``tokens`` (the prompt zero-padded to [1, seq_len]), ``real_len`` (the
+    true prompt length S), ``slot`` (the reserved decode slot the epilogue
+    writes, or None for a request that never decodes) and ``cache``."""
+    if stacked:
+        raise NotImplementedError(_STACKED_NOT_PORTED)
+    cfg: ModelConfig = model.cfg
+    assert cfg.arch_type == "dense", cfg.arch_type
+    Sp = seq_len
+    stages: List[Stage] = []
+
+    def glue(fn, reads=None, writes=None):
+        stages.append(GlueStage(fn, reads=reads, writes=writes))
+
+    def embed(env):
+        x = params["embed"][env["tokens"]]            # [1, Sp, d]
+        env["x"] = (x * _embed_scale(cfg, x))[0]
+        env["positions"] = torch.arange(Sp, device=x.device)[None, :]
+
+    glue(embed, reads=("tokens",), writes=("x", "positions"))
+
+    def attend_for(l, lp, is_global):
+        # causal self-attention over the whole (padded) prompt
+        def attend(env, is_global=is_global):
+            attn_out, k_t, v_t = _causal_prefill_attend(
+                cfg, Sp, env["wq"], env["wk"], env["wv"], env["positions"],
+                is_global, env["h"].dtype)
+            env["new_layers"]["k"].append(k_t)
+            env["new_layers"]["v"].append(v_t)
+            env["attn_out"] = attn_out
+
+        return attend
+
+    _emit_dense_body(cfg, params, stages, m_rows=Sp, attend_for=attend_for,
+                     attend_reads=("wq", "wk", "wv", "positions"))
+
+    def final_norm(env):
+        # only the last REAL position is unembedded
+        last = env["x"][env["real_len"] - 1:env["real_len"]]
+        env["hf"] = rmsnorm(last, params["final_norm"], cfg.norm_eps)
+
+    glue(final_norm, reads=("x", "real_len"), writes=("hf",))
+    _emit_unembed(cfg, params, stages, m_rows=1)
+
+    def finish(env):
+        """Epilogue: write the request's KV rows into its reserved slot —
+        the S real positions (k rope'd, v raw), zero-padded to cache_len,
+        and pos[slot] = S — as new cache tensors."""
+        slot = env["slot"]
+        if slot is None:
+            return
+        S = env["real_len"]
+        cache = env["cache"]
+        layers = cache["layers"]
+        kc, vc = layers["k"], layers["v"]
+        cache_len = int(kc.shape[3])
+        pad = (0, 0, 0, cache_len - S)
+        k_new = torch.cat(env["new_layers"]["k"], dim=0)[:, :, :S]
+        v_new = torch.cat(env["new_layers"]["v"], dim=0)[:, :, :S]
+        kc, vc = kc.clone(), vc.clone()
+        kc[:, slot] = F.pad(k_new, pad).to(kc.dtype)
+        vc[:, slot] = F.pad(v_new, pad).to(vc.dtype)
+        pos = cache["pos"].clone()
+        pos[slot] = S
+        env["cache"] = {"pos": pos, "layers": {**layers, "k": kc, "v": vc}}
+
+    glue(finish, reads=("cache", "new_layers", "real_len", "slot"),
+         writes=("cache",))
+    return ProgramTemplate(stages=stages, batch=Sp, model_name=cfg.name,
+                           kind="prefill")
+
+
+def build_dense_decode_program(model, params, tokens: torch.Tensor, cache,
+                               stream_id: int, *, slo_s: float = float("inf"),
+                               arrival_t: float = 0.0,
+                               deadline_t: float = float("inf"),
+                               req_deadlines: Tuple = ()) -> KernelProgram:
+    """One-shot compile + bind (the uncached path). The serving engine
+    instead caches the template and calls ``bind`` per step."""
+    template = build_dense_decode_template(model, params,
+                                           int(tokens.shape[0]))
+    return template.bind(stream_id=stream_id, tokens=tokens, cache=cache,
+                         slo_s=slo_s, arrival_t=arrival_t,
+                         deadline_t=deadline_t, req_deadlines=req_deadlines)
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StreamStat:
+    """Streaming aggregate (count/sum/min/max) over one per-superkernel
+    observable; ``+`` folds two aggregates."""
+
+    count: int = 0
+    total: float = 0.0
+    min: float = math.inf
+    max: float = -math.inf
+
+    def add(self, x: float) -> None:
+        self.count += 1
+        self.total += x
+        self.min = min(self.min, x)
+        self.max = max(self.max, x)
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def __add__(self, other: "StreamStat") -> "StreamStat":
+        if not self.count:
+            return dataclasses.replace(other)
+        if not other.count:
+            return dataclasses.replace(self)
+        return StreamStat(self.count + other.count, self.total + other.total,
+                          min(self.min, other.min), max(self.max, other.max))
+
+
+@dataclasses.dataclass
+class JitStats:
+    superkernels: int = 0
+    ops_executed: int = 0
+    groups: StreamStat = dataclasses.field(default_factory=StreamStat)
+    padding_waste: StreamStat = dataclasses.field(default_factory=StreamStat)
+    modeled_time_s: float = 0.0
+    modeled_serial_time_s: float = 0.0
+    shared_dispatches: int = 0
+    waits: int = 0                 # stagger (WAIT) decisions taken
+    evictions: int = 0             # missed stragglers demoted from EDF
+    mid_flight_admissions: int = 0  # programs joining live ops post-start
+    # dispatched groups that packed a prefill op with another stream's op
+    prefill_coalesced: int = 0
+    # plan-cache deltas accrued during this run (core/plancache.py)
+    plan_cache: PlanCacheStats = dataclasses.field(
+        default_factory=PlanCacheStats)
+    block_plans: PlanCacheStats = dataclasses.field(
+        default_factory=PlanCacheStats)
+    # dispatch fast-path deltas (core/dispatch.py)
+    dispatch: DispatchStats = dataclasses.field(default_factory=DispatchStats)
+    # dispatched groups that actually coalesced (>1 op)
+    coalesced_groups: int = 0
+
+    @property
+    def mean_group(self) -> float:
+        return self.groups.mean
+
+    @property
+    def modeled_speedup(self) -> float:
+        return self.modeled_serial_time_s / self.modeled_time_s \
+            if self.modeled_time_s else 1.0
+
+    def merge(self, other: "JitStats") -> "JitStats":
+        """Fold another run's counters into this one (in place)."""
+        for f in dataclasses.fields(self):
+            setattr(self, f.name,
+                    getattr(self, f.name) + getattr(other, f.name))
+        return self
+
+
+@dataclasses.dataclass
+class TickEvent:
+    """Outcome of one scheduler decision on the session's virtual clock."""
+    kind: str                      # "dispatch" | "wait" | "idle"
+    t: float                       # virtual time after the event
+    dt: float = 0.0                # modeled device seconds consumed
+    completed: List[KernelProgram] = dataclasses.field(default_factory=list)
+
+
+# a timed admission: (virtual arrival time, program or zero-arg factory)
+Arrival = Tuple[float, Union[KernelProgram, Callable[[], KernelProgram]]]
+
+
+class JitSession:
+    """A live, admission-open run of the VLIW JIT on one device: the
+    scheduler, live-op pool and stats persist across calls, and the caller
+    admits programs between superkernel dispatches and advances the virtual
+    clock one scheduler decision (``tick``) at a time."""
+
+    def __init__(self, jit: "VLIWJit"):
+        self.jit = jit
+        self.stats = JitStats()
+        self.cost = jit.cost
+        self.sched = OoOScheduler(self.cost, jit.coalescer, jit.sched_cfg)
+        # pending GEMM per program: op_id -> (program, stage)
+        self.live: Dict[int, Tuple[KernelProgram, GemmStage]] = {}
+        self._done: List[KernelProgram] = []
+        self._started = False          # True once the first tick has run
+        # plan caches and the executor outlive sessions; snapshot their
+        # counters so this session reports only its own delta
+        self._plan_base = jit.plan_cache.stats.copy()
+        self._block_base = jit.block_plans.stats.copy()
+        self._dispatch_base = jit.executor.stats.copy()
+
+    def _sync_cache_stats(self) -> None:
+        self.stats.plan_cache = self.jit.plan_cache.stats - self._plan_base
+        self.stats.block_plans = self.jit.block_plans.stats - self._block_base
+        self.stats.dispatch = self.jit.executor.stats - self._dispatch_base
+
+    @property
+    def pending(self) -> int:
+        return len(self.live)
+
+    def set_next_arrival(self, t: float) -> None:
+        """Tell the scheduler when the next admission is coming."""
+        self.sched.next_arrival_t = t
+
+    def admit(self, prog: KernelProgram) -> None:
+        """Add a program to the live pool (legal at any point in time)."""
+        if self.live and self._started:
+            self.stats.mid_flight_admissions += 1
+        st = prog.advance_glue()
+        if st is None:            # pure-glue program: completes immediately
+            self._done.append(prog)
+            return
+        self._push_op(prog, st)
+
+    def _push_op(self, prog: KernelProgram, st: GemmStage) -> None:
+        a = st.input_fn(prog.env)
+        w = st.weight_fn()
+        op = make_op(prog.stream_id, op_aspect(int(a.shape[0]), self.jit.bm),
+                     GemmShape(m=int(a.shape[0]), n=int(w.shape[1]),
+                               k=int(w.shape[0])),
+                     arrival_t=prog.arrival_t,
+                     deadline_t=prog.effective_deadline,
+                     seq_index=prog.pc, tag=st.tag,
+                     model_id=st.weight_key[0] if st.weight_key else "",
+                     op_kind=prog.kind)
+        # operand bindings ride on the op (declarative dispatch payload)
+        op.payload = (a, w, st.weight_key)
+        op.prog_uid = prog.uid
+        op.req_deadlines = prog.req_deadlines
+        if math.isfinite(op.deadline_t):
+            # EDF anchor = deadline minus the program's remaining critical
+            # path, so upstream stages inherit the urgency of the whole step
+            op.latest_start_t = op.deadline_t \
+                - prog.remaining_gemm_time(self.cost, prog.pc)
+        self.live[op.op_id] = (prog, st)
+        self.sched.push([op])
+
+    def tick(self, now: float) -> TickEvent:
+        """Execute one scheduler decision at virtual time ``now``."""
+        self._sync_cache_stats()
+        completed, self._done = self._done, []
+        if not self.live:
+            return TickEvent("idle", now, completed=completed)
+        self._started = True
+        decision = self.sched.decide(now)
+        self.stats.evictions = self.sched.evictions
+        self._sync_cache_stats()
+        if decision.kind == "wait":
+            self.stats.waits += 1
+            return TickEvent("wait", decision.wait_until, completed=completed)
+        assert decision.kind == "dispatch" and decision.plan
+        plan = decision.plan
+        # a group whose ops all carry ONE weight key loads the weights once
+        shared = shared_weight_key(plan.ops) is not None
+        outs = self.jit.executor.execute(plan.ops, shared_operand=shared)
+        serial_shapes = [o.shape for o in plan.ops]
+        t = self.cost.coalesced_time(serial_shapes, plan.block,
+                                     shared_operand=shared)
+        stats = self.stats
+        stats.superkernels += 1
+        stats.ops_executed += len(plan.ops)
+        stats.groups.add(len(plan.ops))
+        stats.padding_waste.add(plan.padding_waste)
+        stats.shared_dispatches += int(shared)
+        stats.coalesced_groups += int(len(plan.ops) > 1)
+        if len({op.stream_id for op in plan.ops}) > 1 \
+                and any(op.op_kind == "prefill" for op in plan.ops):
+            stats.prefill_coalesced += 1
+        stats.modeled_time_s += t
+        stats.modeled_serial_time_s += self.cost.time_multiplexed(
+            serial_shapes, plan.block)
+        for op, out in zip(plan.ops, outs):
+            prog, st = self.live.pop(op.op_id)
+            st.output_fn(prog.env, out)
+            prog.pc += 1
+            nxt = prog.advance_glue()
+            if nxt is None:
+                completed.append(prog)
+            else:
+                self._push_op(prog, nxt)
+        # re-sync so a session that ends on this tick still reports the
+        # executor/plan-cache work it just did
+        self._sync_cache_stats()
+        return TickEvent("dispatch", now + t, dt=t, completed=completed)
+
+
+class VLIWJit:
+    """Run tenant KernelPrograms to completion with OoO coalescing."""
+
+    def __init__(self, cost: Optional[CostModel] = None,
+                 sched_cfg: SchedulerConfig = SchedulerConfig(),
+                 max_group: int = 16, bm: int = 8,
+                 plan_capacity: int = 128,
+                 weight_capacity: Optional[int] = None,
+                 weight_budget_bytes: Optional[int] = 1 << 30):
+        # the modelled device defaults to the H100 (spec-sheet values;
+        # every time the cost model derives is modelled, not measured)
+        self.cost = cost or CostModel(H100)
+        # persistent plan caches: program templates and superkernel block
+        # plans; plan_capacity=0 disables both
+        self.plan_cache = PlanCache(plan_capacity)
+        self.block_plans = PlanCache(plan_capacity * 4)
+        self.max_group = max_group
+        self.coalescer = Coalescer(self.cost, max_group=max_group,
+                                   memo=self.block_plans)
+        self.sched_cfg = sched_cfg
+        self.bm = bm
+        # packed weight operands cached across sessions; entries are full
+        # padded weight copies, so weight_budget_bytes (LRU over bytes;
+        # None = unbounded) is what bounds device memory
+        wcap = 2 * plan_capacity if weight_capacity is None else \
+            weight_capacity
+        self.weight_cache = PlanCache(wcap,
+                                      byte_capacity=weight_budget_bytes)
+        self.executor = SuperkernelExecutor(self.weight_cache, bm=bm)
+
+    def session(self) -> JitSession:
+        """Open an admission-open event-loop session (engine entry point)."""
+        return JitSession(self)
+
+    def run(self, programs: Sequence[KernelProgram],
+            arrivals: Optional[Sequence[Arrival]] = None,
+            start_t: float = 0.0) -> JitStats:
+        """Drive a session to completion on a virtual clock: ``programs``
+        are admitted at ``start_t``; each ``(t, program)`` in ``arrivals``
+        is admitted mid-flight once the clock reaches ``t``."""
+        session = self.session()
+        for prog in programs:
+            session.admit(prog)
+        queue = sorted(arrivals or (), key=lambda e: e[0])
+        qi = 0
+        now = start_t
+        while True:
+            while qi < len(queue) and queue[qi][0] <= now:
+                entry = queue[qi][1]
+                session.admit(entry() if callable(entry) else entry)
+                qi += 1
+            session.set_next_arrival(queue[qi][0] if qi < len(queue)
+                                     else math.inf)
+            ev = session.tick(now)
+            if ev.kind == "idle":
+                if qi < len(queue):
+                    now = queue[qi][0]
+                    continue
+                break
+            now = max(now, ev.t)
+        return session.stats

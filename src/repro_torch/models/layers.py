@@ -1,0 +1,123 @@
+"""Shared building blocks (plain PyTorch functions on tensors).
+
+Conventions, as in the JAX package's ``models/layers.py``:
+  * params are plain dicts of tensors;
+  * per-layer params are STACKED on a leading layer axis ([L, ...]);
+  * matmuls run in the param dtype (bf16 by default), reductions (norms,
+    softmax) in fp32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# initializers (on the tensor's device, from an explicit torch.Generator)
+# ---------------------------------------------------------------------------
+
+def dense_init_(out: torch.Tensor, generator: torch.Generator,
+                scale: float = 1.0) -> torch.Tensor:
+    """Fill ``out`` with truncated-normal fan-in init (stddev = scale /
+    sqrt(fan_in), cut at ±2 stddev), drawn in fp32 one leading slice at a
+    time so a stacked [L, ...] weight never needs an fp32 copy of itself."""
+    fan_in = out.shape[-2] if out.dim() >= 2 else out.shape[-1]
+    std = scale / math.sqrt(fan_in)
+    slices = out if out.dim() >= 3 else out[None]
+    for s in slices:
+        tmp = torch.empty(s.shape, dtype=torch.float32, device=s.device)
+        torch.nn.init.trunc_normal_(tmp, std=std, a=-2.0 * std, b=2.0 * std,
+                                    generator=generator)
+        s.copy_(tmp)
+    return out
+
+
+def embed_init_(out: torch.Tensor, generator: torch.Generator
+                ) -> torch.Tensor:
+    tmp = torch.randn(out.shape, dtype=torch.float32, device=out.device,
+                      generator=generator)
+    return out.copy_(tmp * 0.02)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """fp32 RMS norm with the gemma ``(1 + gamma)`` scale convention."""
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return ((xf * scale) * (1.0 + gamma.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+# Host-precomputed rope cos/sin tables, one per (head_dim, theta), built
+# exactly as the JAX package builds them (float64 numpy, cast to float32),
+# so both packages rotate by the same bits. 8192 positions bounds every
+# cache/prefill geometry served; an index past it raises (keep
+# cache_len <= ROPE_TABLE_POSITIONS).
+ROPE_TABLE_POSITIONS = 8192
+_ROPE_TRIG: Dict[Any, Any] = {}
+_ROPE_DEVICE: Dict[Any, Any] = {}
+
+
+def _rope_trig_tables(head_dim: int, theta: float):
+    key = (head_dim, float(theta))
+    tab = _ROPE_TRIG.get(key)
+    if tab is None:
+        half = head_dim // 2
+        freqs = 1.0 / (theta ** (np.arange(half, dtype=np.float64) / half))
+        ang = np.arange(ROPE_TABLE_POSITIONS,
+                        dtype=np.float64)[:, None] * freqs
+        tab = (np.cos(ang).astype(np.float32),
+               np.sin(ang).astype(np.float32))
+        _ROPE_TRIG[key] = tab
+    return tab
+
+
+def _rope_tables_on(head_dim: int, theta: float, device: torch.device):
+    key = (head_dim, float(theta), str(device))
+    tab = _ROPE_DEVICE.get(key)
+    if tab is None:
+        cos_t, sin_t = _rope_trig_tables(head_dim, theta)
+        tab = (torch.from_numpy(cos_t).to(device),
+               torch.from_numpy(sin_t).to(device))
+        _ROPE_DEVICE[key] = tab
+    return tab
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: broadcastable to [..., seq]."""
+    cos_t, sin_t = _rope_tables_on(int(x.shape[-1]), theta, x.device)
+    idx = positions.long()
+    cos = cos_t[idx][..., None, :]                # [..., seq, 1, half]
+    sin = sin_t[idx][..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """silu(gate) * up — the gated-FFN activation."""
+    return F.silu(gate) * up
+
+
+def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    gate = x @ params["w_gate"]
+    up = x @ params["w_up"]
+    return silu_mul(gate, up) @ params["w_down"]
