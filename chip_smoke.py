@@ -8,7 +8,9 @@ Run from the root of a checkout. It needs one CUDA card and ``nvcc``
 Phases, each printing its own lines; a failing phase raises:
 
   1. device      — the card's name and power limit (nvidia-smi);
-  2. build       — nvcc builds the superkernel library from the sources;
+  2. build       — nvcc builds every kernel library from the sources, one
+                   nvcc per source, all started together, with each
+                   kernel's ptxas lines (registers, shared memory, spills);
   3. kernel      — ``coalesced_gemm`` (CUDA) against its plain PyTorch
                    version at the serving path's shapes, fp32 and bf16, with
                    CUDA-event times of the kernel, the plain version and one
@@ -16,6 +18,15 @@ Phases, each printing its own lines; a failing phase raises:
                    could take (bytes at 3.35 TB/s, or operations at the
                    peak rate of their type: 67 TFLOP/s fp32 without tensor
                    cores, 989 TFLOP/s bf16);
+     kernel-gemv — ``coalesced_gemv`` (CUDA) the same way at the LSTM shape
+                   of the RNN bench (G = 2, 4, 8; K = 2048, N = 4096) and at
+                   the yi-9b decode envelope [4, 4096, 16384]; library call
+                   ``torch.bmm``; L2 flushed before every timed call;
+     kernel-attn — ``flash_attention`` (CUDA) the same way at yi-9b global
+                   attention (32 heads, S = 4096, D = 128, causal),
+                   gemma3-1b local attention (4 heads on its one kv head,
+                   S = 4096, D = 256, window 1024) and one S < 128 case;
+                   library call ``scaled_dot_product_attention``, timed only;
   4. serve-shared  — the main path: ``ServingEngine`` in ``vliw`` mode, two
                    tenants sharing one full-width yi-9b weight set (bf16,
                    48 layers unless the card's free memory forces a cut,
@@ -29,11 +40,19 @@ Phases, each printing its own lines; a failing phase raises:
                    trace, weights and prompts served on the card (kernel)
                    and on the CPU (plain versions) give identical greedy
                    tokens;
-  7. the kernel table as one JSON line, then the result line.
+  7. rnn-matvec  — the matvec regime's path: ``SuperkernelExecutor.matvec``
+                   at the LSTM shape (fp32, G = 4) for 20 ticks, distinct
+                   weights (``coalesced_gemv``) and shared weights
+                   (``coalesced_gemm``), outputs against ``ops.coalesced_
+                   matvec`` on the card and the CPU plain path; prints the
+                   coalescer's decision and host time per tick;
+  8. windowed-attention — ``ops.windowed_attention`` at the gemma3-1b local
+                   shape on the card against the CPU plain path;
+  9. the kernel table as one JSON line, then the result line.
 
-Launch counts are set to 0 just before each serving phase and read just
-after it; the comparisons of phase 3 are not counted there. Weights are
-random, made on the card from fixed seeds.
+Launch counts are set to 0 just before each path phase (4-8) and read just
+after it; the comparisons of phase 3 are not counted there. Weights and
+inputs are random, made from fixed seeds.
 """
 from __future__ import annotations
 
@@ -65,8 +84,10 @@ def say(phase: str, **kv) -> None:
           flush=True)
 
 
-def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, in ms."""
+def time_ms(fn, reps: int = 15, warmup: int = 3, flush=None) -> float:
+    """Median CUDA-event time of one call, in ms. ``flush``: a tensor
+    larger than the 50 MB L2 cache, overwritten before every timed call
+    (outside its events) so the call finds its operands in device memory."""
     import torch
     for _ in range(warmup):
         fn()
@@ -75,6 +96,8 @@ def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     for _ in range(reps):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.add_(1)
         s.record()
         fn()
         e.record()
@@ -99,15 +122,24 @@ def phase_device(torch):
     return name, smi
 
 
-def phase_build(cg):
+def phase_build(build, cg, gv, fa):
     t0 = time.perf_counter()
-    built = cg.build()
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "smem" in ln or "spill" in ln]
-    for ln in ptxas:
-        print("  ptxas:", ln)
+    libs = build.load_all([m.LIBRARY for m in (cg, gv, fa)])
+    for built in libs:
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "smem" in ln or "spill" in ln]
+        for ln in ptxas:
+            print(f"  ptxas[{built.library.name}]:", ln)
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
-        library=built.path.name)
+        libraries=",".join(b.path.name for b in libs),
+        builds=build.build_count())
+    # the wrapper's count of the attention kernel's dynamic shared memory is
+    # the source's
+    lib = libs[-1].lib
+    for d in fa.HEAD_DIMS:
+        assert lib.flash_attention_smem_bytes(d) == fa.smem_bytes(d), d
+    say("build", flash_attention_smem_bytes={
+        d: fa.smem_bytes(d) for d in fa.HEAD_DIMS})
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +223,147 @@ def phase_kernel(torch, cg, ref):
                 bound_share=f"{bound_ms / kernel_ms:.3f}")
             del a, b, gid, got, want
     torch.cuda.empty_cache()
+    return rows_out
+
+
+def _bound(moved_bytes, flops, dname):
+    t_bytes = moved_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dname]
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+GEMV_SHAPES = [
+    # (label, G, K, N, dtypes)
+    ("lstm G=2", 2, 2048, 4096, ("float32", "bfloat16")),
+    ("lstm G=4", 4, 2048, 4096, ("float32", "bfloat16")),
+    ("lstm G=8", 8, 2048, 4096, ("float32", "bfloat16")),
+    ("yi-9b decode envelope (ffn gate)", 4, 4096, 16384,
+     ("float32", "bfloat16")),
+]
+
+
+def phase_kernel_gemv(torch, gv, ref, flush):
+    rows_out = []
+    for label, G, K, N, dtypes in GEMV_SHAPES:
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            g = torch.Generator(device="cuda").manual_seed(G * K + N)
+            x = torch.randn(G, K, device="cuda", generator=g).to(dtype)
+            w = (torch.randn(G, K, N, device="cuda", generator=g)
+                 / math.sqrt(K)).to(dtype)
+            got = gv.coalesced_gemv(x, w)
+            torch.cuda.synchronize()
+            want = ref(x, w)
+            rtol, atol = TOL[dname]
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                       atol=atol)
+            err = float((got.float() - want.float()).abs().max())
+            kernel_ms = time_ms(lambda: gv.coalesced_gemv(x, w), flush=flush)
+            plain_ms = time_ms(lambda: ref(x, w), reps=5, flush=flush)
+            x3 = x[:, None]
+            library_ms = time_ms(lambda: torch.bmm(x3, w), flush=flush)
+            db = x.element_size()
+            bound_ms, bound_by = _bound((G * K + G * K * N + G * N) * db,
+                                        2.0 * G * K * N, dname)
+            rows_out.append(dict(
+                shape=label, dtype=dname, G=G, K=K, N=N, max_abs_err=err,
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library="torch.bmm", bound_ms=bound_ms, bound_by=bound_by))
+            say("kernel-gemv", shape=repr(label), dtype=dname,
+                x=f"[{G},{K}]", w=f"[{G},{K},{N}]", max_abs_err=f"{err:.3e}",
+                kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                library_ms=f"{library_ms:.4f}(torch.bmm)",
+                bound_ms=f"{bound_ms:.4f}({bound_by})",
+                bound_share=f"{bound_ms / kernel_ms:.3f}")
+            del x, w, x3, got, want
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+ATTN_SHAPES = [
+    # (label, BH, S, D, causal, window, heads sharing one k/v)
+    ("yi-9b global (32 heads)", 32, 4096, 128, True, 0, 1),
+    ("gemma3-1b local (4 heads on 1 kv head)", 4, 4096, 256, True, 1024, 4),
+    ("short prompt S=96 (yi-9b)", 32, 96, 128, True, 0, 1),
+]
+# kernel against plain version: fp32 at the attention tolerance of
+# tests/test_kernels.py (online softmax against a dense softmax, sums over
+# S keys in other orders); bf16 at one bf16 ulp of outputs of order 1
+ATTN_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (1e-2, 1e-4)}
+
+
+def unmasked_pairs(S, causal, window):
+    """(row, col) pairs the mask leaves visible: the pairs this input's
+    attention has to compute."""
+    total = 0
+    for r in range(S):
+        lo = max(0, r - window + 1) if window > 0 else 0
+        hi = r + 1 if causal else S
+        total += max(0, hi - lo)
+    return total
+
+
+def _attn_inputs(torch, BH, S, D, share, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(BH, S, D, device="cuda", generator=g)
+    k, v = (torch.randn(BH // share, 1, S, D, device="cuda", generator=g)
+            .expand(BH // share, share, S, D).reshape(BH, S, D)
+            for _ in range(2))
+    return q.to(dtype), k.to(dtype).contiguous(), v.to(dtype).contiguous()
+
+
+def phase_kernel_attn(torch, fa, ref, flush):
+    import torch.nn.functional as F
+    rows_out = []
+    for label, BH, S, D, causal, window, share in ATTN_SHAPES:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            q, k, v = _attn_inputs(torch, BH, S, D, share, dtype, seed=S + D)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = ref(q, k, v, causal=causal, window=window)
+            assert bool(torch.isfinite(got.float()).all())
+            rtol, atol = ATTN_TOL[dname]
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                       atol=atol)
+            err = float((got.float() - want.float()).abs().max())
+            del want
+            kernel_ms = time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=causal, window=window), reps=10, flush=flush)
+            plain_ms = time_ms(lambda: ref(q, k, v, causal=causal,
+                                           window=window),
+                               reps=3, warmup=1, flush=flush)
+            q4, k4, v4 = (t[None] for t in (q, k, v))
+            if window > 0:
+                rows = torch.arange(S, device="cuda")[:, None]
+                cols = torch.arange(S, device="cuda")[None, :]
+                mask = (cols <= rows) & (cols > rows - window)
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q4, k4, v4, attn_mask=mask)
+            else:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q4, k4, v4, is_causal=causal)
+            library_ms = time_ms(lib, reps=10, flush=flush)
+            pairs = unmasked_pairs(S, causal, window)
+            db = q.element_size()
+            bound_ms, bound_by = _bound(4 * BH * S * D * db,
+                                        4.0 * D * pairs * BH, dname)
+            rows_out.append(dict(
+                shape=label, dtype=dname, BH=BH, S=S, D=D, causal=causal,
+                window=window, max_abs_err=err, ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library="scaled_dot_product_attention", bound_ms=bound_ms,
+                bound_by=bound_by, unmasked_pairs=pairs))
+            say("kernel-attn", shape=repr(label), dtype=dname,
+                qkv=f"[{BH},{S},{D}]", causal=causal, window=window,
+                max_abs_err=f"{err:.3e}", kernel_ms=f"{kernel_ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}",
+                library_ms=f"{library_ms:.4f}(sdpa)",
+                bound_ms=f"{bound_ms:.4f}({bound_by})",
+                bound_share=f"{bound_ms / kernel_ms:.3f}")
+            del q, k, v, q4, k4, v4, got
+            torch.cuda.empty_cache()
     return rows_out
 
 
@@ -423,6 +596,116 @@ def phase_card_vs_cpu(torch, cg):
 
 
 # ---------------------------------------------------------------------------
+# 7-8. the matvec regime and windowed attention
+# ---------------------------------------------------------------------------
+
+def phase_rnn_matvec(torch, cg, gv):
+    from repro_torch.core import (H100, Coalescer, CostModel, GemmShape,
+                                  PlanCache, SuperkernelExecutor, make_op)
+    from repro_torch.kernels import ops
+    G, K, N, ticks = 4, 2048, 4096, 20
+    lstm = GemmShape(m=1, n=N, k=K, dtype_bytes=4)
+    coal = Coalescer(CostModel(H100))
+    for n_ops in (2, 3, 4, 8):
+        plan = coal.plan([make_op(i, "gemv", lstm, tag="lstm_x",
+                                  model_id="lstm", seq_index=0)
+                          for i in range(n_ops)])
+        say("rnn-matvec", plan=f"G={n_ops}",
+            shared_operand=plan.shared_operand,
+            modeled_us=f"{plan.est_time_s * 1e6:.3f}(H100 cost model)")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    ws = [torch.randn(K, N, device="cuda", generator=g) / math.sqrt(K)
+          for _ in range(G)]
+    xs = torch.randn(ticks, G, K, device="cuda", generator=g)
+    result = {}
+    for regime, weights in (("distinct", ws), ("shared", [ws[0]] * G)):
+        ex = SuperkernelExecutor(PlanCache(16, byte_capacity=1 << 30), bm=8)
+        torch.cuda.synchronize()
+        cg.coalesced_gemm.launches = 0
+        gv.coalesced_gemv.launches = 0
+        t0 = time.perf_counter()
+        for t in range(ticks):
+            outs = ex.matvec(list(xs[t]), weights, group="lstm")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_gemv, n_gemm = gv.coalesced_gemv.launches, cg.coalesced_gemm.launches
+        if regime == "distinct":
+            assert n_gemv == ticks and n_gemm == 0, (n_gemv, n_gemm)
+            assert ex.stats.weight_hit_rate == (ticks - 1) / ticks, ex.stats
+        else:
+            assert n_gemm == ticks and n_gemv == 0, (n_gemv, n_gemm)
+        # the last tick against the eager entry point on the card and the
+        # CPU plain path (not counted: the counts were read above)
+        x_last = list(xs[-1])
+        eager = ops.coalesced_matvec(x_last, weights)
+        cpu_w = [w.cpu() for w in weights]
+        cpu_w = [cpu_w[0]] * G if regime == "shared" else cpu_w
+        cpu = ops.coalesced_matvec([x.cpu() for x in x_last], cpu_w)
+        err = 0.0
+        for o, e, c in zip(outs, eager, cpu):
+            assert tuple(o.shape) == (N,) and bool(torch.isfinite(o).all())
+            torch.testing.assert_close(o, e, rtol=2e-4, atol=2e-4)
+            torch.testing.assert_close(o.cpu(), c, rtol=2e-4, atol=2e-4)
+            err = max(err, float((o.cpu() - c).abs().max()))
+        # host wall time per tick: one coalesced call against G calls of
+        # G = 1 (each its own executor slot), printed only
+        singles = [SuperkernelExecutor(PlanCache(4, byte_capacity=1 << 30),
+                                       bm=8) for _ in range(G)]
+        for i in range(G):
+            singles[i].matvec([xs[0, i]], [weights[i]])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(ticks):
+            for i in range(G):
+                singles[i].matvec([xs[t, i]], [weights[i]])
+        torch.cuda.synchronize()
+        wall_single = time.perf_counter() - t1
+        say("rnn-matvec", regime=regime, G=G, K=K, N=N, ticks=ticks,
+            gemv_launches=n_gemv, gemm_launches=n_gemm,
+            weight_hit_rate=f"{ex.stats.weight_hit_rate:.4f}",
+            dispatches=ex.stats.dispatches,
+            kernel_builds=ex.stats.retraces,
+            max_abs_err_vs_cpu=f"{err:.3e}",
+            host_ms_per_tick_coalesced=f"{1e3 * wall / ticks:.4f}",
+            host_ms_per_tick_G_calls=f"{1e3 * wall_single / ticks:.4f}")
+        result[regime] = dict(gemv=n_gemv, gemm=n_gemm, max_abs_err=err,
+                              ms_per_tick=1e3 * wall / ticks,
+                              ms_per_tick_single=1e3 * wall_single / ticks)
+    del ws, xs
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_windowed_attention(torch, fa):
+    from repro_torch.kernels import ops
+    H, S, D, window = 4, 4096, 256, 1024
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn(1, H, S, D, device="cuda", generator=g)
+    k, v = (torch.randn(1, 1, S, D, device="cuda", generator=g)
+            .expand(1, H, S, D) for _ in range(2))
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    out = ops.windowed_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    assert launches == 1, launches
+    assert tuple(out.shape) == (1, H, S, D)
+    assert bool(torch.isfinite(out).all())
+    t0 = time.perf_counter()
+    want = ops.windowed_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                                  window=window)
+    cpu_s = time.perf_counter() - t0
+    torch.testing.assert_close(out.cpu(), want, rtol=2e-5, atol=2e-4)
+    err = float((out.cpu() - want).abs().max())
+    say("windowed-attention", shape=f"[1,{H},{S},{D}]", window=window,
+        launches=launches, max_abs_err_vs_cpu=f"{err:.3e}",
+        cpu_plain_s=f"{cpu_s:.2f}")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return dict(launches=launches, max_abs_err=err)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -438,37 +721,74 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import importlib
-    cg = importlib.import_module("repro_torch.kernels.coalesced_gemm")
-    from repro_torch.kernels.ref import coalesced_gemm_ref
+    build = importlib.import_module("repro_torch.kernels.build")
+    cg, gv, fa = (importlib.import_module(f"repro_torch.kernels.{name}")
+                  for name in ("coalesced_gemm", "coalesced_gemv",
+                               "flash_attention"))
+    from repro_torch.kernels.ref import (coalesced_gemm_ref,
+                                         coalesced_gemv_ref,
+                                         flash_attention_ref)
 
     t_start = time.perf_counter()
     kind, smi = phase_device(torch)
-    phase_build(cg)
+    phase_build(build, cg, gv, fa)
     shapes = phase_kernel(torch, cg, coalesced_gemm_ref)
+    # overwritten before every timed call of the new kernels: 256 MB, five
+    # times the L2 cache
+    flush = torch.zeros(64 << 20, device="cuda")
+    gemv_shapes = phase_kernel_gemv(torch, gv, coalesced_gemv_ref, flush)
+    attn_shapes = phase_kernel_attn(torch, fa, flash_attention_ref, flush)
+    del flush
+    torch.cuda.empty_cache()
     shared = phase_serve_shared(torch, cg)
     grouped = phase_serve_grouped(torch, cg)
     cpu = phase_card_vs_cpu(torch, cg)
+    rnn = phase_rnn_matvec(torch, cg, gv)
+    attn = phase_windowed_attention(torch, fa)
     bad = [k for k in ("jax", "repro") if k in sys.modules]
     assert not bad, f"imported {bad}"
 
+    def entry(name, replaces, launches, by_phase, rows, head, at):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "at": f"{head['shape']}, {head['dtype']}, {at}",
+            "launches_by_phase": by_phase, "shapes": rows}
+
     head = next(r for r in shapes if r["dtype"] == "bfloat16"
                 and r["shape"].startswith("yi-9b decode grouped"))
-    kernels = [{
-        "name": "coalesced_gemm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/coalesced_gemm.cu",
-        "replaces": "src/repro/kernels/coalesced_gemm.py:43",
-        "launches": shared["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in shapes),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "at": f"{head['shape']}, {head['dtype']}, A [{head['M']},"
-              f"{head['K']}], B [{head['G']},{head['K']},{head['N']}]",
-        "launches_by_phase": {"serve-shared": shared["launches"],
-                              "serve-grouped": grouped["launches"],
-                              "card-vs-cpu": cpu["launches"]},
-        "shapes": shapes,
-    }]
+    g_head = next(r for r in gemv_shapes if r["dtype"] == "float32"
+                  and r["shape"] == "lstm G=4")
+    a_head = next(r for r in attn_shapes if r["dtype"] == "float32"
+                  and r["shape"].startswith("gemma3-1b local"))
+    kernels = [
+        entry("coalesced_gemm", "src/repro/kernels/coalesced_gemm.py:43",
+              shared["launches"],
+              {"serve-shared": shared["launches"],
+               "serve-grouped": grouped["launches"],
+               "card-vs-cpu": cpu["launches"],
+               "rnn-matvec (shared)": rnn["shared"]["gemm"]},
+              shapes, head,
+              f"A [{head['M']},{head['K']}], "
+              f"B [{head['G']},{head['K']},{head['N']}]"),
+        entry("coalesced_gemv", "src/repro/kernels/coalesced_gemv.py:40",
+              rnn["distinct"]["gemv"],
+              {"rnn-matvec (distinct)": rnn["distinct"]["gemv"],
+               "rnn-matvec (shared)": rnn["shared"]["gemv"]},
+              gemv_shapes, g_head,
+              f"x [{g_head['G']},{g_head['K']}], "
+              f"w [{g_head['G']},{g_head['K']},{g_head['N']}]"),
+        entry("flash_attention", "src/repro/kernels/flash_attention.py:69",
+              attn["launches"], {"windowed-attention": attn["launches"]},
+              attn_shapes, a_head,
+              f"q/k/v [{a_head['BH']},{a_head['S']},{a_head['D']}], "
+              f"window {a_head['window']}"),
+    ]
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}", card=smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,10 +31,16 @@ unembed transpose for this reason). A weight hot-swap REPLACES the tensors
 the tensor's identity, the guard cannot see it, and the cache would go on
 serving the old packed copy.
 
+``matvec`` is the paper's §5.3 RNN/LSTM regime: G matvecs, one vector per
+stream. G streams on ONE weight tensor go through the shared-operand GEMM
+path; distinct weights are stacked into a cached [G_pad, K, N] operand and
+run by the hand-written ``coalesced_gemv`` kernel (``_dispatch_matvec``).
+
 ``DispatchStats.retraces`` counted jitted-body traces in the JAX package.
 Eager PyTorch has nothing to retrace; the field now counts kernel library
-builds during the dispatch (``kernels.coalesced_gemm.build_count``): one on
-the first CUDA dispatch of a process, 0 after it and 0 on the CPU.
+builds during the dispatch (``kernels.build.build_count``, over all
+kernels): one per library on its first CUDA dispatch in a process, 0 after
+it and 0 on the CPU.
 
 Correctness contract: bucket padding is zeros, and adding ``+0.0`` terms to
 an fp32 accumulator is exact, so the bucketed fast path computes the same
@@ -51,10 +57,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.clustering import matvec_weight_key
 from repro_torch.core.kernelspec import KernelOp
 from repro_torch.core.plancache import PlanCache
 from repro_torch.core.schedtrace import OperandIdentityHazard
-from repro_torch.kernels.coalesced_gemm import build_count, coalesced_gemm
+from repro_torch.kernels.build import build_count
+from repro_torch.kernels.coalesced_gemm import coalesced_gemm
+from repro_torch.kernels.coalesced_gemv import coalesced_gemv
 from repro_torch.kernels.ops import _round_up, envelope_bucket
 
 
@@ -137,6 +146,18 @@ def _dispatch_shared(activations, b_padded, group_ids, *, n_real, m_tiles,
         outs.append(out[s:s + int(a.shape[0]), :n_real])
         s += int(a.shape[0])
     return tuple(outs)
+
+
+def _dispatch_matvec(xs, w_stacked, *, n_real) -> Tuple[torch.Tensor, ...]:
+    """Distinct-weights matvec regime: G_pad vectors against G_pad stacked
+    weight panels via ``coalesced_gemv``. The CALLER owns G-bucket padding
+    (``matvec`` extends ``xs``/``n_real`` with zero vectors to match
+    ``w_stacked``'s leading dim) so exactly one layer decides the bucket."""
+    assert len(xs) == int(w_stacked.shape[0]), (len(xs), w_stacked.shape)
+    K = int(w_stacked.shape[1])
+    xp = torch.stack([F.pad(x, (0, K - int(x.shape[0]))) for x in xs])
+    out = coalesced_gemv(xp, w_stacked)
+    return tuple(out[i, :n] for i, n in enumerate(n_real))
 
 
 def _pow2(n: int) -> int:
@@ -315,9 +336,38 @@ class SuperkernelExecutor:
         return list(outs[:G])
 
     # ------------------------------------------------------------------
-    def matvec(self, xs, ws, *, group=None):
-        """The matvec regime runs the ``coalesced_gemv`` kernel, which is
-        not ported yet (ROADMAP queue 2, item 2: ``coalesced_gemv``)."""
-        raise NotImplementedError(
-            "SuperkernelExecutor.matvec needs the coalesced_gemv kernel, "
-            "which is not ported yet (ROADMAP queue 2, item 2)")
+    def matvec(self, xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+               *, group=None) -> List[torch.Tensor]:
+        """G matvecs (x [k], w [k, n]) with the packed weight operand cached
+        persistently (keyed on the weight tensors' identity). Dispatches the
+        shared-weight GEMM regime when every problem uses the same weight
+        tensor, exactly like the eager ``kernels.ops.coalesced_matvec``.
+
+        A caller that hot-swaps its weights should pass a stable ``group``
+        (any hashable identity of ITS dispatch slot): the ``id(w)``-based
+        keys change with every swap, and without a group tag the
+        superseded packed stacks — each pinning its dead weight tensors via
+        the guard — are only reclaimed by the cache's LRU/byte bounds."""
+        if all(w is ws[0] for w in ws):
+            outs = self.execute_problems(
+                [(x[None, :], ws[0]) for x in xs],
+                [matvec_weight_key(ws[0], shared=True)] * len(xs),
+                shared_operand=True, group=group)
+            return [o[0] for o in outs]
+        self.stats.dispatches += 1
+        builds0 = build_count()
+        G = len(xs)
+        G_pad = _pow2(G)
+        K = envelope_bucket(max(int(w.shape[0]) for w in ws))
+        N = envelope_bucket(max(int(w.shape[1]) for w in ws))
+        wkeys = [matvec_weight_key(w) for w in ws]
+        w_stacked = self._packed_weights(ws, wkeys, K, N, G_pad,
+                                         shared=False, group=group)
+        xs = tuple(xs)
+        n_real = [int(w.shape[1]) for w in ws]
+        if G_pad > G:
+            xs = xs + (torch.zeros_like(xs[0]),) * (G_pad - G)
+            n_real += [n_real[0]] * (G_pad - G)
+        outs = _dispatch_matvec(xs, w_stacked, n_real=tuple(n_real))
+        self.stats.retraces += build_count() - builds0
+        return list(outs[:G])

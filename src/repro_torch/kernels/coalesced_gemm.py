@@ -14,20 +14,15 @@ over the whole card, reads B with 16-byte (fp32) or 8-byte (bf16) coalesced
 loads, and adds the K slices in a fixed order (deterministic output). The
 source's header says more.
 
-Build and bind: at first use the CUDA source is compiled with ``nvcc`` for
-``sm_90a`` into a shared library under ``build/`` at the repository root
-(git-ignored; the file name carries a hash of the source, so an edited
-source rebuilds) and loaded with ``ctypes``. A failed build raises; nothing
-falls back to the plain version.
+Build and bind: ``kernels/build.py`` compiles the CUDA source with ``nvcc``
+for ``sm_90a`` at first use into a shared library under ``build/`` at the
+repository root (git-ignored) and loads it with ``ctypes``. A failed build
+raises; nothing falls back to the plain version.
 
 On a CPU tensor the wrapper returns the plain PyTorch version
 (``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
 ``coalesced_gemm.launches`` counts launches and ``coalesced_gemm.max_groups``
-records the largest G launched; ``build_count()`` counts library builds in
-this process. Eager PyTorch traces nothing, so the dispatch executor's
-``DispatchStats.retraces`` (a count of jitted-body traces in the JAX
-package) counts these builds instead: one on the first CUDA launch of a
-process, none after it.
+records the largest G launched.
 
 B is the packed weight operand the executor caches, identity-guarded on
 the ORIGINAL weight tensors (``core/dispatch.py``): callers hand it the
@@ -36,22 +31,14 @@ never ``copy_``s into them, which the guard could not see.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.build import INT, PTR
 from repro_torch.kernels.ref import coalesced_gemm_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "coalesced_gemm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # The kernel's geometry. This is its one copy: the build passes it to nvcc
 # as -D defines (csrc/coalesced_gemm.cu static_asserts what its code needs
 # of it, shared memory included), and ``launch_config`` sizes the grid
@@ -62,75 +49,15 @@ CHUNK_K = 256         # depth of one K slice
 THREADS = 256         # threads per block
 REDUCE_THREADS = 256  # threads per block of the second (reduction) kernel
 MAX_GRID_YZ = 65535
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DCG_ROWS={ROWS}", f"-DCG_BLOCK_N={BLOCK_N}",
-              f"-DCG_CHUNK_K={CHUNK_K}", f"-DCG_THREADS={THREADS}",
-              f"-DCG_REDUCE_THREADS={REDUCE_THREADS}")
+LIBRARY = _build.Library(
+    "coalesced_gemm",
+    defines=(f"-DCG_ROWS={ROWS}", f"-DCG_BLOCK_N={BLOCK_N}",
+             f"-DCG_CHUNK_K={CHUNK_K}", f"-DCG_THREADS={THREADS}",
+             f"-DCG_REDUCE_THREADS={REDUCE_THREADS}"),
+    entry_points=(("coalesced_gemm_launch",
+                   (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR)),))
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-@dataclasses.dataclass
-class _Built:
-    lib: ctypes.CDLL
-    path: Path
-    log: str                 # nvcc's output (ptxas registers/smem), or ''
-
-
-_LOCK = threading.Lock()
-_BUILT: Optional[_Built] = None
-_BUILDS = 0
-
-
-def build_count() -> int:
-    """Kernel library builds in this process (0 until the first CUDA call)."""
-    return _BUILDS
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("coalesced_gemm: nvcc not found (needed to build "
-                       f"{SOURCE.name} for sm_90a)")
-
-
-def build() -> _Built:
-    """Compile (if needed) and load the kernel library; idempotent."""
-    global _BUILT, _BUILDS
-    with _LOCK:
-        if _BUILT is not None:
-            return _BUILT
-        digest = hashlib.sha1(SOURCE.read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        path = BUILD_DIR / f"libcoalesced_gemm-{digest[:12]}.so"
-        log = ""
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"coalesced_gemm: nvcc failed "
-                                   f"({proc.returncode}):\n{log}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        lib.coalesced_gemm_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.coalesced_gemm_launch.restype = ctypes.c_int
-        lib.coalesced_gemm_error_string.argtypes = [ctypes.c_int]
-        lib.coalesced_gemm_error_string.restype = ctypes.c_char_p
-        _BUILDS += 1
-        _BUILT = _Built(lib, path, log)
-        return _BUILT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,7 +135,7 @@ def coalesced_gemm(a_packed: torch.Tensor, b_stacked: torch.Tensor,
                          f"{a_packed.device}")
     _check_operands(a_packed, b_stacked, group_ids)
     cfg = launch_config(M, K, N, bm)
-    lib = build().lib
+    built = _build.load(LIBRARY)
     out = torch.empty((M, N), dtype=a_packed.dtype, device=a_packed.device)
     # the split-K workspace goes back to the caching allocator when this
     # function returns; the allocator is stream-ordered, so only later work
@@ -216,13 +143,11 @@ def coalesced_gemm(a_packed: torch.Tensor, b_stacked: torch.Tensor,
     part = torch.empty((cfg.slices, M, N), dtype=torch.float32,
                        device=a_packed.device)
     stream = torch.cuda.current_stream(a_packed.device).cuda_stream
-    err = lib.coalesced_gemm_launch(
+    err = built.lib.coalesced_gemm_launch(
         a_packed.data_ptr(), b_stacked.data_ptr(), group_ids.data_ptr(),
         part.data_ptr(), out.data_ptr(), M, K, N, bm,
         _DTYPES[a_packed.dtype], stream)
-    if err:
-        raise RuntimeError(f"coalesced_gemm: launch failed: "
-                           f"{lib.coalesced_gemm_error_string(err).decode()}")
+    built.check(err)
     coalesced_gemm.launches += 1
     coalesced_gemm.max_groups = max(coalesced_gemm.max_groups, G)
     return out

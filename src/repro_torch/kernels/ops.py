@@ -10,6 +10,11 @@ max-(K, N) envelopes. The serving hot path goes through
 weights persistently and buckets envelopes; this module stays the oracle
 those fast paths are tested against.
 
+``coalesced_matvec`` (the matvec regime: G streams on one weight go through
+the GEMM superkernel, distinct weights through ``coalesced_gemv``) and
+``windowed_attention`` (``flash_attention`` on [B, H, S, D]) are the eager
+entry points of the other two kernels.
+
 Launch guard
 ------------
 ``kernels/coalesced_gemm.launch_config`` takes the place of the JAX
@@ -46,6 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.coalesced_gemm import coalesced_gemm
+from repro_torch.kernels.coalesced_gemv import coalesced_gemv
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 def _round_up(x: int, m: int) -> int:
@@ -131,3 +138,30 @@ def execute_superkernel(problems: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                          bm=bm)
     return [out[s:s + m, :n] for (s, m), n in
             zip(packed.row_slices, packed.n_real)]
+
+
+def coalesced_matvec(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+    """G matvecs (x [k], w [k, n]). Dispatches the shared-weight GEMM path
+    when every problem uses the same weight tensor, else pads to a common
+    (K, N) envelope (multiples of 128) and runs ``coalesced_gemv``."""
+    if all(w is ws[0] for w in ws):
+        outs = execute_superkernel([(x[None, :], ws[0]) for x in xs], bm=8,
+                                   shared_operand=True)
+        return [o[0] for o in outs]
+    K = _round_up(max(int(w.shape[0]) for w in ws), 128)
+    N = _round_up(max(int(w.shape[1]) for w in ws), 128)
+    xp = torch.stack([F.pad(x, (0, K - int(x.shape[0]))) for x in xs])
+    wp = torch.stack([_pad2(w, K, N) for w in ws])
+    out = coalesced_gemv(xp, wp)
+    return [out[i, :int(w.shape[1])] for i, w in enumerate(ws)]
+
+
+def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0) -> torch.Tensor:
+    """[B, H, S, D] flash attention through the kernel (flattens B x H)."""
+    B, H, S, D = q.shape
+    out = flash_attention(*(t.reshape(B * H, S, D).contiguous()
+                            for t in (q, k, v)),
+                          causal=causal, window=window)
+    return out.reshape(B, H, S, D)

@@ -24,3 +24,31 @@ def coalesced_gemm_ref(a_packed: torch.Tensor, b_stacked: torch.Tensor,
     b_per_tile = b_stacked[group_ids.long()].float()         # [T, K, N]
     out = torch.einsum("tmk,tkn->tmn", tiles, b_per_tile)
     return out.reshape(M, b_stacked.shape[-1]).to(a_packed.dtype)
+
+
+def coalesced_gemv_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched matvec: x [G, K], w [G, K, N] -> [G, N]. Accumulates in fp32
+    and returns x's dtype."""
+    return torch.einsum("gk,gkn->gn", x.float(), w.float()).to(x.dtype)
+
+
+_NEG = -2.0e38
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Dense attention oracle on q, k, v [BH, S, D] -> [BH, S, D]: a masked
+    softmax in fp32 (scale 1/sqrt(D), masked scores filled with -2e38, as
+    the flash kernel does), returned in q's dtype."""
+    S, D = int(q.shape[1]), int(q.shape[2])
+    scale = 1.0 / D ** 0.5
+    logits = torch.einsum("bsd,btd->bst", q.float(), k.float()) * scale
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= cols <= rows
+    if window > 0:
+        ok &= cols > rows - window
+    p = torch.softmax(logits.masked_fill_(~ok, _NEG), dim=-1)
+    return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card: these tests need a CUDA device and
+"""The port's CUDA kernels on the card: these tests need a CUDA device and
 skip without one. They import no jax, so a machine with a card and without
 jax runs them as they are (``--noconftest``: tests/conftest.py imports jax):
 
@@ -8,7 +8,14 @@ The kernel is held against its plain PyTorch version on the same inputs,
 with B scaled by 1/sqrt(K) so outputs are of order 1: fp32 at 2e-4 (both
 accumulate in IEEE fp32, in different orders); bf16 at one bf16 ulp (both
 round their fp32 sums to bf16), rtol 1e-2 with an absolute floor of 1e-4
-for the fp32 summation noise, as in chip_smoke.py.
+for the fp32 summation noise, as in chip_smoke.py. ``coalesced_gemv`` is
+held the same way (w scaled by 1/sqrt(K), the same two sums in other
+orders). ``flash_attention`` in fp32 at 2e-5 relative with a 2e-4 floor (the
+attention tolerance of tests/test_kernels.py: online softmax against a
+dense softmax, expf against torch's exp, sums over S keys in other
+orders); in bf16 at one bf16 ulp of the output, rtol 1e-2, with a 1e-4
+floor: both sides widen the same bf16 inputs and round fp32 results of
+order 1 or less to bf16.
 """
 import importlib
 
@@ -17,12 +24,18 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import coalesced_gemm_ref
+from repro_torch.core.dispatch import SuperkernelExecutor
+from repro_torch.core.plancache import PlanCache
+from repro_torch.kernels.ref import (coalesced_gemm_ref, coalesced_gemv_ref,
+                                     flash_attention_ref)
 from repro_torch.models import Model
 from repro_torch.serving import ServingEngine, Tenant, make_trace
 
 cg = importlib.import_module("repro_torch.kernels.coalesced_gemm")
+gv = importlib.import_module("repro_torch.kernels.coalesced_gemv")
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-4)}
+ATTN_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (1e-2, 1e-4)}
 
 
 @pytest.fixture
@@ -117,3 +130,86 @@ def test_engine_tokens_card_equals_cpu(cuda):
         if m is m_gpu:
             assert cg.coalesced_gemm.max_groups >= 2
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,K,N", [(3, 300, 256), (3, 384, 384),
+                                   (2, 2048, 4096)])
+def test_gemv_kernel_matches_plain(cuda, G, K, N, dtype):
+    """Ragged K (300: no multiple of any tile) and the K = 300 problem
+    padded to 384 as ``ops.coalesced_matvec`` pads it."""
+    g = torch.Generator().manual_seed(G + K)
+    x = torch.randn(G, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(G, K, N, generator=g) / K ** 0.5).to(cuda, dtype)
+    n0 = gv.coalesced_gemv.launches
+    got = gv.coalesced_gemv(x, w)
+    torch.cuda.synchronize()
+    assert gv.coalesced_gemv.launches == n0 + 1
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), coalesced_gemv_ref(x, w).float(),
+                               rtol=rtol, atol=atol)
+
+
+def test_coalesced_matvec_on_card(cuda):
+    g = torch.Generator().manual_seed(3)
+    dims = [(300, 200), (260, 190), (128, 256)]
+    xs = [torch.randn(k, generator=g).to(cuda) for k, _ in dims]
+    ws = [torch.randn(k, n, generator=g).to(cuda) for k, n in dims]
+    n0 = gv.coalesced_gemv.launches
+    for got, x, w in zip(ops.coalesced_matvec(xs, ws), xs, ws):
+        torch.testing.assert_close(got, x @ w, rtol=2e-4, atol=2e-4)
+    assert gv.coalesced_gemv.launches == n0 + 1
+
+
+def test_executor_matvec_counts_a_gemv_launch_per_call(cuda):
+    g = torch.Generator().manual_seed(4)
+    xs = [torch.randn(300, generator=g).to(cuda) for _ in range(3)]
+    ws = [torch.randn(300, 200, generator=g).to(cuda) for _ in range(3)]
+    ex = SuperkernelExecutor(PlanCache(8), bm=8)
+    n0, m0 = gv.coalesced_gemv.launches, cg.coalesced_gemm.launches
+    for _ in range(4):
+        outs = ex.matvec(xs, ws)
+    torch.cuda.synchronize()
+    assert gv.coalesced_gemv.launches == n0 + 4
+    assert cg.coalesced_gemm.launches == m0
+    assert ex.stats.weight_hits == 3 and ex.stats.weight_misses == 1
+    for got, x, w in zip(outs, xs, ws):
+        torch.testing.assert_close(got, x @ w, rtol=2e-4, atol=2e-4)
+    ex.matvec(xs, [ws[0]] * 3)            # shared weights: the GEMM path
+    assert cg.coalesced_gemm.launches == m0 + 1
+    assert gv.coalesced_gemv.launches == n0 + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,D,causal,window", [
+    (4, 300, 256, True, 100),      # D = 256 (dynamic shared memory), window
+    (3, 48, 64, True, 0),          # S below one tile
+    (3, 48, 32, False, 16),
+    (2, 200, 128, False, 0)])
+def test_flash_attention_kernel_matches_plain(cuda, BH, S, D, causal, window,
+                                              dtype):
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn(BH, S, D, generator=g).to(cuda, dtype)
+               for _ in range(3))
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(got.float()).all())
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_windowed_attention_on_card(cuda):
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 4, 256, 256, generator=g).to(cuda)
+               for _ in range(3))
+    n0 = fa.flash_attention.launches
+    got = ops.windowed_attention(q, k, v, causal=True, window=64)
+    assert fa.flash_attention.launches == n0 + 1
+    want = flash_attention_ref(*(t.reshape(4, 256, 256) for t in (q, k, v)),
+                               causal=True, window=64)
+    torch.testing.assert_close(got.reshape(4, 256, 256), want, rtol=2e-5,
+                               atol=2e-4)

@@ -107,8 +107,8 @@ def test_launch_guard(M, K, N, bm, ok):
     """The guard that replaces the TPU VMEM check raises on what the CUDA
     kernel would refuse and passes the main path's shapes; its geometry is
     the one the build hands nvcc."""
-    assert f"-DCG_ROWS={cg.ROWS}" in cg.NVCC_FLAGS
-    assert f"-DCG_BLOCK_N={cg.BLOCK_N}" in cg.NVCC_FLAGS
+    assert f"-DCG_ROWS={cg.ROWS}" in cg.LIBRARY.flags
+    assert f"-DCG_BLOCK_N={cg.BLOCK_N}" in cg.LIBRARY.flags
     if ok:
         cfg = cg.launch_config(M, K, N, bm)
         assert cfg.grid == (M // cg.ROWS, N // cg.BLOCK_N,
@@ -230,17 +230,24 @@ def test_executor_hot_swap_by_replacement():
     torch.testing.assert_close(out, a @ new_w, rtol=2e-4, atol=2e-4)
 
 
-def test_executor_matvec_names_the_roadmap_item():
-    ex = SuperkernelExecutor(PlanCache(4), bm=8)
-    with pytest.raises(NotImplementedError, match="coalesced_gemv"):
-        ex.matvec([torch.zeros(128)], [torch.zeros(128, 128)])
-
-
-def test_kernel_source_and_build_are_lazy():
-    """The CUDA source ships beside the wrapper, and importing the module
-    builds nothing (there is no nvcc on a CPU host)."""
-    assert cg.SOURCE.exists() and cg.SOURCE.suffix == ".cu"
-    text = cg.SOURCE.read_text()
+@pytest.mark.parametrize("name,entry", [
+    ("coalesced_gemm", "coalesced_gemm_launch"),
+    ("coalesced_gemv", "coalesced_gemv_launch"),
+    ("flash_attention", "flash_attention_launch")])
+def test_kernel_source_and_build_are_lazy(name, entry):
+    """Each CUDA source ships beside its wrapper, is built for sm_90a by the
+    one shared loader, and importing the wrapper builds nothing (there is no
+    nvcc on a CPU host)."""
+    from repro_torch.kernels import build
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    source = mod.LIBRARY.source
+    assert source.exists() and source.suffix == ".cu"
+    assert source.parent == build.CSRC and source.stem == name
+    text = source.read_text()
     assert "extern \"C\"" in text and "int64_t" in text
-    assert cg.build_count() == 0
-    assert "sm_90a" in " ".join(cg.NVCC_FLAGS)
+    assert f"{name}_error_string" in text and entry in text
+    assert entry in dict(mod.LIBRARY.entry_points)
+    assert "sm_90a" in " ".join(mod.LIBRARY.flags)
+    assert mod.LIBRARY.flags[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
+    assert build.build_count() == 0
+    assert mod.LIBRARY.path().parent == build.BUILD_DIR
