@@ -11,13 +11,18 @@ Phases, each printing its own lines; a failing phase raises:
   2. build       — nvcc builds every kernel library from the sources, one
                    nvcc per source, all started together, with each
                    kernel's ptxas lines (registers, shared memory, spills);
+                   one line per ``flash_attention`` instance (dtype, head
+                   dim) with its MMA path, registers, spill bytes (must be
+                   0) and the HMMA instructions in its SASS (``cuobjdump
+                   -sass``; must be > 0: the instance runs on tensor cores);
   3. kernel      — ``coalesced_gemm`` (CUDA) against its plain PyTorch
                    version at the serving path's shapes, fp32 and bf16, with
                    CUDA-event times of the kernel, the plain version and one
                    PyTorch library call, beside the least time the card
                    could take (bytes at 3.35 TB/s, or operations at the
                    peak rate of their type: 67 TFLOP/s fp32 without tensor
-                   cores, 989 TFLOP/s bf16);
+                   cores, 989 TFLOP/s bf16; fp32 attention at the 3xTF32
+                   rate, a third of 495 TFLOP/s TF32);
      kernel-gemv — ``coalesced_gemv`` (CUDA) the same way at the LSTM shape
                    of the RNN bench (G = 2, 4, 8; K = 2048, N = 4096) and at
                    the yi-9b decode envelope [4, 4096, 16384]; library call
@@ -25,7 +30,8 @@ Phases, each printing its own lines; a failing phase raises:
      kernel-attn — ``flash_attention`` (CUDA) the same way at yi-9b global
                    attention (32 heads, S = 4096, D = 128, causal),
                    gemma3-1b local attention (4 heads on its one kv head,
-                   S = 4096, D = 256, window 1024) and one S < 128 case;
+                   S = 4096, D = 256, window 1024) and one S < 128 case,
+                   each line naming the instance's MMA path (``mma=``);
                    library call ``scaled_dot_product_attention``, timed only;
   4. serve-shared  — the main path: ``ServingEngine`` in ``vliw`` mode, two
                    tenants sharing one full-width yi-9b weight set (bf16,
@@ -59,6 +65,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +77,9 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# fp32 attention runs as 3xTF32 on the tensor cores (three TF32 products a
+# product, each at the 495 TFLOP/s TF32 peak): its least time is at that rate
+ATTN_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # (rtol, atol) of kernel against plain version. Both add in IEEE fp32, in
 # different orders, so their sums differ by a few fp32 ulps (outputs are of
 # order 1: B is scaled by 1/sqrt(K)); bf16 then rounds both sums to bf16,
@@ -122,6 +132,58 @@ def phase_device(torch):
     return name, smi
 
 
+_INSTANCE = re.compile(r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def _instance(symbol):
+    """'bfloat16/128' for a mangled flash_kernel<T, D> symbol, else None."""
+    m = _INSTANCE.search(symbol)
+    if m is None:
+        return None
+    return f"{'float32' if m.group(1) == 'f' else 'bfloat16'}/{m.group(2)}"
+
+
+def _ptxas_per_instance(log):
+    """{instance: (registers, spill bytes)} from ptxas -v lines."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^'\s]+)", ln)
+        if m:
+            cur = _instance(m.group(1))
+            continue
+        if cur is None:
+            continue
+        regs, spill = out.get(cur, (0, 0))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            regs = int(m.group(1))
+        out[cur] = (regs, spill)
+    return out
+
+
+def _hmma_per_instance(build, path):
+    """{instance: HMMA count} in the SASS of the built library (the
+    cuobjdump of the toolkit that built it)."""
+    sass = subprocess.run(
+        [str(Path(build._nvcc()).with_name("cuobjdump")), "-sass", str(path)],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = _instance(m.group(1))
+            if cur is not None:
+                out.setdefault(cur, 0)
+        elif cur is not None and "HMMA" in ln:
+            out[cur] += 1
+    return out
+
+
 def phase_build(build, cg, gv, fa):
     t0 = time.perf_counter()
     libs = build.load_all([m.LIBRARY for m in (cg, gv, fa)])
@@ -134,12 +196,26 @@ def phase_build(build, cg, gv, fa):
         libraries=",".join(b.path.name for b in libs),
         builds=build.build_count())
     # the wrapper's count of the attention kernel's dynamic shared memory is
-    # the source's
+    # the source's, for every dtype and head dim
     lib = libs[-1].lib
-    for d in fa.HEAD_DIMS:
-        assert lib.flash_attention_smem_bytes(d) == fa.smem_bytes(d), d
-    say("build", flash_attention_smem_bytes={
-        d: fa.smem_bytes(d) for d in fa.HEAD_DIMS})
+    for dtype, code in fa.DTYPE_CODES.items():
+        for d in fa.HEAD_DIMS:
+            assert lib.flash_attention_smem_bytes(d, code) == \
+                fa.smem_bytes(d, dtype), (dtype, d)
+    # every attention instance runs on tensor cores (HMMA in its SASS) and
+    # keeps its registers (no spills)
+    ptxas = _ptxas_per_instance(libs[-1].log)
+    hmma = _hmma_per_instance(build, libs[-1].path)
+    for dtype in fa.DTYPE_CODES:
+        dname = str(dtype).removeprefix("torch.")
+        for d in fa.HEAD_DIMS:
+            key = f"{dname}/{d}"
+            regs, spill = ptxas[key]
+            say("build", flash_kernel=key, mma=fa.MMA[dtype],
+                smem_bytes=fa.smem_bytes(d, dtype), registers=regs,
+                spill_bytes=spill, hmma=hmma[key])
+            assert spill == 0, (key, spill)
+            assert hmma[key] > 0, (key, hmma[key])
 
 
 # ---------------------------------------------------------------------------
@@ -226,9 +302,9 @@ def phase_kernel(torch, cg, ref):
     return rows_out
 
 
-def _bound(moved_bytes, flops, dname):
+def _bound(moved_bytes, flops, dname, peak=PEAK_FLOPS):
     t_bytes = moved_bytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dname]
+    t_ops = flops / peak[dname]
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -348,14 +424,17 @@ def phase_kernel_attn(torch, fa, ref, flush):
             pairs = unmasked_pairs(S, causal, window)
             db = q.element_size()
             bound_ms, bound_by = _bound(4 * BH * S * D * db,
-                                        4.0 * D * pairs * BH, dname)
+                                        4.0 * D * pairs * BH, dname,
+                                        ATTN_PEAK_FLOPS)
             rows_out.append(dict(
                 shape=label, dtype=dname, BH=BH, S=S, D=D, causal=causal,
-                window=window, max_abs_err=err, ms=kernel_ms,
+                window=window, mma=fa.MMA[dtype], max_abs_err=err,
+                ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
                 library="scaled_dot_product_attention", bound_ms=bound_ms,
                 bound_by=bound_by, unmasked_pairs=pairs))
             say("kernel-attn", shape=repr(label), dtype=dname,
+                mma=fa.MMA[dtype],
                 qkv=f"[{BH},{S},{D}]", causal=causal, window=window,
                 max_abs_err=f"{err:.3e}", kernel_ms=f"{kernel_ms:.4f}",
                 plain_ms=f"{plain_ms:.4f}",

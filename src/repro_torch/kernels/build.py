@@ -7,8 +7,11 @@ the source at first use with ``nvcc`` for ``sm_90a`` into a shared library
 under ``build/repro_torch/`` at the repository root (git-ignored) and loads
 it with ``ctypes``; ``load_all`` starts one nvcc per source, all at once,
 and waits for them together. The file name carries a hash of the source and
-the flags, so an edited source or changed geometry rebuilds. A failed build
-raises; nothing falls back to a plain version.
+the flags, so an edited source or changed geometry rebuilds. nvcc's output
+(ptxas registers, shared memory, spills) is kept beside the library as
+``<lib>.log`` and read back when the library is found built, so ``Built.log``
+is the same on a warm cache; a library without its log is built again. A
+failed build raises; nothing falls back to a plain version.
 
 Every source exports ``<name>_error_string(int)`` beside its launch entry
 points, which return ``cudaGetLastError()`` of their launches: ``check``
@@ -68,7 +71,7 @@ class Library:
 class Built:
     lib: ctypes.CDLL
     path: Path
-    log: str                 # nvcc's output (ptxas registers/smem), or ''
+    log: str                 # nvcc's output (ptxas registers/smem/spills)
     library: Library
 
     def check(self, err: int) -> None:
@@ -100,6 +103,10 @@ def _nvcc() -> str:
                        f"{CSRC} for sm_90a)")
 
 
+def _log_path(path: Path) -> Path:
+    return path.with_suffix(".log")
+
+
 def _bind(library: Library, path: Path, log: str) -> Built:
     lib = ctypes.CDLL(str(path))
     for symbol, argtypes in library.entry_points:
@@ -122,7 +129,7 @@ def load_all(libraries: Sequence[Library]) -> List[Built]:
             = []
         for library in todo:
             path = library.path()
-            if path.exists():
+            if path.exists() and _log_path(path).exists():
                 procs.append((library, path, path, None))
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -134,13 +141,16 @@ def load_all(libraries: Sequence[Library]) -> List[Built]:
                 text=True)))
         failed = []
         for library, path, tmp, proc in procs:
-            log = ""
-            if proc is not None:
+            if proc is None:
+                log = _log_path(path).read_text()
+            else:
                 log = proc.communicate()[0]
                 if proc.returncode != 0:
                     failed.append(f"{library.name}: nvcc failed "
                                   f"({proc.returncode}):\n{log}")
                     continue
+                # the log first: a library on disk always has its log
+                _log_path(path).write_text(log)
                 os.replace(tmp, path)
             _BUILT[library] = _bind(library, path, log)
             _BUILDS += 1

@@ -8,13 +8,20 @@ finite -2e38, online softmax with fp32 m, l and acc, output
 ``acc / max(l, 1e-30)`` in q's dtype. ``kernels/ops.windowed_attention``
 wraps it for [B, H, S, D].
 
-The kernel (``csrc/flash_attention.cu``) runs on CUDA cores in IEEE fp32
-and is bound by operations at the path's shapes. A block owns one (bh,
-64-row q tile) and loops over 32-key kv tiles inside the block, skipping
-the tiles the mask hides from all its rows; the source's header says more.
-Shared memory is dynamic (137 KB at D = 256); ``smem_bytes`` is the
-wrapper's count of it, and the launch guard refuses what the card cannot
-give one block.
+The kernel (``csrc/flash_attention.cu``) runs on the tensor cores through
+``mma.sync`` and is bound by operations at the path's shapes. A block owns
+one (bh, 64-row q tile), a warp 16 of its rows; k/v tiles stream through a
+two-stage ``cp.async`` ring and the block skips the tiles the mask hides
+from all its rows. bf16 runs bf16 MMAs with fp32 sums, and P V takes P as
+two bf16 halves, ``P_hi = bf16(P)`` and ``P_lo = bf16(P - P_hi)``: P
+rounded once would put ~4.5 % of the outputs outside one bf16 ulp. fp32
+runs 3xTF32: each operand split as ``hi = rna(x)``, ``lo = rna(x - hi)``
+and ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` summed, where plain TF32 would
+break the fp32 limit (tests/test_torch_attention.py emulates both). The
+next step is ``wgmma`` with TMA copies; the source's header says more.
+``MMA`` names each dtype's path. Shared memory is dynamic (up to 195 KB,
+fp32 at D = 256); ``smem_bytes`` is the wrapper's count of it, and the
+launch guard refuses what the card cannot give one block.
 
 Build and bind: ``kernels/build.py`` (nvcc for ``sm_90a`` at first use, into
 the git-ignored ``build/``, loaded with ``ctypes``; a failed build raises).
@@ -35,30 +42,33 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 # The kernel's geometry, passed to nvcc as -D defines (the source
 # static_asserts what its code needs of it) and read by ``launch_config``.
-BLOCK_Q = 64          # query rows per block
-BLOCK_KV = 32         # keys per kv tile: one per lane
-WARPS = 8             # warps per block: BLOCK_Q / WARPS query rows each
+BLOCK_Q = 64          # query rows per block: one 16-row MMA tile per warp
+BLOCK_KV = 32         # keys per kv tile (in registers as the S tile)
+STAGES = 2            # (k, v) tile pairs in the cp.async ring
+WARPS = BLOCK_Q // 16  # warps per block (the source derives it the same way)
 HEAD_DIMS = (32, 64, 128, 256)   # head dims the source compiles
 MAX_SMEM = 232448     # bytes of shared memory one block may use (227 KB)
 MAX_GRID_Y = 65535
 LIBRARY = _build.Library(
     "flash_attention",
     defines=(f"-DFA_BLOCK_Q={BLOCK_Q}", f"-DFA_BLOCK_KV={BLOCK_KV}",
-             f"-DFA_WARPS={WARPS}"),
+             f"-DFA_STAGES={STAGES}"),
     entry_points=(
         ("flash_attention_launch",
          (PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, ctypes.c_float, INT,
           PTR)),
-        ("flash_attention_smem_bytes", (INT,))))
+        ("flash_attention_smem_bytes", (INT, INT))))
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the source's dtype codes, and the MMA path each dtype takes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MMA = {torch.float32: "3xtf32", torch.bfloat16: "bf16x2-splitP"}
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one block at head dim D: the fp32 q tile,
-    the k tile with rows padded to D + 4, the v tile and the P rows."""
-    return 4 * (BLOCK_Q * D + BLOCK_KV * (D + 4) + BLOCK_KV * D
-                + BLOCK_Q * BLOCK_KV)
+def smem_bytes(D: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block at head dim D: the q tile and
+    STAGES (k, v) tile pairs in ``dtype``, every row padded by 16 bytes."""
+    row = D * dtype.itemsize + 16
+    return row * (BLOCK_Q + 2 * STAGES * BLOCK_KV)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +85,7 @@ def launch_config(BH: int, S: int, D: int,
     it takes the place of the JAX package's tile-divisibility assert (the
     kernel masks a ragged S itself), and ``flash_attention`` calls it before
     every launch."""
-    if dtype not in _DTYPES:
+    if dtype not in DTYPE_CODES:
         raise ValueError(f"flash_attention: dtype {dtype}; the kernel takes "
                          f"float32 or bfloat16")
     if D not in HEAD_DIMS:
@@ -87,10 +97,10 @@ def launch_config(BH: int, S: int, D: int,
     if BH > MAX_GRID_Y or BH * S * D >= 1 << 62 or S * D >= 1 << 31:
         raise ValueError(f"flash_attention: grid {grid} at D={D} exceeds "
                          f"the card's launch limits")
-    smem = smem_bytes(D)
+    smem = smem_bytes(D, dtype)
     if smem > MAX_SMEM:
         raise ValueError(f"flash_attention: {smem} bytes of shared memory "
-                         f"at D={D}; one block may use {MAX_SMEM}")
+                         f"at D={D}, {dtype}; one block may use {MAX_SMEM}")
     return LaunchConfig(grid=grid, threads=32 * WARPS, smem=smem)
 
 
@@ -125,7 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     built.check(built.lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S, D,
-        int(causal), int(window), 1.0 / (D ** 0.5), _DTYPES[q.dtype],
+        int(causal), int(window), 1.0 / (D ** 0.5), DTYPE_CODES[q.dtype],
         stream))
     flash_attention.launches += 1
     return out

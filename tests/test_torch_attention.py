@@ -96,19 +96,29 @@ def test_plain_version_matches_jax_dense_oracle():
 def test_launch_guard(BH, S, D, dtype, ok):
     """The guard names the head dims it takes, passes the path's shapes and
     raises on what the kernel does not take; its geometry is the one the
-    build hands nvcc. At D = 256 a block needs more than the 48 KB of static
-    shared memory, so the launch raises the cap (dynamic shared memory)."""
+    build hands nvcc. Shared memory depends on the dtype (the tiles are
+    staged in it) and passes the 48 KB static limit at the path's shapes,
+    so the launch raises the cap (dynamic shared memory)."""
     assert set(fa.HEAD_DIMS) >= {32, 64, 128, 256}
-    assert f"-DFA_BLOCK_Q={fa.BLOCK_Q}" in fa.LIBRARY.flags
-    assert f"-DFA_BLOCK_KV={fa.BLOCK_KV}" in fa.LIBRARY.flags
+    for name in ("BLOCK_Q", "BLOCK_KV", "STAGES"):
+        assert f"-DFA_{name}={getattr(fa, name)}" in fa.LIBRARY.flags
+    assert fa.BLOCK_Q == 16 * fa.WARPS       # one 16-row MMA tile a warp
     if ok:
         cfg = fa.launch_config(BH, S, D, dtype)
         assert cfg.grid == (-(-S // fa.BLOCK_Q), BH)
-        assert cfg.smem == fa.smem_bytes(D) <= fa.MAX_SMEM
+        assert cfg.threads == 32 * fa.WARPS
+        assert cfg.smem == fa.smem_bytes(D, dtype) <= fa.MAX_SMEM
     else:
         with pytest.raises(ValueError):
             fa.launch_config(BH, S, D, dtype)
-    assert fa.smem_bytes(256) > 48 * 1024
+    assert fa.BLOCK_KV % 16 == 0             # whole 16-key MMA steps
+    for dt in fa.DTYPE_CODES:
+        for d in fa.HEAD_DIMS:                   # every instance fits a block
+            assert fa.smem_bytes(d, dt) <= fa.MAX_SMEM
+        assert fa.smem_bytes(256, dt) > 48 * 1024
+    # the tiles are staged in their own dtype: fp32 takes about twice bf16
+    assert fa.smem_bytes(128, torch.float32) > fa.smem_bytes(128,
+                                                            torch.bfloat16)
 
 
 def test_wrapper_checks_shapes_and_devices():
@@ -120,3 +130,126 @@ def test_wrapper_checks_shapes_and_devices():
     m = q.to("meta")
     with pytest.raises(ValueError):        # no kernel for this device
         fa.flash_attention(m, m, m)
+
+
+# ---------------------------------------------------------------------------
+# The numerical design of the card's kernel, emulated in plain torch.
+#
+# The CUDA kernel computes Q K^T and P V on tensor cores. In bf16, Q K^T
+# loses nothing (a product of two bf16 values is exact in fp32, and the sum
+# is fp32), but P V would need P rounded to bf16. In fp32 the tensor cores
+# take TF32 (10-bit mantissas). These tests hold each choice against the
+# limits the card's checks use (chip_smoke.py ATTN_TOL,
+# tests/test_torch_cuda.py): bf16 rtol 1e-2 / atol 1e-4 (one bf16 ulp of
+# outputs of order 1, with a floor for fp32 summation noise) and fp32
+# rtol 2e-5 / atol 2e-4 (the attention tolerance of tests/test_kernels.py).
+# The dense softmax stands in for the online one: both keep P in fp32, and
+# how P V rounds is what decides the error.
+# ---------------------------------------------------------------------------
+
+CARD_TOL = {"bfloat16": (1e-2, 1e-4), "float32": (2e-5, 2e-4)}
+
+
+def _causal_qkv(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dtype) for _ in range(3)]
+
+
+def _probs(logits):
+    """Causal softmax in fp32 with the kernel's finite -2e38 fill."""
+    S = logits.shape[-1]
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    return torch.softmax(logits.masked_fill(~keep, -2.0e38), dim=-1)
+
+
+def _outside(got, want, dtype):
+    """How many outputs break the card's limit, and the largest error."""
+    rtol, atol = CARD_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    return (int((err > atol + rtol * want.float().abs()).sum()),
+            float(err.max()))
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10-bit mantissa), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds: add half of the dropped
+    13 bits' weight to the bit pattern, then clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _bf16_pv(p, v, split):
+    """P V on bf16 tensor cores (exact products, fp32 sums): P rounded once
+    to bf16, or split as P_hi + P_lo, both bf16, in two products."""
+    p_hi = p.bfloat16().float()
+    out = p_hi @ v.float()
+    if split:
+        out = out + (p - p_hi).bfloat16().float() @ v.float()
+    return out.bfloat16()
+
+
+def _tf32_mm(a, b, three):
+    """a @ b on TF32 tensor cores: operands rounded once (plain TF32), or
+    3xTF32 with RNA splitting: hi = rna(x), lo = rna(x - hi), and
+    a_hi b_hi + a_hi b_lo + a_lo b_hi."""
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    if not three:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
+    return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                       # exactly representable
+    x = torch.tensor([one, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e-3])
+    got = tf32_rna(x)
+    assert got[0] == one
+    assert got[1] == one                         # a tie goes away from 0
+    assert got[2] == 1.0 + 2 * 2.0 ** -10
+    assert got[3] == -one
+    assert got[4] == 1.0
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 128), (4, 1024, 256)])
+def test_split_p_bf16_holds_card_limit(shape):
+    """P = P_hi + P_lo (both bf16), two MMAs against the same V fragments:
+    the residual of P is below 2^-16 of P, so the kernel's bf16 output is
+    within one bf16 ulp of the dense fp32 softmax's."""
+    q, k, v = _causal_qkv(shape, torch.bfloat16)
+    want = flash_attention_ref(q, k, v, causal=True)
+    p = _probs(q.float() @ k.float().transpose(1, 2) / shape[2] ** 0.5)
+    n_out, err = _outside(_bf16_pv(p, v, split=True), want, "bfloat16")
+    assert n_out == 0, (n_out, err)
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 128), (4, 1024, 256)])
+def test_single_rounded_p_breaks_card_limit(shape):
+    """Why the split exists: P rounded once to bf16 puts several percent
+    of the outputs outside one bf16 ulp (2^-9 relative error in every
+    weight, summed over hundreds of keys)."""
+    q, k, v = _causal_qkv(shape, torch.bfloat16)
+    want = flash_attention_ref(q, k, v, causal=True)
+    p = _probs(q.float() @ k.float().transpose(1, 2) / shape[2] ** 0.5)
+    n_out, err = _outside(_bf16_pv(p, v, split=False), want, "bfloat16")
+    assert n_out > 0.01 * want.numel() and err > 1e-2, (n_out, err)
+
+
+@pytest.mark.parametrize("three,holds", [(True, True), (False, False)])
+def test_3xtf32_holds_fp32_limit_plain_tf32_does_not(three, holds):
+    """fp32 inputs: Q K^T and P V both on TF32 tensor cores. 3xTF32 keeps
+    about 21 bits of every product (the dropped a_lo b_lo term is 2^-22 of
+    it) and holds the fp32 limit; plain TF32 keeps 11 and breaks it."""
+    shape = (4, 512, 128)
+    q, k, v = _causal_qkv(shape, torch.float32)
+    want = flash_attention_ref(q, k, v, causal=True)
+    logits = _tf32_mm(q, k.transpose(1, 2), three) / shape[2] ** 0.5
+    got = _tf32_mm(_probs(logits), v, three)
+    n_out, err = _outside(got, want, "float32")
+    if holds:
+        assert n_out == 0 and err < 1e-5, (n_out, err)
+    else:
+        assert n_out > 100 and err > 5e-4, (n_out, err)
