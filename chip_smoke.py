@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gemm-only [--src OTHER_CHECKOUT/src]
 
 Run from the root of a checkout. It needs one CUDA card and ``nvcc``
 (``/usr/local/cuda``); it imports nothing of JAX or of the JAX package.
@@ -11,18 +12,24 @@ Phases, each printing its own lines; a failing phase raises:
   2. build       — nvcc builds every kernel library from the sources, one
                    nvcc per source, all started together, with each
                    kernel's ptxas lines (registers, shared memory, spills);
-                   one line per ``flash_attention`` instance (dtype, head
-                   dim) with its MMA path, registers, spill bytes (must be
-                   0) and the HMMA instructions in its SASS (``cuobjdump
-                   -sass``; must be > 0: the instance runs on tensor cores);
+                   one line per ``coalesced_gemm`` instance (dtype) and per
+                   ``flash_attention`` instance (dtype, head dim) with its
+                   MMA path, registers, spill bytes (must be 0) and the
+                   HMMA instructions in its SASS (``cuobjdump -sass``; must
+                   be > 0: the instance runs on tensor cores); the gemm
+                   lines add its blocks per SM, the clusters of 8 the card
+                   holds and the K split (cluster size) at the path's K;
   3. kernel      — ``coalesced_gemm`` (CUDA) against its plain PyTorch
                    version at the serving path's shapes, fp32 and bf16, with
-                   CUDA-event times of the kernel, the plain version and one
-                   PyTorch library call, beside the least time the card
-                   could take (bytes at 3.35 TB/s, or operations at the
-                   peak rate of their type: 67 TFLOP/s fp32 without tensor
-                   cores, 989 TFLOP/s bf16; fp32 attention at the 3xTF32
-                   rate, a third of 495 TFLOP/s TF32);
+                   CUDA-event times (median and spread; L2 flushed before
+                   every timed call) of the kernel, the plain version and
+                   one PyTorch library call, the host µs a wrapper call
+                   takes to enqueue (200 calls, no synchronise between
+                   them), beside the least time the card could take (bytes
+                   at 3.35 TB/s, or operations at the peak rate of their
+                   type: 67 TFLOP/s fp32 without tensor cores, 989 TFLOP/s
+                   bf16; fp32 gemm and attention at the 3xTF32 rate, a
+                   third of 495 TFLOP/s TF32);
      kernel-gemv — ``coalesced_gemv`` (CUDA) the same way at the LSTM shape
                    of the RNN bench (G = 2, 4, 8; K = 2048, N = 4096) and at
                    the yi-9b decode envelope [4, 4096, 16384]; library call
@@ -37,7 +44,9 @@ Phases, each printing its own lines; a failing phase raises:
                    tenants sharing one full-width yi-9b weight set (bf16,
                    48 layers unless the card's free memory forces a cut,
                    which is printed), 4 requests each, prompts of 32
-                   tokens, 8 new tokens;
+                   tokens, 8 new tokens; then the gemm's launches by
+                   (M, K, N, G, dtype), each marked by whether phase 3
+                   times that shape (also in phase 5);
   5. serve-grouped — two full-width yi-9b tenants with distinct weights
                    (bf16, 12 layers): the kernel runs with G >= 2 weight
                    matrices;
@@ -58,10 +67,14 @@ Phases, each printing its own lines; a failing phase raises:
 
 Launch counts are set to 0 just before each path phase (4-8) and read just
 after it; the comparisons of phase 3 are not counted there. Weights and
-inputs are random, made from fixed seeds.
+inputs are random, made from fixed seeds. ``--gemm-only`` runs phases 1
+and 3 alone and prints no result line; with ``--src`` it drives another
+checkout's ``coalesced_gemm`` wrapper (e.g. the parent commit's, unpacked
+with ``git archive``), so two versions are timed on one card.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import math
@@ -77,14 +90,17 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# fp32 attention runs as 3xTF32 on the tensor cores (three TF32 products a
-# product, each at the 495 TFLOP/s TF32 peak): its least time is at that rate
-ATTN_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
-# (rtol, atol) of kernel against plain version. Both add in IEEE fp32, in
-# different orders, so their sums differ by a few fp32 ulps (outputs are of
-# order 1: B is scaled by 1/sqrt(K)); bf16 then rounds both sums to bf16,
-# so a sound kernel is at most one bf16 ulp (2^-7 relative) off. A kernel that accumulates in bf16, or drops a K
-# slice, is several times further off than that.
+# the gemm and attention kernels run fp32 as 3xTF32 on the tensor cores
+# (three TF32 products a product, each at the 495 TFLOP/s TF32 peak): their
+# least time is at that rate
+MMA_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+# (rtol, atol) of kernel against plain version. Both add in fp32, in
+# different orders (the kernels' fp32 products as 3xTF32, about 21 bits), so
+# their sums differ by a few fp32 ulps (outputs are of order 1: B is scaled
+# by 1/sqrt(K)); bf16 then rounds both sums to bf16, so a sound kernel is at
+# most one bf16 ulp (2^-7 relative) off. A kernel that accumulates in bf16,
+# takes plain TF32 products, or drops a K slice, is several times further
+# off than that.
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-4)}
 GIB = 1 << 30
 
@@ -94,10 +110,11 @@ def say(phase: str, **kv) -> None:
           flush=True)
 
 
-def time_ms(fn, reps: int = 15, warmup: int = 3, flush=None) -> float:
-    """Median CUDA-event time of one call, in ms. ``flush``: a tensor
-    larger than the 50 MB L2 cache, overwritten before every timed call
-    (outside its events) so the call finds its operands in device memory."""
+def time_spread(fn, reps: int = 15, warmup: int = 3, flush=None):
+    """(median, min, max) CUDA-event time of one call, in ms. ``flush``: a
+    tensor larger than the 50 MB L2 cache, overwritten before every timed
+    call (outside its events) so the call finds its operands in device
+    memory."""
     import torch
     for _ in range(warmup):
         fn()
@@ -113,7 +130,27 @@ def time_ms(fn, reps: int = 15, warmup: int = 3, flush=None) -> float:
         e.record()
         events.append((s, e))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    times = [s.elapsed_time(e) for s, e in events]
+    return statistics.median(times), min(times), max(times)
+
+
+def time_ms(fn, reps: int = 15, warmup: int = 3, flush=None) -> float:
+    """Median CUDA-event time of one call, in ms (``time_spread``)."""
+    return time_spread(fn, reps, warmup, flush)[0]
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host time to enqueue one call, in µs: ``calls`` calls with no
+    synchronise between them, over the count (the card runs behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
 
 
 # ---------------------------------------------------------------------------
@@ -132,25 +169,32 @@ def phase_device(torch):
     return name, smi
 
 
-_INSTANCE = re.compile(r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+# mangled instance names: flash_kernel<T, D> and gemm_kernel<T>
+_INSTANCE = {
+    "flash_kernel": re.compile(r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
+    "gemm_kernel": re.compile(r"gemm_kernelI(f|13__nv_bfloat16)E"),
+}
 
 
-def _instance(symbol):
-    """'bfloat16/128' for a mangled flash_kernel<T, D> symbol, else None."""
-    m = _INSTANCE.search(symbol)
+def _instance(symbol, kernel):
+    """'bfloat16/128' for a mangled flash_kernel<T, D> symbol, 'bfloat16'
+    for gemm_kernel<T>, None for another symbol."""
+    m = _INSTANCE[kernel].search(symbol)
     if m is None:
         return None
-    return f"{'float32' if m.group(1) == 'f' else 'bfloat16'}/{m.group(2)}"
+    dname = "float32" if m.group(1) == "f" else "bfloat16"
+    return f"{dname}/{m.group(2)}" if m.lastindex == 2 else dname
 
 
-def _ptxas_per_instance(log):
-    """{instance: (registers, spill bytes)} from ptxas -v lines."""
+def _ptxas_per_instance(log, kernel):
+    """{instance: (registers, spill bytes)} of ``kernel`` from ptxas -v
+    lines."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
                       r"for )([^'\s]+)", ln)
         if m:
-            cur = _instance(m.group(1))
+            cur = _instance(m.group(1), kernel)
             continue
         if cur is None:
             continue
@@ -166,9 +210,9 @@ def _ptxas_per_instance(log):
     return out
 
 
-def _hmma_per_instance(build, path):
-    """{instance: HMMA count} in the SASS of the built library (the
-    cuobjdump of the toolkit that built it)."""
+def _hmma_per_instance(build, path, kernel):
+    """{instance: HMMA count} of ``kernel`` in the SASS of the built library
+    (the cuobjdump of the toolkit that built it)."""
     sass = subprocess.run(
         [str(Path(build._nvcc()).with_name("cuobjdump")), "-sass", str(path)],
         capture_output=True, text=True, timeout=300, check=True).stdout
@@ -176,7 +220,7 @@ def _hmma_per_instance(build, path):
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            cur = _instance(m.group(1))
+            cur = _instance(m.group(1), kernel)
             if cur is not None:
                 out.setdefault(cur, 0)
         elif cur is not None and "HMMA" in ln:
@@ -195,6 +239,27 @@ def phase_build(build, cg, gv, fa):
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         libraries=",".join(b.path.name for b in libs),
         builds=build.build_count())
+    # each coalesced_gemm instance keeps its registers (no spills) and runs on
+    # tensor cores (HMMA in its SASS: bf16 MMAs, fp32 as 3xTF32); the
+    # wrapper's count of its shared memory is the source's
+    ptxas = _ptxas_per_instance(libs[0].log, "gemm_kernel")
+    hmma = _hmma_per_instance(build, libs[0].path, "gemm_kernel")
+    for dtype, code in cg.DTYPE_CODES.items():
+        dname = str(dtype).removeprefix("torch.")
+        regs, spill = ptxas[dname]
+        assert libs[0].lib.coalesced_gemm_smem_bytes(code) == \
+            cg.smem_bytes(dtype), dname
+        splits = ",".join(f"K{K}:{cg.k_split(K, dtype)[0]}" for K in
+                          sorted({s[2] for s in SHAPES}))
+        per_sm, clusters = ctypes.c_int(), ctypes.c_int()
+        libs[0].check(libs[0].lib.coalesced_gemm_occupancy(
+            code, cg.MAX_CLUSTER, ctypes.byref(per_sm), ctypes.byref(clusters)))
+        say("build", gemm_kernel=dname, mma=cg.MMA[dtype],
+            smem_bytes=cg.smem_bytes(dtype), registers=regs,
+            spill_bytes=spill, hmma=hmma[dname], blocks_per_sm=per_sm.value,
+            clusters_of_8=clusters.value, cluster_split=splits)
+        assert spill == 0, (dname, spill)
+        assert hmma[dname] > 0, (dname, hmma[dname])
     # the wrapper's count of the attention kernel's dynamic shared memory is
     # the source's, for every dtype and head dim
     lib = libs[-1].lib
@@ -204,8 +269,8 @@ def phase_build(build, cg, gv, fa):
                 fa.smem_bytes(d, dtype), (dtype, d)
     # every attention instance runs on tensor cores (HMMA in its SASS) and
     # keeps its registers (no spills)
-    ptxas = _ptxas_per_instance(libs[-1].log)
-    hmma = _hmma_per_instance(build, libs[-1].path)
+    ptxas = _ptxas_per_instance(libs[-1].log, "flash_kernel")
+    hmma = _hmma_per_instance(build, libs[-1].path, "flash_kernel")
     for dtype in fa.DTYPE_CODES:
         dname = str(dtype).removeprefix("torch.")
         for d in fa.HEAD_DIMS:
@@ -223,11 +288,14 @@ def phase_build(build, cg, gv, fa):
 # ---------------------------------------------------------------------------
 
 SHAPES = [
-    # (label, rows per problem, K, N, shared weights)
+    # (label, rows per problem, K, N, shared weights); the last is
+    # serve-shared's most launched bucket (M 8, K 4096, G 1: as many
+    # launches at N 512, 4096 and 16384), at its widest N
     ("yi-9b decode grouped (ffn gate/up)", (4, 4), 4096, 16384, False),
     ("shared regime (ffn down)", (8,), 16384, 4096, True),
     ("ragged prefill+decode (attn wq/wo)", (32, 4), 4096, 4096, False),
     ("unembed", (8,), 4096, 65536, True),
+    ("shared regime decode (ffn gate/up)", (8,), 4096, 16384, True),
 ]
 
 
@@ -253,7 +321,9 @@ def _operands(torch, rows, K, N, shared, dtype, bm=8, seed=0):
     return a.to(dtype).contiguous(), b.to(dtype).contiguous(), gid
 
 
-def phase_kernel(torch, cg, ref):
+def phase_kernel(torch, cg, ref, flush):
+    """``coalesced_gemm`` against its plain version at the path's shapes;
+    every timed call finds L2 flushed. Only ``cg.coalesced_gemm`` is used."""
     rows_out = []
     for label, rows, K, N, shared in SHAPES:
         for dname in ("float32", "bfloat16"):
@@ -267,36 +337,42 @@ def phase_kernel(torch, cg, ref):
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                        atol=atol)
             err = float((got.float() - want.float()).abs().max())
-            kernel_ms = time_ms(lambda: cg.coalesced_gemm(a, b, gid, bm=8))
-            plain_ms = time_ms(lambda: ref(a, b, gid, 8), reps=5)
+            call = lambda: cg.coalesced_gemm(a, b, gid, bm=8)  # noqa: E731
+            kernel_ms, kernel_min, kernel_max = time_spread(call, flush=flush)
+            host_us = host_us_per_call(call)
+            plain_ms = time_ms(lambda: ref(a, b, gid, 8), reps=5,
+                               flush=flush)
             if G == 1:
                 bw = b[0]
-                library_ms = time_ms(lambda: torch.matmul(a, bw))
+                library_ms = time_ms(lambda: torch.matmul(a, bw), flush=flush)
                 library = "torch.matmul"
             else:
                 tiles = a.view(M // 8, 8, K)
                 b_tile = b[gid.long()].contiguous()
-                library_ms = time_ms(lambda: torch.bmm(tiles, b_tile))
+                library_ms = time_ms(lambda: torch.bmm(tiles, b_tile),
+                                     flush=flush)
                 library = "torch.bmm"
                 del b_tile
             db = a.element_size()
             moved = (M * K + G * K * N + M * N) * db + gid.numel() * 4
-            flops = 2.0 * M * K * N
-            t_bytes = moved / HBM_BYTES_PER_S
-            t_ops = flops / PEAK_FLOPS[dname]
-            bound_ms = 1e3 * max(t_bytes, t_ops)
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            bound_ms, bound_by = _bound(moved, 2.0 * M * K * N, dname,
+                                        MMA_PEAK_FLOPS)
             row = dict(shape=label, dtype=dname, M=M, K=K, N=N, G=G,
-                       max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, library=library,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       max_abs_err=err, ms=kernel_ms, ms_min=kernel_min,
+                       ms_max=kernel_max, host_us_per_call=host_us,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library=library, bound_ms=bound_ms, bound_by=bound_by)
             rows_out.append(row)
             say("kernel", shape=repr(label), dtype=dname,
                 A=f"[{M},{K}]", B=f"[{G},{K},{N}]", max_abs_err=f"{err:.3e}",
-                kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                kernel_ms=f"{kernel_ms:.4f}",
+                spread_ms=f"{kernel_min:.4f}..{kernel_max:.4f}",
+                host_us_per_call=f"{host_us:.2f}",
+                plain_ms=f"{plain_ms:.4f}",
                 library_ms=f"{library_ms:.4f}({library})",
                 bound_ms=f"{bound_ms:.4f}({bound_by})",
-                bound_share=f"{bound_ms / kernel_ms:.3f}")
+                bound_share=f"{bound_ms / kernel_ms:.3f}",
+                library_over_kernel=f"{library_ms / kernel_ms:.3f}")
             del a, b, gid, got, want
     torch.cuda.empty_cache()
     return rows_out
@@ -425,7 +501,7 @@ def phase_kernel_attn(torch, fa, ref, flush):
             db = q.element_size()
             bound_ms, bound_by = _bound(4 * BH * S * D * db,
                                         4.0 * D * pairs * BH, dname,
-                                        ATTN_PEAK_FLOPS)
+                                        MMA_PEAK_FLOPS)
             rows_out.append(dict(
                 shape=label, dtype=dname, BH=BH, S=S, D=D, causal=causal,
                 window=window, mma=fa.MMA[dtype], max_abs_err=err,
@@ -512,6 +588,26 @@ def _report_serve(torch, phase, cfg, rep, wall, launches, max_groups):
         modeled_ms=f"{rep.modeled_time_s * 1e3:.3f}(H100 cost model)")
 
 
+def _reset_counts(cg):
+    cg.coalesced_gemm.launches = 0
+    cg.coalesced_gemm.max_groups = 0
+    cg.coalesced_gemm.launches_by_shape = {}
+
+
+def _report_shapes(phase, cg, timed):
+    """One line per (M, K, N, G, dtype) the phase launched, most launched
+    first, each marked by whether phase 3 times that shape."""
+    out = []
+    for (M, K, N, G, dtype), n in sorted(
+            cg.coalesced_gemm.launches_by_shape.items(),
+            key=lambda kv: (-kv[1], kv[0][:4])):
+        dname = str(dtype).removeprefix("torch.")
+        say(phase, gemm_shape=f"M{M}_K{K}_N{N}_G{G}_{dname}", launches=n,
+            timed_in_phase3=(M, K, N, G, dname) in timed)
+        out.append(dict(M=M, K=K, N=N, G=G, dtype=dname, launches=n))
+    return out
+
+
 def _check_served(rep, cfg, n_expected, new_tokens):
     assert len(rep.requests) == n_expected and rep.unfinished == 0, \
         (len(rep.requests), rep.unfinished)
@@ -521,7 +617,7 @@ def _check_served(rep, cfg, n_expected, new_tokens):
         assert all(0 <= t < cfg.padded_vocab for t in r.tokens_out)
 
 
-def phase_serve_shared(torch, cg):
+def phase_serve_shared(torch, cg, timed):
     from repro_torch.models import Model
     db = 2
     free, _ = torch.cuda.mem_get_info()
@@ -546,8 +642,7 @@ def phase_serve_shared(torch, cg):
         param_GiB=f"{(L * p_layer + 2 * emb) / GIB:.2f}",
         pack_GiB_per_regime=f"{(L * k_layer + emb) / GIB:.2f}",
         weight_budget_GiB=f"{budget / GIB:.2f}")
-    cg.coalesced_gemm.launches = 0
-    cg.coalesced_gemm.max_groups = 0
+    _reset_counts(cg)
     eng, rep, wall = _serve(torch, cfg, [(m, params), (m, params)],
                             n_req=4, prompt_len=32, new_tokens=8,
                             budget=budget, seed=0)
@@ -556,6 +651,7 @@ def phase_serve_shared(torch, cg):
     assert launches > 0 and launches == rep.jit.superkernels
     assert rep.jit.shared_dispatches > 0 and rep.jit.mean_group > 1.0
     _report_serve(torch, "serve-shared", cfg, rep, wall, launches, max_g)
+    by_shape = _report_shapes("serve-shared", cg, timed)
     # one more decode step of tenant 0 through its cached template: finite
     # logits of the expected shape, beside the plain Model.decode_step
     t = eng.tenants["t0"]
@@ -574,14 +670,14 @@ def phase_serve_shared(torch, cg):
         max_abs_diff_vs_Model_decode_step_bf16=f"{diff:.4f}",
         argmax_agreement=f"{agree:.2f}")
     result = dict(layers=L, launches=launches, wall_s=wall,
-                  tokens=rep.tokens_out)
+                  tokens=rep.tokens_out, launches_by_shape=by_shape)
     del eng, rep, prog, params, m, t, logits, want
     gc.collect()
     torch.cuda.empty_cache()
     return result
 
 
-def phase_serve_grouped(torch, cg):
+def phase_serve_grouped(torch, cg, timed):
     from repro_torch.models import Model
     L = 12
     cfg = _full_yi(L)
@@ -599,8 +695,7 @@ def phase_serve_grouped(torch, cg):
     say("serve-grouped", layers=L, tenants=2, weights="distinct",
         param_GiB=f"{params_bytes / GIB:.2f}",
         weight_budget_GiB=f"{budget / GIB:.2f}")
-    cg.coalesced_gemm.launches = 0
-    cg.coalesced_gemm.max_groups = 0
+    _reset_counts(cg)
     eng, rep, wall = _serve(torch, cfg, tp, n_req=4, prompt_len=32,
                             new_tokens=8, budget=budget, seed=1)
     launches, max_g = cg.coalesced_gemm.launches, cg.coalesced_gemm.max_groups
@@ -608,7 +703,9 @@ def phase_serve_grouped(torch, cg):
     assert launches > 0 and max_g >= 2, (launches, max_g)
     assert rep.jit.shared_dispatches == 0 and rep.jit.mean_group > 1.0
     _report_serve(torch, "serve-grouped", cfg, rep, wall, launches, max_g)
-    result = dict(launches=launches, max_groups=max_g, wall_s=wall)
+    by_shape = _report_shapes("serve-grouped", cg, timed)
+    result = dict(launches=launches, max_groups=max_g, wall_s=wall,
+                  launches_by_shape=by_shape)
     del eng, rep, tp
     gc.collect()
     torch.cuda.empty_cache()
@@ -786,17 +883,28 @@ def phase_windowed_attention(torch, fa):
 
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--gemm-only", action="store_true",
+                    help="phases 1 and 3 only: the card, then coalesced_gemm "
+                         "against its plain version (no result line)")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the source tree whose repro_torch is driven "
+                         "(default: src/ beside this script); with "
+                         "--gemm-only, e.g. another commit's")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: the port's sources are not under {SRC}; run "
+    src = args.src.resolve()
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not under {src}; run "
               f"from the root of a checkout", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import importlib
@@ -810,17 +918,24 @@ def main() -> int:
 
     t_start = time.perf_counter()
     kind, smi = phase_device(torch)
+    if args.gemm_only:
+        say("gemm-only", src=src, wrapper=cg.__file__)
+        phase_kernel(torch, cg, coalesced_gemm_ref,
+                     torch.zeros(64 << 20, device="cuda"))
+        say("done", seconds=f"{time.perf_counter() - t_start:.1f}", card=smi)
+        return 0
     phase_build(build, cg, gv, fa)
-    shapes = phase_kernel(torch, cg, coalesced_gemm_ref)
-    # overwritten before every timed call of the new kernels: 256 MB, five
-    # times the L2 cache
+    # overwritten before every timed call of phase 3: 256 MB, five times
+    # the L2 cache
     flush = torch.zeros(64 << 20, device="cuda")
+    shapes = phase_kernel(torch, cg, coalesced_gemm_ref, flush)
     gemv_shapes = phase_kernel_gemv(torch, gv, coalesced_gemv_ref, flush)
     attn_shapes = phase_kernel_attn(torch, fa, flash_attention_ref, flush)
     del flush
     torch.cuda.empty_cache()
-    shared = phase_serve_shared(torch, cg)
-    grouped = phase_serve_grouped(torch, cg)
+    timed = {(r["M"], r["K"], r["N"], r["G"], r["dtype"]) for r in shapes}
+    shared = phase_serve_shared(torch, cg, timed)
+    grouped = phase_serve_grouped(torch, cg, timed)
     cpu = phase_card_vs_cpu(torch, cg)
     rnn = phase_rnn_matvec(torch, cg, gv)
     attn = phase_windowed_attention(torch, fa)
@@ -868,6 +983,9 @@ def main() -> int:
               f"q/k/v [{a_head['BH']},{a_head['S']},{a_head['D']}], "
               f"window {a_head['window']}"),
     ]
+    kernels[0]["launches_by_shape"] = {
+        "serve-shared": shared["launches_by_shape"],
+        "serve-grouped": grouped["launches_by_shape"]}
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}", card=smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

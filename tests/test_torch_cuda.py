@@ -98,6 +98,59 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                           .contiguous(), gid, bm=8)      # N % 128
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,K,N,pad_tiles", [
+    ([3, 17, 8], 300, 128, 1),         # K tail, unaligned bf16 rows of A
+    ([1, 2, 3, 4, 5, 6, 7, 8], 1024, 256, 0),   # G = 8
+    ([100, 5], 2048, 256, 2),          # 13 chunks: two passes over B[0]
+    ([4], 4096, 128, 7),               # an all-pad tail of 7 m-tiles
+    ([3], 1, 128, 1),                  # K = 1
+    ([8], 4096, 65536, 0)])            # the widest path N (unembed)
+def test_kernel_edge_shapes(cuda, rows, K, N, pad_tiles, dtype):
+    a, b, gid = _ragged(rows, K, N, dtype, cuda, pad_tiles=pad_tiles,
+                        seed=K + N)
+    got = cg.coalesced_gemm(a, b, gid, bm=8)
+    torch.cuda.synchronize()
+    want = coalesced_gemm_ref(a, b, gid, 8)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    m_real = sum(-(-m // 8) * 8 for m in rows)
+    assert torch.count_nonzero(got[m_real:]) == 0
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(4096, 256), (16384, 128), (300, 128)])
+def test_kernel_rows_are_batch_invariant(cuda, K, N, dtype, shared):
+    """Problem p's rows are bitwise the same launched alone and coalesced
+    with two other problems and pad tiles (the K split depends on K alone),
+    with distinct weights (p alone in its group) or shared ones (p's chunk
+    among six others in one pass), and the same on every call (no
+    atomics)."""
+    g = torch.Generator().manual_seed(K)
+    x = torch.randn(5, K, generator=g)
+    ws = [torch.randn(K, N, generator=g) / K ** 0.5 for _ in range(3)]
+    others = [torch.randn(3, K, generator=g), torch.randn(17, K, generator=g)]
+    alone_a = torch.zeros(8, K)
+    alone_a[:5] = x
+    alone = cg.coalesced_gemm(alone_a.to(cuda, dtype),
+                              ws[1][None].to(cuda, dtype),
+                              torch.zeros(1, dtype=torch.int32, device=cuda),
+                              bm=8)
+    a = torch.zeros(8 + 8 + 24 + 16, K)
+    a[:3], a[8:13], a[16:33] = others[0], x, others[1]
+    gid = torch.tensor([0] * 7 if shared else [0, 1, 2, 2, 2, 0, 0],
+                       dtype=torch.int32, device=cuda)
+    b = ws[1][None] if shared else torch.stack(ws)
+    a, b = a.to(cuda, dtype), b.to(cuda, dtype)
+    first = cg.coalesced_gemm(a, b, gid, bm=8)
+    again = cg.coalesced_gemm(a, b, gid, bm=8)
+    torch.cuda.synchronize()
+    assert torch.equal(first[8:16], alone)
+    assert torch.equal(first, again)
+
+
 def test_execute_superkernel_on_card(cuda):
     g = torch.Generator().manual_seed(1)
     probs = [(torch.randn(m, k, generator=g).to(cuda),
@@ -235,8 +288,8 @@ def test_windowed_attention_on_card(cuda):
 def test_build_phase_on_a_warm_cache(cuda, monkeypatch, capsys):
     """chip_smoke.py's build phase twice in one checkout: the second call
     finds every library built and reads its ptxas lines back from disk, so
-    each attention instance's registers, spill bytes and HMMA count read as
-    in the first call."""
+    each attention and gemm instance's registers, spill bytes and HMMA count
+    read as in the first call."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
@@ -247,6 +300,6 @@ def test_build_phase_on_a_warm_cache(cuda, monkeypatch, capsys):
         monkeypatch.setattr(build, "_BUILT", {})     # a new process
         cs.phase_build(build, cg, gv, fa)
         lines.append([ln for ln in capsys.readouterr().out.splitlines()
-                      if "flash_kernel=" in ln])
-    assert len(lines[0]) == len(fa.DTYPE_CODES) * len(fa.HEAD_DIMS)
+                      if "flash_kernel=" in ln or "gemm_kernel=" in ln])
+    assert len(lines[0]) == len(fa.DTYPE_CODES) * (len(fa.HEAD_DIMS) + 1)
     assert lines[1] == lines[0]

@@ -106,17 +106,23 @@ def test_wrapper_checks_shapes_and_devices():
 def test_launch_guard(M, K, N, bm, ok):
     """The guard that replaces the TPU VMEM check raises on what the CUDA
     kernel would refuse and passes the main path's shapes; its geometry is
-    the one the build hands nvcc."""
-    assert f"-DCG_ROWS={cg.ROWS}" in cg.LIBRARY.flags
-    assert f"-DCG_BLOCK_N={cg.BLOCK_N}" in cg.LIBRARY.flags
-    if ok:
-        cfg = cg.launch_config(M, K, N, bm)
-        assert cfg.grid == (M // cg.ROWS, N // cg.BLOCK_N,
-                            -(-K // cg.CHUNK_K))
-        assert cfg.threads == cg.THREADS
-    else:
-        with pytest.raises(ValueError):
-            cg.launch_config(M, K, N, bm)
+    the one the build hands nvcc: a grid of (K split, column tiles, groups)
+    with the K split as the cluster, and the ring's shared memory."""
+    for name in ("ROWS", "BLOCK_N", "THREADS", "STAGES", "TILE_BYTES",
+                 "PASS_CHUNKS", "MAX_CLUSTER"):
+        assert f"-DCG_{name}={getattr(cg, name)}" in cg.LIBRARY.flags
+    for dtype in (torch.float32, torch.bfloat16):
+        if ok:
+            cfg = cg.launch_config(M, K, N, bm, 2, dtype)
+            cluster, per_rank = cg.k_split(K, dtype)
+            assert cfg.grid == (cluster, N // cg.BLOCK_N, 2)
+            assert cfg.cluster == cluster and cfg.tiles_per_rank == per_rank
+            assert 1 <= cluster <= cg.MAX_CLUSTER
+            assert cfg.threads == cg.THREADS
+            assert cfg.smem == cg.smem_bytes(dtype) <= cg.MAX_SMEM
+        else:
+            with pytest.raises(ValueError):
+                cg.launch_config(M, K, N, bm, 2, dtype)
 
 
 def test_envelope_bucket_and_round_up_match():
