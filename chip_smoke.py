@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gemm-only [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --gemv-only [--src OTHER_CHECKOUT/src]
 
 Run from the root of a checkout. It needs one CUDA card and ``nvcc``
 (``/usr/local/cuda``); it imports nothing of JAX or of the JAX package.
@@ -19,6 +20,10 @@ Phases, each printing its own lines; a failing phase raises:
                    be > 0: the instance runs on tensor cores); the gemm
                    lines add its blocks per SM, the clusters of 8 the card
                    holds and the K split (cluster size) at the path's K;
+                   one line per ``coalesced_gemv`` instance (dtype) with its
+                   registers, spill bytes (must be 0), blocks per SM, the
+                   clusters of 8 the card holds and the K split (cluster
+                   size) at K 2048 and 4096;
   3. kernel      — ``coalesced_gemm`` (CUDA) against its plain PyTorch
                    version at the serving path's shapes, fp32 and bf16, with
                    CUDA-event times (median and spread; L2 flushed before
@@ -32,7 +37,8 @@ Phases, each printing its own lines; a failing phase raises:
                    third of 495 TFLOP/s TF32);
      kernel-gemv — ``coalesced_gemv`` (CUDA) the same way at the LSTM shape
                    of the RNN bench (G = 2, 4, 8; K = 2048, N = 4096) and at
-                   the yi-9b decode envelope [4, 4096, 16384]; library call
+                   the yi-9b decode envelope [4, 4096, 16384], with the
+                   spread and host µs per wrapper call; library call
                    ``torch.bmm``; L2 flushed before every timed call;
      kernel-attn — ``flash_attention`` (CUDA) the same way at yi-9b global
                    attention (32 heads, S = 4096, D = 128, causal),
@@ -67,10 +73,11 @@ Phases, each printing its own lines; a failing phase raises:
 
 Launch counts are set to 0 just before each path phase (4-8) and read just
 after it; the comparisons of phase 3 are not counted there. Weights and
-inputs are random, made from fixed seeds. ``--gemm-only`` runs phases 1
-and 3 alone and prints no result line; with ``--src`` it drives another
-checkout's ``coalesced_gemm`` wrapper (e.g. the parent commit's, unpacked
-with ``git archive``), so two versions are timed on one card.
+inputs are random, made from fixed seeds. ``--gemm-only`` runs phase 1 and
+phase 3's ``kernel`` lines alone, ``--gemv-only`` phase 1 and the
+``kernel-gemv`` lines; neither prints a result line. With ``--src`` they
+drive another checkout's wrapper (e.g. the parent commit's, unpacked with
+``git archive``), so two versions are timed on one card.
 """
 from __future__ import annotations
 
@@ -173,12 +180,13 @@ def phase_device(torch):
 _INSTANCE = {
     "flash_kernel": re.compile(r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
     "gemm_kernel": re.compile(r"gemm_kernelI(f|13__nv_bfloat16)E"),
+    "gemv_kernel": re.compile(r"gemv_kernelI(f|13__nv_bfloat16)E"),
 }
 
 
 def _instance(symbol, kernel):
     """'bfloat16/128' for a mangled flash_kernel<T, D> symbol, 'bfloat16'
-    for gemm_kernel<T>, None for another symbol."""
+    for gemm_kernel<T> or gemv_kernel<T>, None for another symbol."""
     m = _INSTANCE[kernel].search(symbol)
     if m is None:
         return None
@@ -260,6 +268,20 @@ def phase_build(build, cg, gv, fa):
             clusters_of_8=clusters.value, cluster_split=splits)
         assert spill == 0, (dname, spill)
         assert hmma[dname] > 0, (dname, hmma[dname])
+    # each coalesced_gemv instance keeps its registers (no spills); its split
+    # at the LSTM depth and the yi-9b envelope's
+    ptxas = _ptxas_per_instance(libs[1].log, "gemv_kernel")
+    for dtype, code in gv.DTYPE_CODES.items():
+        dname = str(dtype).removeprefix("torch.")
+        regs, spill = ptxas[dname]
+        per_sm, clusters = ctypes.c_int(), ctypes.c_int()
+        libs[1].check(libs[1].lib.coalesced_gemv_occupancy(
+            code, gv.MAX_CLUSTER, ctypes.byref(per_sm), ctypes.byref(clusters)))
+        splits = ",".join(f"K{K}:{gv.k_split(K, dtype)}" for K in (2048, 4096))
+        say("build", gemv_kernel=dname, threads=gv.THREADS, registers=regs,
+            spill_bytes=spill, blocks_per_sm=per_sm.value,
+            clusters_of_8=clusters.value, cluster_split=splits)
+        assert spill == 0, (dname, spill)
     # the wrapper's count of the attention kernel's dynamic shared memory is
     # the source's, for every dtype and head dim
     lib = libs[-1].lib
@@ -411,7 +433,9 @@ def phase_kernel_gemv(torch, gv, ref, flush):
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                        atol=atol)
             err = float((got.float() - want.float()).abs().max())
-            kernel_ms = time_ms(lambda: gv.coalesced_gemv(x, w), flush=flush)
+            call = lambda: gv.coalesced_gemv(x, w)  # noqa: E731
+            kernel_ms, kernel_min, kernel_max = time_spread(call, flush=flush)
+            host_us = host_us_per_call(call)
             plain_ms = time_ms(lambda: ref(x, w), reps=5, flush=flush)
             x3 = x[:, None]
             library_ms = time_ms(lambda: torch.bmm(x3, w), flush=flush)
@@ -420,14 +444,20 @@ def phase_kernel_gemv(torch, gv, ref, flush):
                                         2.0 * G * K * N, dname)
             rows_out.append(dict(
                 shape=label, dtype=dname, G=G, K=K, N=N, max_abs_err=err,
-                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                library="torch.bmm", bound_ms=bound_ms, bound_by=bound_by))
+                ms=kernel_ms, ms_min=kernel_min, ms_max=kernel_max,
+                host_us_per_call=host_us, plain_ms=plain_ms,
+                library_ms=library_ms, library="torch.bmm",
+                bound_ms=bound_ms, bound_by=bound_by))
             say("kernel-gemv", shape=repr(label), dtype=dname,
                 x=f"[{G},{K}]", w=f"[{G},{K},{N}]", max_abs_err=f"{err:.3e}",
-                kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                kernel_ms=f"{kernel_ms:.4f}",
+                spread_ms=f"{kernel_min:.4f}..{kernel_max:.4f}",
+                host_us_per_call=f"{host_us:.2f}",
+                plain_ms=f"{plain_ms:.4f}",
                 library_ms=f"{library_ms:.4f}(torch.bmm)",
                 bound_ms=f"{bound_ms:.4f}({bound_by})",
-                bound_share=f"{bound_ms / kernel_ms:.3f}")
+                bound_share=f"{bound_ms / kernel_ms:.3f}",
+                library_over_kernel=f"{library_ms / kernel_ms:.3f}")
             del x, w, x3, got, want
     torch.cuda.empty_cache()
     return rows_out
@@ -886,13 +916,17 @@ def phase_windowed_attention(torch, fa):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--gemm-only", action="store_true",
-                    help="phases 1 and 3 only: the card, then coalesced_gemm "
-                         "against its plain version (no result line)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--gemm-only", action="store_true",
+                      help="the card, then coalesced_gemm against its plain "
+                           "version at phase 3's shapes (no result line)")
+    only.add_argument("--gemv-only", action="store_true",
+                      help="the card, then coalesced_gemv against its plain "
+                           "version at phase 3's shapes (no result line)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch is driven "
                          "(default: src/ beside this script); with "
-                         "--gemm-only, e.g. another commit's")
+                         "--gemm-only or --gemv-only, e.g. another commit's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -918,10 +952,14 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     kind, smi = phase_device(torch)
-    if args.gemm_only:
-        say("gemm-only", src=src, wrapper=cg.__file__)
-        phase_kernel(torch, cg, coalesced_gemm_ref,
-                     torch.zeros(64 << 20, device="cuda"))
+    if args.gemm_only or args.gemv_only:
+        flush = torch.zeros(64 << 20, device="cuda")
+        if args.gemm_only:
+            say("gemm-only", src=src, wrapper=cg.__file__)
+            phase_kernel(torch, cg, coalesced_gemm_ref, flush)
+        else:
+            say("gemv-only", src=src, wrapper=gv.__file__)
+            phase_kernel_gemv(torch, gv, coalesced_gemv_ref, flush)
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}", card=smi)
         return 0
     phase_build(build, cg, gv, fa)

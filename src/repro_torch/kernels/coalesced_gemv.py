@@ -8,11 +8,17 @@ the paper's §5.3 RNN/LSTM coalescing; G streams on ONE weight go through
 ``coalesced_gemm`` instead (``kernels/ops.coalesced_matvec`` decides).
 
 The kernel (``csrc/coalesced_gemv.cu``) is bound by the bytes of w: each
-weight element feeds one FMA. It streams w with 16-byte loads spread over
-(g, column-tile) blocks, splits K across the row groups of a block and adds
-their partial sums in a fixed order (deterministic output). The source's
-header says more. It is its own kernel, not ``coalesced_gemm`` with one row
-per 8-row tile: there are no m-tiles and no group ids.
+weight element feeds one FMA. A block owns one problem g, one tile of 128
+bytes of output columns and one share of K; the S shares of one (tile, g)
+are the blocks of one thread block cluster, so a launch at small G still
+holds several blocks an SM. Rank q takes rounds q, q + S, ... of K, a
+round being one k row for each row group. Each thread starts UNROLL
+16-byte loads of w (and of the x elements they meet) before its first FMA;
+the row groups' sums are added by warp shuffles, then across warps, then
+across the cluster's ranks in rank order through distributed shared
+memory: one launch, no workspace, no atomics. The split is a function of K alone (``k_split``),
+so a problem's output bits do not depend on what else was coalesced with
+it. The source's header says more.
 
 Build and bind: ``kernels/build.py`` (nvcc for ``sm_90a`` at first use, into
 the git-ignored ``build/``, loaded with ``ctypes``; a failed build raises).
@@ -23,6 +29,7 @@ On a CPU tensor the wrapper returns the plain PyTorch version
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -32,19 +39,26 @@ from repro_torch.kernels.ref import coalesced_gemv_ref
 
 # The kernel's geometry, passed to nvcc as -D defines (the source
 # static_asserts what its code needs of it) and read by ``launch_config``.
-THREADS = 512         # threads per block: 64 row groups split K
+# THREADS, UNROLL and RANK_ROWS are the best of a sweep on the H100
+# (experiments/torch_gemv_sweep.py, results in PERF.md) over 128/256/512
+# threads, 2/4/8 loads and 256..1024 rows a rank, among the splits that
+# keep at least four blocks an SM at the LSTM shape's G = 2 in bf16.
+THREADS = 256         # threads per block: 32 row groups
 ROW_LANES = 8         # lanes sharing one k row: 8 x 16 B, one 128-byte line
-UNROLL = 8            # 16-byte loads in flight per thread
-CHUNK_K = 4096        # x elements staged in shared memory at a time
-MAX_GRID_Y = 65535
+UNROLL = 4            # 16-byte loads of w in flight per thread
+MAX_CLUSTER = 8       # blocks a cluster at most (the portable limit)
+RANK_ROWS = 448       # k rows of one cluster rank, before MAX_CLUSTER caps
+                      # the split: 5 ranks at K 2048, 8 at K 4096
+MAX_GRID_YZ = 65535
 LIBRARY = _build.Library(
     "coalesced_gemv",
     defines=(f"-DGV_THREADS={THREADS}", f"-DGV_ROW_LANES={ROW_LANES}",
-             f"-DGV_UNROLL={UNROLL}", f"-DGV_CHUNK_K={CHUNK_K}"),
+             f"-DGV_UNROLL={UNROLL}", f"-DGV_MAX_CLUSTER={MAX_CLUSTER}"),
     entry_points=(("coalesced_gemv_launch",
-                   (PTR, PTR, PTR, INT, INT, INT, INT, PTR)),))
+                   (PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR)),
+                  ("coalesced_gemv_occupancy", (INT, INT, PTR, PTR))))
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def tile_n(dtype: torch.dtype) -> int:
@@ -53,18 +67,39 @@ def tile_n(dtype: torch.dtype) -> int:
     return ROW_LANES * (16 // dtype.itemsize)
 
 
+def row_groups() -> int:
+    """Row groups of one block: the rows a block takes in one round."""
+    return THREADS // ROW_LANES
+
+
+def k_split(K: int, dtype: torch.dtype) -> int:
+    """Cluster size (ranks) for depth K: a function of K and the kernel's
+    geometry only (a rank's rows are 128-byte lines of w in either dtype),
+    so a problem's summation order is the same whatever G and N it was
+    launched with. One rank for every RANK_ROWS rows of K, at most
+    MAX_CLUSTER, and never more ranks than rounds of the row groups (every
+    rank has rows); rank q takes rounds q, q + S, ... of K."""
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"coalesced_gemv: dtype {dtype}; the kernel takes "
+                         f"float32 or bfloat16")
+    rounds = -(-K // row_groups())
+    return min(MAX_CLUSTER, -(-K // RANK_ROWS), rounds)
+
+
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
-    grid: tuple
+    grid: tuple              # (cluster, N / tile_n, G)
+    cluster: int             # blocks of one cluster: the K split
     threads: int
 
 
+@functools.lru_cache(maxsize=1024)
 def launch_config(G: int, K: int, N: int, dtype: torch.dtype) -> LaunchConfig:
     """The kernel's launch for x [G, K] and w [G, K, N] of ``dtype``, or
     ``ValueError`` for a shape or type it does not take. The launch guard:
     it takes the place of the JAX package's block-divisibility assert, and
     ``coalesced_gemv`` calls it before every launch."""
-    if dtype not in _DTYPES:
+    if dtype not in DTYPE_CODES:
         raise ValueError(f"coalesced_gemv: dtype {dtype}; the kernel takes "
                          f"float32 or bfloat16")
     tn = tile_n(dtype)
@@ -73,10 +108,12 @@ def launch_config(G: int, K: int, N: int, dtype: torch.dtype) -> LaunchConfig:
                          f"of {tn} (one block's columns in {dtype})")
     if K <= 0 or G <= 0:
         raise ValueError(f"coalesced_gemv: G={G}, K={K} must be positive")
-    if G > MAX_GRID_Y or K >= 1 << 31:
-        raise ValueError(f"coalesced_gemv: grid ({N // tn}, {G}) or K={K} "
-                         f"exceeds the card's launch limits")
-    return LaunchConfig(grid=(N // tn, G), threads=THREADS)
+    cluster = k_split(K, dtype)
+    grid = (cluster, N // tn, G)
+    if grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ or K >= 1 << 30:
+        raise ValueError(f"coalesced_gemv: grid {grid} or K={K} exceeds the "
+                         f"card's launch limits")
+    return LaunchConfig(grid=grid, cluster=cluster, threads=THREADS)
 
 
 def coalesced_gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -101,13 +138,13 @@ def coalesced_gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"coalesced_gemv: {name} must be contiguous")
     if w.data_ptr() % 16:        # w is read with 16-byte loads
         raise ValueError("coalesced_gemv: w is not 16-byte aligned")
-    launch_config(G, K, N, x.dtype)
+    cfg = launch_config(G, K, N, x.dtype)
     built = _build.load(LIBRARY)
     out = torch.empty((G, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     built.check(built.lib.coalesced_gemv_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), G, K, N,
-        _DTYPES[x.dtype], stream))
+        DTYPE_CODES[x.dtype], cfg.cluster, stream))
     coalesced_gemv.launches += 1
     return out
 

@@ -191,10 +191,12 @@ def test_engine_tokens_card_equals_cpu(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,K,N", [(3, 300, 256), (3, 384, 384),
-                                   (2, 2048, 4096)])
+                                   (2, 2048, 4096), (3, 2049, 256),
+                                   (2, 4100, 128)])
 def test_gemv_kernel_matches_plain(cuda, G, K, N, dtype):
-    """Ragged K (300: no multiple of any tile) and the K = 300 problem
-    padded to 384 as ``ops.coalesced_matvec`` pads it."""
+    """Ragged K (300: no multiple of any tile), the K = 300 problem padded
+    to 384 as ``ops.coalesced_matvec`` pads it, and K split over a full
+    cluster with a ragged last rank (2049, 4100)."""
     g = torch.Generator().manual_seed(G + K)
     x = torch.randn(G, K, generator=g).to(cuda, dtype)
     w = (torch.randn(G, K, N, generator=g) / K ** 0.5).to(cuda, dtype)
@@ -205,6 +207,27 @@ def test_gemv_kernel_matches_plain(cuda, G, K, N, dtype):
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(got.float(), coalesced_gemv_ref(x, w).float(),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [300, 2048, 4096])
+def test_gemv_rows_are_batch_invariant(cuda, K, dtype):
+    """out[g] is bitwise the same launched alone (G = 1) and inside G = 2, 4
+    and 8 (the K split depends on K alone), and on a second call (no
+    atomics)."""
+    N = 256
+    g = torch.Generator().manual_seed(K)
+    x = torch.randn(8, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(8, K, N, generator=g) / K ** 0.5).to(cuda, dtype)
+    alone = torch.cat([gv.coalesced_gemv(x[i:i + 1].contiguous(),
+                                         w[i:i + 1].contiguous())
+                       for i in range(8)])
+    for G in (2, 4, 8):
+        first = gv.coalesced_gemv(x[:G].contiguous(), w[:G].contiguous())
+        again = gv.coalesced_gemv(x[:G].contiguous(), w[:G].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(first, alone[:G]), G
+        assert torch.equal(first, again), G
 
 
 def test_coalesced_matvec_on_card(cuda):
@@ -288,8 +311,8 @@ def test_windowed_attention_on_card(cuda):
 def test_build_phase_on_a_warm_cache(cuda, monkeypatch, capsys):
     """chip_smoke.py's build phase twice in one checkout: the second call
     finds every library built and reads its ptxas lines back from disk, so
-    each attention and gemm instance's registers, spill bytes and HMMA count
-    read as in the first call."""
+    each attention, gemm and gemv instance's registers, spill bytes (and
+    HMMA count) read as in the first call."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
@@ -300,6 +323,7 @@ def test_build_phase_on_a_warm_cache(cuda, monkeypatch, capsys):
         monkeypatch.setattr(build, "_BUILT", {})     # a new process
         cs.phase_build(build, cg, gv, fa)
         lines.append([ln for ln in capsys.readouterr().out.splitlines()
-                      if "flash_kernel=" in ln or "gemm_kernel=" in ln])
-    assert len(lines[0]) == len(fa.DTYPE_CODES) * (len(fa.HEAD_DIMS) + 1)
+                      if "flash_kernel=" in ln or "gemm_kernel=" in ln
+                      or "gemv_kernel=" in ln])
+    assert len(lines[0]) == len(fa.DTYPE_CODES) * (len(fa.HEAD_DIMS) + 2)
     assert lines[1] == lines[0]

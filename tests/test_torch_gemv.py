@@ -145,16 +145,17 @@ def test_executor_matvec_hot_swap_by_replacement():
     (2, 128, 96, torch.bfloat16, False),        # N % 64 in bf16
     (2, 128, 100, torch.float32, False),        # N % 32 in fp32
     (2, 0, 128, torch.float32, False),
-    (70000, 128, 128, torch.float32, False),    # grid y past 65535
+    (70000, 128, 128, torch.float32, False),    # grid z past 65535
     (2, 128, 128, torch.float16, False)])
 def test_launch_guard(G, K, N, dtype, ok):
     """The guard passes the path's shapes and raises on what the kernel
     does not take; its geometry is the one the build hands nvcc."""
-    assert f"-DGV_THREADS={gv.THREADS}" in gv.LIBRARY.flags
-    assert f"-DGV_ROW_LANES={gv.ROW_LANES}" in gv.LIBRARY.flags
+    for name in ("THREADS", "ROW_LANES", "UNROLL", "MAX_CLUSTER"):
+        assert f"-DGV_{name}={getattr(gv, name)}" in gv.LIBRARY.flags
     if ok:
         cfg = gv.launch_config(G, K, N, dtype)
-        assert cfg.grid == (N // gv.tile_n(dtype), G)
+        assert cfg.cluster == gv.k_split(K, dtype)
+        assert cfg.grid == (cfg.cluster, N // gv.tile_n(dtype), G)
         assert cfg.threads == gv.THREADS
     else:
         with pytest.raises(ValueError):
