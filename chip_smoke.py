@@ -50,17 +50,30 @@ Phases, each printing its own lines; a failing phase raises:
                    tenants sharing one full-width yi-9b weight set (bf16,
                    48 layers unless the card's free memory forces a cut,
                    which is printed), 4 requests each, prompts of 32
-                   tokens, 8 new tokens; then the gemm's launches by
-                   (M, K, N, G, dtype), each marked by whether phase 3
-                   times that shape (also in phase 5);
+                   tokens, 8 new tokens, served twice: layer-stacked
+                   templates (the default; each body GEMM a solo launch)
+                   and then ``stacked_layers=False`` (per-layer stages
+                   coalesced across the tenants), each engine freed before
+                   the next. Per regime: wall s, tokens/s, scheduler
+                   dispatches, kernel launches (checked against the
+                   dispatches), launches per program, weight hit rate,
+                   peak GiB, then the gemm's launches by (M, K, N, G,
+                   dtype), each marked by whether phase 3 times that shape
+                   (also in phase 5). The tokens of the two regimes must
+                   be identical. While the stacked engine lives: one more
+                   decode step through a stacked and a per-layer template
+                   (logits bitwise equal), and ``profile`` lines: host and
+                   wall ms of one steady decode step in each regime, the
+                   device time of ``coalesced_gemm`` and of the other
+                   kernels (``torch.profiler``), and the device busy share;
   5. serve-grouped — two full-width yi-9b tenants with distinct weights
-                   (bf16, 12 layers): the kernel runs with G >= 2 weight
-                   matrices;
+                   (bf16, 12 layers), both regimes as in phase 4: per-layer
+                   the kernel runs with G >= 2 weight matrices;
   6. card-vs-cpu — full-width yi-9b, fp32, 1 layer, two tenants with
-                   distinct weights (the grouped regime, G = 2): the same
-                   trace, weights and prompts served on the card (kernel)
-                   and on the CPU (plain versions) give identical greedy
-                   tokens;
+                   distinct weights, both regimes (per-layer: the grouped
+                   regime, G = 2): the same trace, weights and prompts
+                   served on the card (kernel) and on the CPU (plain
+                   versions) give identical greedy tokens;
   7. rnn-matvec  — the matvec regime's path: ``SuperkernelExecutor.matvec``
                    at the LSTM shape (fp32, G = 4) for 20 ticks, distinct
                    weights (``coalesced_gemv``) and shared weights
@@ -71,8 +84,10 @@ Phases, each printing its own lines; a failing phase raises:
                    shape on the card against the CPU plain path;
   9. the kernel table as one JSON line, then the result line.
 
-Launch counts are set to 0 just before each path phase (4-8) and read just
-after it; the comparisons of phase 3 are not counted there. Weights and
+Launch counts are set to 0 just before each path phase (4-8), and in
+phases 4-6 before each regime's run, and read just after it; the
+comparisons of phase 3 are not counted there. Every line of numbers after
+phase 1 ends with the card's name and power limit (``card=``). Weights and
 inputs are random, made from fixed seeds. ``--gemm-only`` runs phase 1 and
 phase 3's ``kernel`` lines alone, ``--gemv-only`` phase 1 and the
 ``kernel-gemv`` lines; neither prints a result line. With ``--src`` they
@@ -112,7 +127,14 @@ TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-4)}
 GIB = 1 << 30
 
 
+# the card's name and power limit as nvidia-smi prints them, set by
+# phase_device: every line of numbers after it ends with it
+CARD = None
+
+
 def say(phase: str, **kv) -> None:
+    if CARD is not None:
+        kv["card"] = repr(CARD)
     print(f"[{phase}] " + "  ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -171,6 +193,8 @@ def phase_device(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     say("device", name=repr(name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
     return name, smi
@@ -574,8 +598,11 @@ def _layer_bytes(cfg, db):
     return params, packs
 
 
+REGIMES = ((True, "stacked"), (False, "per-layer"))
+
+
 def _serve(torch, cfg, tenants_params, *, n_req, prompt_len, new_tokens,
-           budget, seed):
+           budget, seed, stacked):
     from repro_torch.serving import ServingEngine, Tenant, make_trace
     names = [f"t{i}" for i in range(len(tenants_params))]
     trace = make_trace(names, rate_hz=1e4, n_per_tenant=n_req,
@@ -587,7 +614,7 @@ def _serve(torch, cfg, tenants_params, *, n_req, prompt_len, new_tokens,
     # per-layer emission declares 7 weights a layer: room for every
     # packed entry of both regimes (shared and singleton) of 48 layers
     eng = ServingEngine(tenants, mode="vliw", weight_budget_bytes=budget,
-                        plan_capacity=1024,
+                        plan_capacity=1024, stacked_layers=stacked,
                         device=tenants_params[0][0].device)
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
@@ -597,18 +624,46 @@ def _serve(torch, cfg, tenants_params, *, n_req, prompt_len, new_tokens,
     return eng, rep, wall
 
 
-def _report_serve(torch, phase, cfg, rep, wall, launches, max_groups):
-    L = cfg.num_layers
+def _programs(cfg, rep, stacked):
+    """Programs run: a per-layer program dispatches 7 GEMM stages a layer
+    and its unembed, a stacked one one op a body and its unembed. Either
+    launches 7 * L + 1 GEMMs."""
+    ops = len(_spans(cfg)) + 1 if stacked else 7 * cfg.num_layers + 1
+    return rep.jit.ops_executed / ops
+
+
+def _spans(cfg):
+    from repro_torch.core.jit import partition_layers
+    return partition_layers(cfg.global_layer_flags())
+
+
+def _check_launches(cfg, rep, launches, stacked):
+    """Per-layer: one launch a scheduler dispatch. Stacked: one launch a
+    plain-op dispatch (the unembeds) plus 7 a layer of every body run.
+    ``dispatch.dispatches`` counts each plain dispatch once and each body
+    once, so the bodies are the programs times the sub-stacks."""
     j = rep.jit
-    stages = 7 * L + 1
-    programs = j.ops_executed / stages
+    if not stacked:
+        assert launches == j.superkernels, (launches, j.superkernels)
+        return
+    programs = round(_programs(cfg, rep, True))
+    bodies = programs * len(_spans(cfg))
+    plain = j.dispatch.dispatches - bodies
+    want = plain + 7 * cfg.num_layers * programs
+    assert launches == want, (launches, want, plain, bodies)
+
+
+def _report_serve(torch, phase, cfg, rep, wall, launches, max_groups,
+                  regime):
+    j = rep.jit
+    programs = _programs(cfg, rep, regime == "stacked")
     toks = rep.tokens_out
-    say(phase, wall_s=f"{wall:.3f}", tokens=toks,
-        tokens_per_s=f"{toks / wall:.2f}", launches=launches,
-        superkernels=j.superkernels, ops=j.ops_executed,
-        programs=f"{programs:.1f}",
-        stages_per_program=f"{stages}(7*L+1)",
-        launches_per_program=f"{launches / programs:.1f}",
+    say(phase, regime=regime, wall_s=f"{wall:.3f}", tokens=toks,
+        tokens_per_s=f"{toks / wall:.2f}",
+        scheduler_dispatches=j.superkernels, launches=launches,
+        ops=j.ops_executed, programs=f"{programs:.1f}",
+        launches_per_program=f"{launches / programs:.1f}"
+                             f"(7*L+1={7 * cfg.num_layers + 1})",
         mean_group=f"{j.mean_group:.3f}", shared=j.shared_dispatches,
         prefill_coalesced=j.prefill_coalesced,
         weight_hit_rate=f"{j.dispatch.weight_hit_rate:.4f}",
@@ -647,6 +702,52 @@ def _check_served(rep, cfg, n_expected, new_tokens):
         assert all(0 <= t < cfg.padded_vocab for t in r.tokens_out)
 
 
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve_regimes(torch, cg, timed, phase, cfg, tenants_params, *, seed,
+                   budget, check, after=None):
+    """Serve one trace in both regimes, stacked first, each engine freed
+    before the next; the tokens must be identical. ``check(rep, launches,
+    max_G, regime)`` holds each run to its phase's assertions; ``after(eng,
+    rep)`` runs while the stacked engine is alive."""
+    out, tokens = {}, {}
+    for stacked, regime in REGIMES:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(cg)
+        eng, rep, wall = _serve(torch, cfg, tenants_params, n_req=4,
+                                prompt_len=32, new_tokens=8,
+                                budget=budget, seed=seed,
+                                stacked=stacked)
+        launches = cg.coalesced_gemm.launches
+        max_g = cg.coalesced_gemm.max_groups
+        _check_served(rep, cfg, 8, 8)
+        _check_launches(cfg, rep, launches, stacked)
+        check(rep, launches, max_g, regime)
+        _report_serve(torch, phase, cfg, rep, wall, launches, max_g, regime)
+        by_shape = _report_shapes(f"{phase} ({regime})", cg, timed)
+        tokens[regime] = {r.req_id: r.tokens_out for r in rep.requests}
+        programs = _programs(cfg, rep, stacked)
+        out[regime] = dict(
+            launches=launches, max_groups=max_g, wall_s=wall,
+            tokens=rep.tokens_out, tokens_per_s=rep.tokens_out / wall,
+            scheduler_dispatches=rep.jit.superkernels,
+            launches_per_program=launches / programs,
+            weight_hit_rate=rep.jit.dispatch.weight_hit_rate,
+            peak_alloc_GiB=torch.cuda.max_memory_allocated() / GIB,
+            launches_by_shape=by_shape)
+        if after is not None and stacked:
+            out.update(after(eng, rep))
+        del eng, rep
+        _free(torch)
+    assert tokens["stacked"] == tokens["per-layer"], tokens
+    say(phase, tokens_stacked_vs_per_layer="identical",
+        requests=len(tokens["stacked"]))
+    return out
+
+
 def phase_serve_shared(torch, cg, timed):
     from repro_torch.models import Model
     db = 2
@@ -656,6 +757,8 @@ def phase_serve_shared(torch, cg, timed):
     emb = cfg48.padded_vocab * cfg48.d_model * db
     fixed = 4 * emb                  # embed, unembed, two unembed packs
     margin = 6 * GIB                 # activations, workspaces, allocator
+    # two pack sets: the per-layer run's shared and singleton packs, or the
+    # stacked run's stacked packs and the extra step's per-layer packs
     L = min(48, int((free - margin - fixed) // (p_layer + 2 * k_layer)))
     if L < 48:
         say("serve-shared", depth_cut=f"48->{L}",
@@ -663,7 +766,6 @@ def phase_serve_shared(torch, cg, timed):
                    f"{L} layers only")
     assert L >= 1
     cfg = _full_yi(L)
-    torch.cuda.reset_peak_memory_stats()
     m = Model(cfg, param_dtype=torch.bfloat16)
     params = m.init(torch.Generator(device=m.device).manual_seed(1))
     budget = int(free - margin - L * p_layer - 2 * emb)
@@ -672,39 +774,155 @@ def phase_serve_shared(torch, cg, timed):
         param_GiB=f"{(L * p_layer + 2 * emb) / GIB:.2f}",
         pack_GiB_per_regime=f"{(L * k_layer + emb) / GIB:.2f}",
         weight_budget_GiB=f"{budget / GIB:.2f}")
-    _reset_counts(cg)
-    eng, rep, wall = _serve(torch, cfg, [(m, params), (m, params)],
-                            n_req=4, prompt_len=32, new_tokens=8,
-                            budget=budget, seed=0)
-    launches, max_g = cg.coalesced_gemm.launches, cg.coalesced_gemm.max_groups
-    _check_served(rep, cfg, 8, 8)
-    assert launches > 0 and launches == rep.jit.superkernels
-    assert rep.jit.shared_dispatches > 0 and rep.jit.mean_group > 1.0
-    _report_serve(torch, "serve-shared", cfg, rep, wall, launches, max_g)
-    by_shape = _report_shapes("serve-shared", cg, timed)
-    # one more decode step of tenant 0 through its cached template: finite
-    # logits of the expected shape, beside the plain Model.decode_step
-    t = eng.tenants["t0"]
+
+    def check(rep, launches, max_g, regime):
+        assert launches > 0
+        assert rep.jit.shared_dispatches > 0 and rep.jit.mean_group > 1.0
+
+    def after(eng, rep):
+        return dict(extra_step=_extra_step(torch, eng, m, params, cfg),
+                    profile=phase_profile(torch, eng, m, params))
+
+    out = _serve_regimes(torch, cg, timed, "serve-shared", cfg,
+                         [(m, params), (m, params)], seed=0, budget=budget,
+                         check=check, after=after)
+    out["layers"] = L
+    del params, m
+    _free(torch)
+    return out
+
+
+def _extra_step(torch, eng, m, params, cfg):
+    """One more decode step of tenant 0 through a stacked and a per-layer
+    template: finite logits of the expected shape, bitwise equal between
+    the two, beside the plain Model.decode_step."""
     from repro_torch.core.jit import build_dense_decode_template
-    prog = build_dense_decode_template(m, params, t.max_batch).bind(
-        stream_id=0, tokens=t.slot_tok, cache=t.cache)
-    eng.jit.run([prog])
-    logits = prog.env["logits"].float()
-    assert tuple(logits.shape) == (t.max_batch, cfg.padded_vocab)
-    assert bool(torch.isfinite(logits).all())
+    t = eng.tenants["t0"]
+    logits = {}
+    for stacked, regime in REGIMES:
+        prog = build_dense_decode_template(
+            m, params, t.max_batch, stacked=stacked).bind(
+            stream_id=0, tokens=t.slot_tok, cache=t.cache)
+        eng.jit.run([prog])
+        logits[regime] = prog.env["logits"]
+    got = logits["stacked"].float()
+    assert tuple(got.shape) == (t.max_batch, cfg.padded_vocab)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(logits["stacked"], logits["per-layer"])
     want, _ = m.decode_step(params, t.slot_tok, t.cache)
-    diff = float((logits - want[:, 0].float()).abs().max())
-    agree = float((logits.argmax(-1) == want[:, 0].argmax(-1)).float()
-                  .mean())
+    diff = float((got - want[:, 0].float()).abs().max())
+    agree = float((got.argmax(-1) == want[:, 0].argmax(-1)).float().mean())
     say("serve-shared", extra_step_logits="finite",
+        stacked_vs_per_layer="bitwise_equal",
         max_abs_diff_vs_Model_decode_step_bf16=f"{diff:.4f}",
         argmax_agreement=f"{agree:.2f}")
-    result = dict(layers=L, launches=launches, wall_s=wall,
-                  tokens=rep.tokens_out, launches_by_shape=by_shape)
-    del eng, rep, prog, params, m, t, logits, want
-    gc.collect()
-    torch.cuda.empty_cache()
-    return result
+    return dict(max_abs_diff_vs_decode_step=diff, argmax_agreement=agree)
+
+
+def _device_split(prof):
+    """(coalesced_gemm µs, other device µs) summed over the profiled
+    window's device events."""
+    from torch.autograd import DeviceType
+    gemm = other = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        if "gemm_kernel" in e.name:
+            gemm += us
+        else:
+            other += us
+    return gemm, other
+
+
+def _host_split(prof, steps):
+    """(top-level host events a step, their host ms a step, the five
+    costliest by name as 'name:ms:calls' a step): the torch ops and CUDA
+    runtime calls the host makes, under the profiler (which slows each
+    one). Host time outside them is Python: the scheduler, the glue
+    closures, the wrappers' own code."""
+    from torch.autograd import DeviceType
+    top = [e for e in prof.events()
+           if e.device_type == DeviceType.CPU and e.cpu_parent is None]
+    by_name = {}
+    for e in top:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.cpu_time_total / 1e3, n + 1)
+    costly = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return (len(top) / steps,
+            sum(ms for ms, _ in by_name.values()) / steps,
+            ",".join(f"{k}:{ms / steps:.2f}:{n // steps}"
+                     for k, (ms, n) in costly))
+
+
+def phase_profile(torch, eng, m, params, steps=3):
+    """Host and device time of one decode step of tenant 0 at serve-shared's
+    shape, through a stacked and a per-layer template, in a steady state
+    (packs built, warmed). Host ms: until ``VLIWJit.run`` returns; wall ms:
+    until the card has finished (synchronize). Then the same steps under
+    ``torch.profiler`` (CPU and CUDA activities) for the device time of
+    ``coalesced_gemm`` and of every other kernel (the glue); device busy
+    share = device time / wall. If the profiler records no device time,
+    CUDA events give the device span of a step instead (idle gaps
+    included), and the line says so."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.jit import build_dense_decode_template
+    t = eng.tenants["t0"]
+    out = {}
+    for stacked, regime in REGIMES:
+        tmpl = build_dense_decode_template(m, params, t.max_batch,
+                                           stacked=stacked)
+
+        def step():
+            eng.jit.run([tmpl.bind(stream_id=0, tokens=t.slot_tok,
+                                   cache=t.cache)])
+
+        step()
+        torch.cuda.synchronize()
+        host, wall = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            step()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host.append(t1 - t0)
+            wall.append(time.perf_counter() - t0)
+        host_ms = 1e3 * statistics.median(host)
+        wall_ms = 1e3 * statistics.median(wall)
+        source = "torch.profiler"
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        gemm_us, other_us = _device_split(prof)
+        n_host, host_ops_ms, costly = _host_split(prof, steps)
+        say("profile", regime=regime, host_events_per_step=f"{n_host:.0f}",
+            host_ms_in_them_per_step=f"{host_ops_ms:.3f}(profiled)",
+            costliest=costly)
+        if gemm_us + other_us == 0.0:
+            source = "cuda_events(no device time from the profiler)"
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            for _ in range(steps):
+                step()
+            e_ev.record()
+            torch.cuda.synchronize()
+            other_us = 1e3 * s_ev.elapsed_time(e_ev)
+        gemm_ms, glue_ms = gemm_us / 1e3 / steps, other_us / 1e3 / steps
+        busy = (gemm_ms + glue_ms) / wall_ms
+        say("profile", regime=regime, batch=t.max_batch,
+            layers=m.cfg.num_layers, steps=steps,
+            host_ms_per_step=f"{host_ms:.3f}",
+            wall_ms_per_step=f"{wall_ms:.3f}",
+            coalesced_gemm_device_ms_per_step=f"{gemm_ms:.3f}",
+            other_kernels_device_ms_per_step=f"{glue_ms:.3f}",
+            device_busy_share=f"{busy:.3f}", source=source)
+        out[regime] = dict(host_ms=host_ms, wall_ms=wall_ms,
+                           gemm_device_ms=gemm_ms, glue_device_ms=glue_ms,
+                           device_busy_share=busy, source=source)
+    return out
 
 
 def phase_serve_grouped(torch, cg, timed):
@@ -716,7 +934,6 @@ def phase_serve_grouped(torch, cg, timed):
     emb = cfg.padded_vocab * cfg.d_model * 2
     params_bytes = 2 * (L * p_layer + 2 * emb)
     budget = int(free - params_bytes - 6 * GIB)
-    torch.cuda.reset_peak_memory_stats()
     tp = []
     for i in range(2):
         m = Model(cfg, param_dtype=torch.bfloat16)
@@ -725,21 +942,18 @@ def phase_serve_grouped(torch, cg, timed):
     say("serve-grouped", layers=L, tenants=2, weights="distinct",
         param_GiB=f"{params_bytes / GIB:.2f}",
         weight_budget_GiB=f"{budget / GIB:.2f}")
-    _reset_counts(cg)
-    eng, rep, wall = _serve(torch, cfg, tp, n_req=4, prompt_len=32,
-                            new_tokens=8, budget=budget, seed=1)
-    launches, max_g = cg.coalesced_gemm.launches, cg.coalesced_gemm.max_groups
-    _check_served(rep, cfg, 8, 8)
-    assert launches > 0 and max_g >= 2, (launches, max_g)
-    assert rep.jit.shared_dispatches == 0 and rep.jit.mean_group > 1.0
-    _report_serve(torch, "serve-grouped", cfg, rep, wall, launches, max_g)
-    by_shape = _report_shapes("serve-grouped", cg, timed)
-    result = dict(launches=launches, max_groups=max_g, wall_s=wall,
-                  launches_by_shape=by_shape)
-    del eng, rep, tp
-    gc.collect()
-    torch.cuda.empty_cache()
-    return result
+
+    def check(rep, launches, max_g, regime):
+        assert launches > 0
+        assert rep.jit.shared_dispatches == 0 and rep.jit.mean_group > 1.0
+        if regime == "per-layer":
+            assert max_g >= 2, (launches, max_g)
+
+    out = _serve_regimes(torch, cg, timed, "serve-grouped", cfg, tp, seed=1,
+                         budget=budget, check=check)
+    del tp
+    _free(torch)
+    return out
 
 
 def phase_card_vs_cpu(torch, cg):
@@ -748,9 +962,9 @@ def phase_card_vs_cpu(torch, cg):
     cfg = _full_yi(1)
     m_gpu = Model(cfg, param_dtype=torch.float32)
     m_cpu = Model(cfg, param_dtype=torch.float32, device="cpu")
-    # two distinct weight sets: the card's run goes through the grouped
-    # regime (stacked packs, device group ids, G_pad padding), not only the
-    # shared one
+    # two distinct weight sets: the card's per-layer run goes through the
+    # grouped regime (stacked packs, device group ids, G_pad padding), not
+    # only the shared one
     params = [m_gpu.init(torch.Generator(device=m_gpu.device)
                          .manual_seed(2 + i)) for i in range(2)]
 
@@ -759,46 +973,56 @@ def phase_card_vs_cpu(torch, cg):
                 for k, v in tree.items()}
 
     params_cpu = [to_cpu(p) for p in params]
-    toks, launches, max_g = {}, 0, 0
-    for m, ps in ((m_gpu, params), (m_cpu, params_cpu)):
-        cg.coalesced_gemm.launches = 0
-        cg.coalesced_gemm.max_groups = 0
-        _, rep, wall = _serve(torch, cfg, [(m, p) for p in ps], n_req=2,
-                              prompt_len=16, new_tokens=4, budget=8 * GIB,
-                              seed=2)
-        _check_served(rep, cfg, 4, 4)
-        toks[m.device.type] = {r.req_id: r.tokens_out for r in rep.requests}
-        if m is m_gpu:
+    result, toks = {}, {}
+    for stacked, regime in REGIMES:
+        for m, ps in ((m_gpu, params), (m_cpu, params_cpu)):
+            _reset_counts(cg)
+            _, rep, wall = _serve(torch, cfg, [(m, p) for p in ps], n_req=2,
+                                  prompt_len=16, new_tokens=4,
+                                  budget=8 * GIB, seed=2, stacked=stacked)
+            _check_served(rep, cfg, 4, 4)
+            toks[regime, m.device.type] = {r.req_id: r.tokens_out
+                                           for r in rep.requests}
             launches = cg.coalesced_gemm.launches
             max_g = cg.coalesced_gemm.max_groups
-        say("card-vs-cpu", device=m.device.type, wall_s=f"{wall:.3f}",
-            launches=cg.coalesced_gemm.launches,
-            max_G=cg.coalesced_gemm.max_groups,
-            mean_group=f"{rep.jit.mean_group:.3f}",
-            shared=rep.jit.shared_dispatches)
-    assert launches > 0 and max_g >= 2, (launches, max_g)
-    assert toks["cuda"] == toks["cpu"], toks
+            if m is m_gpu:
+                assert launches > 0, launches
+                _check_launches(cfg, rep, launches, stacked)
+                if not stacked:
+                    assert max_g >= 2, (launches, max_g)
+                result[regime] = dict(launches=launches, max_groups=max_g)
+            say("card-vs-cpu", regime=regime, device=m.device.type,
+                wall_s=f"{wall:.3f}", launches=launches, max_G=max_g,
+                scheduler_dispatches=rep.jit.superkernels,
+                mean_group=f"{rep.jit.mean_group:.3f}",
+                shared=rep.jit.shared_dispatches)
+        assert toks[regime, "cuda"] == toks[regime, "cpu"], toks
+    assert toks["stacked", "cuda"] == toks["per-layer", "cuda"], toks
     # logits of one prompt pass through the kernel path on both devices
     prompt = torch.randint(0, cfg.vocab_size, (1, 32),
                            generator=torch.Generator().manual_seed(3))
-    logits = {}
-    for m, p in ((m_gpu, params[0]), (m_cpu, params_cpu[0])):
-        cache = m.init_cache(1, 40)
-        prog = build_dense_prefill_template(m, p, 32).bind(
-            stream_id=0, tokens=prompt.to(m.device), cache=cache,
-            env_extra={"real_len": 32, "slot": 0})
-        VLIWJit().run([prog])
-        logits[m.device.type] = prog.env["logits"].float().cpu()
-    diff = float((logits["cuda"] - logits["cpu"]).abs().max())
-    assert bool(torch.isfinite(logits["cuda"]).all())
-    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=2e-4,
-                               atol=2e-4)
-    say("card-vs-cpu", tokens="identical", requests=len(toks["cpu"]),
+    diff = 0.0
+    for stacked, regime in REGIMES:
+        logits = {}
+        for m, p in ((m_gpu, params[0]), (m_cpu, params_cpu[0])):
+            cache = m.init_cache(1, 40)
+            prog = build_dense_prefill_template(
+                m, p, 32, stacked=stacked).bind(
+                stream_id=0, tokens=prompt.to(m.device), cache=cache,
+                env_extra={"real_len": 32, "slot": 0})
+            VLIWJit().run([prog])
+            logits[m.device.type] = prog.env["logits"].float().cpu()
+        assert bool(torch.isfinite(logits["cuda"]).all())
+        torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=2e-4,
+                                   atol=2e-4)
+        diff = max(diff, float((logits["cuda"] - logits["cpu"]).abs().max()))
+    say("card-vs-cpu", tokens="identical(cuda=cpu, stacked=per-layer)",
+        requests=len(toks["stacked", "cpu"]),
         max_abs_logit_diff=f"{diff:.3e}")
     del params, params_cpu, m_gpu, m_cpu
-    gc.collect()
-    torch.cuda.empty_cache()
-    return dict(launches=launches, max_groups=max_g, max_abs_logit_diff=diff)
+    _free(torch)
+    result["max_abs_logit_diff"] = diff
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -960,7 +1184,7 @@ def main(argv=None) -> int:
         else:
             say("gemv-only", src=src, wrapper=gv.__file__)
             phase_kernel_gemv(torch, gv, coalesced_gemv_ref, flush)
-        say("done", seconds=f"{time.perf_counter() - t_start:.1f}", card=smi)
+        say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         return 0
     phase_build(build, cg, gv, fa)
     # overwritten before every timed call of phase 3: 256 MB, five times
@@ -998,13 +1222,15 @@ def main(argv=None) -> int:
                   and r["shape"] == "lstm G=4")
     a_head = next(r for r in attn_shapes if r["dtype"] == "float32"
                   and r["shape"].startswith("gemma3-1b local"))
+    by_phase = {f"{phase} ({regime})": out[regime]["launches"]
+                for phase, out in (("serve-shared", shared),
+                                   ("serve-grouped", grouped),
+                                   ("card-vs-cpu", cpu))
+                for _, regime in REGIMES}
+    by_phase["rnn-matvec (shared)"] = rnn["shared"]["gemm"]
     kernels = [
         entry("coalesced_gemm", "src/repro/kernels/coalesced_gemm.py:43",
-              shared["launches"],
-              {"serve-shared": shared["launches"],
-               "serve-grouped": grouped["launches"],
-               "card-vs-cpu": cpu["launches"],
-               "rnn-matvec (shared)": rnn["shared"]["gemm"]},
+              shared["stacked"]["launches"], by_phase,
               shapes, head,
               f"A [{head['M']},{head['K']}], "
               f"B [{head['G']},{head['K']},{head['N']}]"),
@@ -1022,9 +1248,11 @@ def main(argv=None) -> int:
               f"window {a_head['window']}"),
     ]
     kernels[0]["launches_by_shape"] = {
-        "serve-shared": shared["launches_by_shape"],
-        "serve-grouped": grouped["launches_by_shape"]}
-    say("done", seconds=f"{time.perf_counter() - t_start:.1f}", card=smi)
+        f"{phase} ({regime})": out[regime]["launches_by_shape"]
+        for phase, out in (("serve-shared", shared),
+                           ("serve-grouped", grouped))
+        for _, regime in REGIMES}
+    say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

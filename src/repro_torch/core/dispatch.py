@@ -20,6 +20,10 @@ plan caches) avoids that:
     multiples with the total m-tile count a power of two, K and N to
     128-floored powers of two (``kernels/ops.envelope_bucket``), and the
     problem count G to an unfloored power of two (``_pow2``).
+  * **layer-stacked operands** — ``stacked_operand`` caches one padded
+    [L, K, N] tensor per operand of a layer body (core/jit.py
+    ``StackedGemmStage``), guarded on the original stacked params tensor;
+    the body launches the kernel on one layer of it at a time.
 
 Identity-guard rule for torch tensors: the guard compares with ``is``, so
 it must be handed the ORIGINAL weight tensors — the same objects on every
@@ -199,8 +203,9 @@ class SuperkernelExecutor:
         # bucketing keeps the set of patterns small
         self._gids: Dict[Tuple, torch.Tensor] = {}
 
-    def _group_ids(self, gids: Tuple[int, ...],
-                   device: torch.device) -> torch.Tensor:
+    def group_ids(self, gids: Tuple[int, ...],
+                  device: torch.device) -> torch.Tensor:
+        """The device copy of a group-id vector, built once per pattern."""
         key = (gids, str(device))
         t = self._gids.get(key)
         if t is None:
@@ -238,9 +243,14 @@ class SuperkernelExecutor:
                              * (G_pad - len(parts)))
             return torch.stack(parts, dim=0)
 
+        return self._cached(key, build, tuple(weights), group)
+
+    def _cached(self, key, build, guard: Tuple, group) -> torch.Tensor:
+        """A packed operand from the persistent cache, with the hit, miss
+        and invalidation counts."""
         inval0 = self.weight_cache.stats.invalidations
         value, hit = self.weight_cache.get_or_build_flagged(
-            key, build, guard=tuple(weights), group=group)
+            key, build, guard=guard, group=group)
         self.stats.weight_invalidations += \
             self.weight_cache.stats.invalidations - inval0
         if hit:
@@ -249,6 +259,37 @@ class SuperkernelExecutor:
         else:
             self.stats.weight_misses += 1
         return value
+
+    # ------------------------------------------------------------------
+    def stacked_operand(self, wkey: Tuple, k: int, n: int, layers: int,
+                        weight_fn, guard: Sequence[torch.Tensor], *,
+                        group=None) -> torch.Tensor:
+        """One LAYER-STACKED weight operand, [layers, K, N] padded to the
+        bucketed (K, N) envelope, from the persistent cache.
+
+        The stacked-template counterpart of ``_packed_weights``: one entry
+        per stacked operand per params generation, m-free, so one entry
+        serves decode, prefill and every batch size. ``weight_fn`` builds
+        the raw [layers, k, n] tensor (a [lo:hi) slice of the params tree's
+        stacked blocks) and runs only on a miss. ``guard`` must be the
+        ORIGINAL stacked params tensors, never per-build slices (a fresh
+        slice every tick would read as a hot-swap and repack the whole
+        stack). A real hot-swap puts a new ``id(params)`` in ``wkey``;
+        ``group`` (params-free slot identity) drops the superseded entry,
+        as in ``_packed_weights``. The port serves one device, so the key
+        has no device id."""
+        K = envelope_bucket(int(k))
+        N = envelope_bucket(int(n))
+        key = ("wstack", wkey, int(layers), K, N,
+               str(guard[0].dtype) if guard else "")
+
+        def build() -> torch.Tensor:
+            w = weight_fn()
+            # the kernel takes contiguous operands only (see build() above)
+            return F.pad(w, (0, N - int(w.shape[-1]),
+                             0, K - int(w.shape[-2]))).contiguous()
+
+        return self._cached(key, build, tuple(guard), group)
 
     # ------------------------------------------------------------------
     def execute(self, ops: Sequence[KernelOp], *,
@@ -311,7 +352,7 @@ class SuperkernelExecutor:
             b = self._packed_weights([w], [wkeys[0]], K, N, 1, shared=True,
                                      group=group)
             outs = _dispatch_shared(acts, b,
-                                    self._group_ids((0,) * m_tiles, device),
+                                    self.group_ids((0,) * m_tiles, device),
                                     n_real=int(w.shape[1]), m_tiles=m_tiles,
                                     bm=bm)
         else:
@@ -330,7 +371,7 @@ class SuperkernelExecutor:
                             * (_round_up(int(a.shape[0]), bm) // bm))
             gids.extend([0] * (m_tiles - len(gids)))  # pad tiles: group 0
             outs = _dispatch_grouped(
-                acts, b, self._group_ids(tuple(gids), device),
+                acts, b, self.group_ids(tuple(gids), device),
                 n_real=tuple(n_real), m_tiles=m_tiles, bm=bm)
         self.stats.retraces += build_count() - builds0
         return list(outs[:G])

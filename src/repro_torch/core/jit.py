@@ -28,10 +28,24 @@ KV-cache updates are functional: every epilogue returns NEW cache tensors
 and leaves the bound ones as they were. The serving engine binds
 ``tenant.cache`` into programs and relies on that.
 
-Only the per-layer emission (``stacked=False``) is ported. The JAX
-package's default, layer-stacked templates (one scanned body per
-homogeneous sub-stack) are ROADMAP queue 1 item 7; asking for them raises.
-MoE and SSM templates are item 8.
+Layer-stacked templates are the default (``stacked=True`` on the template
+functions and cache keys, ``stacked_layers=True`` on the engine), as in the
+JAX package. A template holds ONE ``StackedGemmStage`` per homogeneous
+sub-stack of layers (``partition_layers`` over the local/global attention
+flags) instead of ~6 stages a layer: the whole sub-stack is one schedulable
+op whose operands are the params tree's stacked ``[L, k, n]`` blocks, padded
+once into the executor's persistent cache (``stacked_operand``). Where the
+JAX package runs a jitted ``lax.scan`` over the layer axis, the body here is
+a Python loop over the sub-stack's layers. Each of its GEMMs is one solo
+``coalesced_gemm`` launch (``_scan_gemm``, G = 1) that replicates the
+executor's dispatch of a lone op exactly: the same m-tile bucket, the same
+padded envelope, the same glue functions. So a stacked program is bitwise
+equal to the per-layer one. A stacked op is charged as ``layers``
+sequential tile-waves per operand (``GemmShape.layers``) and coalesces
+only with ops of the same stack signature (``clustering.coalesce_key``);
+a coalesced group of bodies runs back to back. ``stacked=False`` keeps
+the per-layer emission as the bitwise oracle. MoE and SSM templates are
+ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -48,15 +62,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.clustering import shared_weight_key, weight_key
 from repro_torch.core.coalescer import Coalescer
 from repro_torch.core.costmodel import CostModel, GemmShape, H100
-from repro_torch.core.dispatch import DispatchStats, SuperkernelExecutor
+from repro_torch.core.dispatch import (DispatchStats, SuperkernelExecutor,
+                                       _pad_rows_cols, _tile_bucket)
 from repro_torch.core.kernelspec import make_op, op_aspect
 from repro_torch.core.plancache import PlanCache, PlanCacheStats
 from repro_torch.core.scheduler import OoOScheduler, SchedulerConfig
+from repro_torch.kernels.build import build_count
+from repro_torch.kernels.coalesced_gemm import coalesced_gemm
 from repro_torch.models.layers import apply_rope, rmsnorm, silu_mul
-
-_STACKED_NOT_PORTED = (
-    "layer-stacked templates are not ported yet (ROADMAP queue 1 item 7: "
-    "stacked templates); use stacked=False")
 
 NEG_INF = -2.0e38
 
@@ -91,7 +104,86 @@ class GlueStage:
     writes: Optional[Tuple] = None
 
 
-Stage = Any  # GemmStage | GlueStage
+def partition_layers(flags: Sequence[bool]) -> List[Tuple[int, int]]:
+    """Partition a layer-flag sequence into maximal homogeneous runs:
+    half-open ``(lo, hi)`` spans covering ``range(len(flags))`` once, in
+    order, with the flag constant inside each span. These are the
+    sub-stacks a model with local/global attention alternation runs as
+    separate bodies; a homogeneous depth-L model yields ``[(0, L)]``."""
+    runs: List[Tuple[int, int]] = []
+    lo = 0
+    for i in range(1, len(flags)):
+        if flags[i] != flags[lo]:
+            runs.append((lo, i))
+            lo = i
+    if len(flags):
+        runs.append((lo, len(flags)))
+    return runs
+
+
+@dataclasses.dataclass
+class StackedOperand:
+    """One stacked weight operand of a layer body: a ``[Lsub, k, n]``
+    tensor covering a homogeneous sub-stack. ``shape.layers`` counts the
+    operand's sequential tile-waves (Lsub for a dense operand)."""
+
+    tag: str                       # per-layer stage tag, e.g. "ffn_gate"
+    weight_key: Tuple              # clustering.weight_key(..., stack=...)
+    shape: GemmShape               # per-wave (m, n, k) with layers = waves
+    # builds the raw stacked tensor (a [lo:hi) view of the params tree's
+    # stacked blocks); runs only on an operand-cache miss
+    weight_fn: Callable[[], torch.Tensor]
+    # identity guard: the ORIGINAL stacked params tensors (stable across
+    # ticks), never per-build slices, which would read as hot-swaps and
+    # repack the whole stack every tick
+    guard: Tuple = ()
+
+
+@dataclasses.dataclass
+class StackedGemmStage:
+    """One layer body: a whole homogeneous sub-stack of layers as a single
+    schedulable op (in place of ~6·Lsub ``GemmStage``s). The session
+    fetches each operand's padded stack from the executor's persistent
+    cache (``SuperkernelExecutor.stacked_operand``) and calls ``run``, a
+    loop over the layers that replays the per-layer math with
+    ``_scan_gemm`` standing in for the executor's dispatch, bitwise."""
+
+    tag: str                       # body identity, e.g. "body_0_12"
+    weight_key: Tuple              # clustering.weight_key("body", stack=...)
+    operands: List[StackedOperand]
+    layers: int                    # hi - lo
+    # run(env, {operand tag -> padded stacked tensor}, executor): runs the
+    # body and writes its results (residual stream, cache chunk) to env
+    run: Callable[[Dict[str, Any], Dict[str, torch.Tensor],
+                   SuperkernelExecutor], None]
+    reads: Optional[Tuple] = None
+    writes: Optional[Tuple] = None
+
+
+Stage = Any  # GemmStage | GlueStage | StackedGemmStage
+
+
+def _scan_gemm(a: torch.Tensor, w_pad: torch.Tensor, n_real: int,
+               ex: SuperkernelExecutor) -> torch.Tensor:
+    """One GEMM inside a layer body, replicating the executor's dispatch
+    of a lone op exactly: the same m-tile bucket, the same padded (K, N)
+    envelope (``w_pad`` is one layer of a cached ``stacked_operand``), one
+    ``coalesced_gemm`` launch with G = 1 and all-zero group ids. So a
+    stacked body is bitwise equal to the per-layer path dispatching each
+    stage. It calls the kernel's wrapper directly, so the wrapper's launch
+    counters count it. The JAX package's ``bn`` / ``bk`` have no
+    counterpart: the CUDA kernel fixes its own tile geometry."""
+    m = int(a.shape[0])
+    K = int(w_pad.shape[-2])
+    m_tiles = _tile_bucket([m], ex.bm)
+    ap = _pad_rows_cols(a, m_tiles * ex.bm, K).contiguous()
+    out = coalesced_gemm(ap, w_pad[None],
+                         ex.group_ids((0,) * m_tiles, a.device), bm=ex.bm)
+    return out[:m, :n_real]
+
+
+def _stack_slice(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    return t if lo == 0 and hi == int(t.shape[0]) else t[lo:hi]
 
 # monotonically-increasing KernelProgram instance ids (trace identity)
 _PROG_UIDS = itertools.count(1)
@@ -124,10 +216,11 @@ class KernelProgram:
         dataclasses.field(default=None, repr=False, compare=False)
 
     def advance_glue(self) -> Optional[Stage]:
-        """Run glue stages until the next GEMM stage (or completion)."""
+        """Run glue stages until the next GEMM or layer-body stage (or
+        completion)."""
         while self.pc < len(self.stages):
             st = self.stages[self.pc]
-            if isinstance(st, GemmStage):
+            if isinstance(st, (GemmStage, StackedGemmStage)):
                 return st
             st.fn(self.env)
             self.pc += 1
@@ -164,6 +257,9 @@ def _gemm_suffix_table(stages: List[Stage], batch: int,
                 shape = GemmShape(m=batch, n=int(w.shape[1]),
                                   k=int(w.shape[0]))
             dt = cost.gemm_time(shape)
+        elif isinstance(st, StackedGemmStage):
+            # each operand's GemmShape carries its wave count in .layers
+            dt = sum(cost.gemm_time(od.shape) for od in st.operands)
         suf[i] = suf[i + 1] + dt
     return suf
 
@@ -227,11 +323,13 @@ class ProgramTemplate:
 
 
 def dense_program_cache_key(model, params, batch: int, cache, *,
-                            stacked: bool = False) -> Tuple:
+                            stacked: bool = True) -> Tuple:
     """Plan-cache key for a dense decode template: (model identity, active
     batch m, dtype, cache geometry). Params identity is NOT in the key — a
     weight hot-swap lands on the same slot and is caught by the cache's
-    identity guard (``guard=(model, params)`` at the lookup site)."""
+    identity guard (``guard=(model, params)`` at the lookup site). The
+    regime and depth are in the key: a stacked and a per-layer template of
+    one model never alias."""
     kc = cache["layers"]["k"]
     return ("dense-decode", model.cfg.name, id(model), batch,
             str(params["embed"].dtype), str(kc.dtype), tuple(kc.shape),
@@ -468,6 +566,134 @@ def _decode_attend_for(cfg: ModelConfig, B: int):
     return attend_for
 
 
+def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
+                        m_rows: int, attend_for, reads: Tuple
+                        ) -> StackedGemmStage:
+    """ONE layer body covering layers [lo, hi) of a dense GQA model, in
+    place of their per-layer stages; shared by the decode and prefill
+    templates, as ``_emit_dense_body`` is. Its loop replays the per-layer
+    math exactly: ``_scan_gemm`` for every projection and the same
+    ``rmsnorm`` and ``silu_mul`` the per-layer glue calls.
+    ``attend_for(env, is_global)`` returns the phase's attention,
+    ``attend(l, q, k, v, dtype) -> (attn_out, k_new, v_new)`` for layer l,
+    the same function its per-layer glue calls. The layers' k/v are stacked
+    into one [Lsub, ...] chunk for the epilogue to concatenate."""
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    eps = cfg.norm_eps
+    blocks = params["blocks"]
+    pid = id(params)
+    Lsub = hi - lo
+    is_global = bool(cfg.layer_is_global(lo))
+    nq, nkv, dff = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
+    operands = _stacked_operands(cfg, blocks, pid, lo, hi, m=m_rows)
+    ln1s = _stack_slice(blocks["ln1"], lo, hi)
+    ln2s = _stack_slice(blocks["ln2"], lo, hi)
+
+    def run(env, padded, ex):
+        attend = attend_for(env, is_global)
+        x = env["x"]
+        ks, vs = [], []
+        for i in range(Lsub):
+            w = {tag: op[i] for tag, op in padded.items()}
+            h = rmsnorm(x, ln1s[i], eps)
+            attn_out, k_new, v_new = attend(
+                lo + i, _scan_gemm(h, w["attn_wq"], nq, ex),
+                _scan_gemm(h, w["attn_wk"], nkv, ex),
+                _scan_gemm(h, w["attn_wv"], nkv, ex), h.dtype)
+            ks.append(k_new)
+            vs.append(v_new)
+            x = x + _scan_gemm(attn_out, w["attn_wo"], d, ex)
+            h2 = rmsnorm(x, ln2s[i], eps)
+            act = silu_mul(_scan_gemm(h2, w["ffn_gate"], dff, ex),
+                           _scan_gemm(h2, w["ffn_up"], dff, ex))
+            x = x + _scan_gemm(act, w["ffn_down"], d, ex)
+        env["x"] = x
+        env["new_layers"]["k"].append(torch.stack(ks))
+        env["new_layers"]["v"].append(torch.stack(vs))
+
+    return StackedGemmStage(
+        tag=f"body_{lo}_{hi}",
+        weight_key=weight_key(cfg.name, pid, "body", stack=(lo, hi)),
+        operands=operands, layers=Lsub, run=run,
+        reads=reads, writes=("x", "new_layers"))
+
+
+def _stacked_operands(cfg: ModelConfig, blocks, pid: int, lo: int, hi: int,
+                      *, m: int) -> List[StackedOperand]:
+    """The seven stacked projection operands of a dense body over layers
+    [lo, hi), in the per-layer emission's order, each guarded on the
+    ORIGINAL stacked params tensor."""
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    attn, mlp = blocks["attn"], blocks["mlp"]
+
+    def sop(tag, name, t, n, k):
+        return StackedOperand(
+            tag, weight_key(cfg.name, pid, name, stack=(lo, hi)),
+            GemmShape(m=m, n=n, k=k, layers=hi - lo),
+            lambda t=t: _stack_slice(t, lo, hi), (t,))
+
+    return [
+        sop("attn_wq", "wq", attn["wq"], cfg.num_heads * hd, d),
+        sop("attn_wk", "wk", attn["wk"], cfg.num_kv_heads * hd, d),
+        sop("attn_wv", "wv", attn["wv"], cfg.num_kv_heads * hd, d),
+        sop("attn_wo", "wo", attn["wo"], d, cfg.num_heads * hd),
+        sop("ffn_gate", "w_gate", mlp["w_gate"], cfg.d_ff, d),
+        sop("ffn_up", "w_up", mlp["w_up"], cfg.d_ff, d),
+        sop("ffn_down", "w_down", mlp["w_down"], d, cfg.d_ff),
+    ]
+
+
+def _decode_finish(concat):
+    """The decode epilogue: ``pos + 1`` and the layers' new caches joined
+    into [L, ...] (``torch.stack`` of per-layer tensors, ``torch.cat`` of
+    per-body chunks) as new cache tensors."""
+
+    def finish(env):
+        cache = env["cache"]
+        env["cache"] = {
+            "pos": cache["pos"] + 1,
+            "layers": {
+                "k": concat(env["new_layers"]["k"]),
+                "v": concat(env["new_layers"]["v"]),
+            },
+        }
+
+    return GlueStage(finish, reads=("cache", "new_layers"),
+                     writes=("cache",))
+
+
+def _build_stacked_gqa_decode_template(model, params, batch: int
+                                       ) -> ProgramTemplate:
+    """Stacked counterpart of ``_build_gqa_decode_template``: one body
+    stage per homogeneous sub-stack instead of per-layer emission."""
+    cfg: ModelConfig = model.cfg
+    B = batch
+
+    def attend_for(env, is_global):
+        # one new token per row against the slotted cache
+        cache = env["cache"]
+        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
+        pos = torch.broadcast_to(cache["pos"], (B,))
+
+        def attend(l, q, k, v, dtype):
+            return _gqa_decode_attend(cfg, B, q, k, v, kc[l], vc[l], pos,
+                                      is_global, dtype)
+
+        return attend
+
+    stages: List[Stage] = []
+    _emit_decode_embed(cfg, params, stages)
+    for lo, hi in partition_layers(cfg.global_layer_flags()):
+        stages.append(_stacked_body_stage(
+            cfg, params, lo, hi, m_rows=B, attend_for=attend_for,
+            reads=("x", "cache")))
+    _emit_final_logits(cfg, params, stages, m_rows=B)
+    stages.append(_decode_finish(lambda ts: torch.cat(ts, dim=0)))
+    return ProgramTemplate(stages=stages, batch=B, model_name=cfg.name)
+
+
 def _build_gqa_decode_template(model, params, batch: int) -> ProgramTemplate:
     """Decode-template scaffold: embed glue, the per-layer attention + FFN
     body, final norm, unembed and the KV-cache write-back epilogue."""
@@ -479,32 +705,22 @@ def _build_gqa_decode_template(model, params, batch: int) -> ProgramTemplate:
     _emit_dense_body(cfg, params, stages, m_rows=B,
                      attend_for=_decode_attend_for(cfg, B))
     _emit_final_logits(cfg, params, stages, m_rows=B)
-
-    def finish(env):
-        cache = env["cache"]
-        env["cache"] = {
-            "pos": cache["pos"] + 1,
-            "layers": {
-                "k": torch.stack(env["new_layers"]["k"]),
-                "v": torch.stack(env["new_layers"]["v"]),
-            },
-        }
-
-    stages.append(GlueStage(finish, reads=("cache", "new_layers"),
-                            writes=("cache",)))
+    stages.append(_decode_finish(torch.stack))
     return ProgramTemplate(stages=stages, batch=B, model_name=cfg.name)
 
 
 def build_dense_decode_template(model, params, batch: int, *,
-                                stacked: bool = False) -> ProgramTemplate:
+                                stacked: bool = True) -> ProgramTemplate:
     """Compile the decode step of a dense GQA model into a ProgramTemplate.
 
     Equivalent to ``Model.decode_step`` but with every projection GEMM
     declared to the JIT. Per-step inputs (tokens [B, 1], KV cache) are read
-    from the bound program's env, so one template serves every step."""
-    if stacked:
-        raise NotImplementedError(_STACKED_NOT_PORTED)
+    from the bound program's env, so one template serves every step.
+    ``stacked=True`` (default) emits one layer body per homogeneous
+    sub-stack; ``stacked=False`` the per-layer stages."""
     assert model.cfg.arch_type == "dense", model.cfg.arch_type
+    if stacked:
+        return _build_stacked_gqa_decode_template(model, params, batch)
     return _build_gqa_decode_template(model, params, batch)
 
 
@@ -550,10 +766,11 @@ def _causal_prefill_attend(cfg: ModelConfig, Sp: int, q_flat, k_flat,
 
 
 def prefill_program_cache_key(model, params, seq_len: int, cache, *,
-                              stacked: bool = False) -> Tuple:
+                              stacked: bool = True) -> Tuple:
     """Plan-cache key for a dense prefill template: (model identity, padded
     prompt bucket, dtype, cache geometry); params identity is guarded at
-    the lookup site."""
+    the lookup site. The regime and depth are in the key: a stacked and a
+    per-layer template of one model never alias."""
     kc = cache["layers"]["k"]
     return ("dense-prefill", model.cfg.name, id(model), seq_len,
             str(params["embed"].dtype), str(kc.dtype), tuple(kc.shape),
@@ -561,7 +778,7 @@ def prefill_program_cache_key(model, params, seq_len: int, cache, *,
 
 
 def build_dense_prefill_template(model, params, seq_len: int, *,
-                                 stacked: bool = False) -> ProgramTemplate:
+                                 stacked: bool = True) -> ProgramTemplate:
     """Compile the PROMPT pass of a dense GQA model into a ProgramTemplate.
 
     Every projection GEMM is declared with m = ``seq_len`` (the padded
@@ -569,9 +786,9 @@ def build_dense_prefill_template(model, params, seq_len: int, *,
     only. Per-request env entries (bound via ``bind``'s ``env_extra``):
     ``tokens`` (the prompt zero-padded to [1, seq_len]), ``real_len`` (the
     true prompt length S), ``slot`` (the reserved decode slot the epilogue
-    writes, or None for a request that never decodes) and ``cache``."""
-    if stacked:
-        raise NotImplementedError(_STACKED_NOT_PORTED)
+    writes, or None for a request that never decodes) and ``cache``.
+    ``stacked=True`` (default) emits one layer body per homogeneous
+    sub-stack; ``stacked=False`` the per-layer stages."""
     cfg: ModelConfig = model.cfg
     assert cfg.arch_type == "dense", cfg.arch_type
     Sp = seq_len
@@ -587,20 +804,38 @@ def build_dense_prefill_template(model, params, seq_len: int, *,
 
     glue(embed, reads=("tokens",), writes=("x", "positions"))
 
-    def attend_for(l, lp, is_global):
-        # causal self-attention over the whole (padded) prompt
-        def attend(env, is_global=is_global):
-            attn_out, k_t, v_t = _causal_prefill_attend(
-                cfg, Sp, env["wq"], env["wk"], env["wv"], env["positions"],
-                is_global, env["h"].dtype)
-            env["new_layers"]["k"].append(k_t)
-            env["new_layers"]["v"].append(v_t)
-            env["attn_out"] = attn_out
+    if stacked:
+        def stacked_attend_for(env, is_global):
+            # causal self-attention over the whole (padded) prompt
+            positions = env["positions"]
 
-        return attend
+            def attend(l, q, k, v, dtype):
+                attn_out, k_t, v_t = _causal_prefill_attend(
+                    cfg, Sp, q, k, v, positions, is_global, dtype)
+                return attn_out, k_t[0], v_t[0]
 
-    _emit_dense_body(cfg, params, stages, m_rows=Sp, attend_for=attend_for,
-                     attend_reads=("wq", "wk", "wv", "positions"))
+            return attend
+
+        for lo, hi in partition_layers(cfg.global_layer_flags()):
+            stages.append(_stacked_body_stage(
+                cfg, params, lo, hi, m_rows=Sp,
+                attend_for=stacked_attend_for, reads=("x", "positions")))
+    else:
+        def attend_for(l, lp, is_global):
+            # causal self-attention over the whole (padded) prompt
+            def attend(env, is_global=is_global):
+                attn_out, k_t, v_t = _causal_prefill_attend(
+                    cfg, Sp, env["wq"], env["wk"], env["wv"],
+                    env["positions"], is_global, env["h"].dtype)
+                env["new_layers"]["k"].append(k_t)
+                env["new_layers"]["v"].append(v_t)
+                env["attn_out"] = attn_out
+
+            return attend
+
+        _emit_dense_body(cfg, params, stages, m_rows=Sp,
+                         attend_for=attend_for,
+                         attend_reads=("wq", "wk", "wv", "positions"))
 
     def final_norm(env):
         # only the last REAL position is unembedded
@@ -750,8 +985,9 @@ class JitSession:
         self.stats = JitStats()
         self.cost = jit.cost
         self.sched = OoOScheduler(self.cost, jit.coalescer, jit.sched_cfg)
-        # pending GEMM per program: op_id -> (program, stage)
-        self.live: Dict[int, Tuple[KernelProgram, GemmStage]] = {}
+        # pending GEMM or layer body per program: op_id -> (program, stage)
+        self.live: Dict[int, Tuple[KernelProgram,
+                                   Union[GemmStage, StackedGemmStage]]] = {}
         self._done: List[KernelProgram] = []
         self._started = False          # True once the first tick has run
         # plan caches and the executor outlive sessions; snapshot their
@@ -783,7 +1019,10 @@ class JitSession:
             return
         self._push_op(prog, st)
 
-    def _push_op(self, prog: KernelProgram, st: GemmStage) -> None:
+    def _push_op(self, prog: KernelProgram, st: Stage) -> None:
+        if isinstance(st, StackedGemmStage):
+            self._push_stacked_op(prog, st)
+            return
         a = st.input_fn(prog.env)
         w = st.weight_fn()
         op = make_op(prog.stream_id, op_aspect(int(a.shape[0]), self.jit.bm),
@@ -806,6 +1045,77 @@ class JitSession:
         self.live[op.op_id] = (prog, st)
         self.sched.push([op])
 
+    def _push_stacked_op(self, prog: KernelProgram,
+                         st: StackedGemmStage) -> None:
+        """Declare one layer body as a single KernelOp. ``op.shape`` is the
+        DOMINANT operand (largest weight volume) for EDF and aspect
+        bookkeeping; the full per-operand signature rides on ``op.stack``
+        and drives coalescing and the cost charge."""
+        dom = max((od.shape for od in st.operands),
+                  key=lambda s: s.layers * s.n * s.k)
+        op = make_op(prog.stream_id, op_aspect(dom.m, self.jit.bm), dom,
+                     arrival_t=prog.arrival_t,
+                     deadline_t=prog.effective_deadline,
+                     seq_index=prog.pc, tag=st.tag,
+                     model_id=st.weight_key[0], op_kind=prog.kind)
+        op.stack = tuple((od.tag, od.shape) for od in st.operands)
+        # no activation binding: the operands are fetched at dispatch
+        # (_run_stacked). The weight slot holds the operands' guard tensors
+        # (the original stacked params) as the op's weight identity.
+        op.payload = (None,
+                      tuple(t for od in st.operands for t in od.guard),
+                      st.weight_key)
+        op.prog_uid = prog.uid
+        op.req_deadlines = prog.req_deadlines
+        if math.isfinite(op.deadline_t):
+            op.latest_start_t = op.deadline_t \
+                - prog.remaining_gemm_time(self.cost, prog.pc)
+        self.live[op.op_id] = (prog, st)
+        self.sched.push([op])
+
+    def _run_stacked(self, ops, completed: List[KernelProgram]) -> None:
+        """Dispatch a coalesced group of layer-body ops: fetch each op's
+        stacked operands from the executor's persistent cache, then run the
+        bodies back to back. The operands' cache accesses collapse into ONE
+        hit or miss and one dispatch per op (a miss if any operand had to
+        be packed), so ``weight_hits + weight_misses == dispatches`` holds
+        across plain and stacked dispatch alike."""
+        ex = self.jit.executor
+        for op in ops:
+            prog, st = self.live.pop(op.op_id)
+            h0, m0 = ex.stats.weight_hits, ex.stats.weight_misses
+            padded = {}
+            for od in st.operands:
+                # params-free slot identity: a hot-swap (new params id in
+                # the key) drops the superseded entry of the same slot
+                group = (op.stream_id, od.weight_key[0]) \
+                    + od.weight_key[2:]
+                padded[od.tag] = ex.stacked_operand(
+                    od.weight_key, od.shape.k, od.shape.n, od.shape.layers,
+                    od.weight_fn, od.guard, group=group)
+            missed = ex.stats.weight_misses > m0
+            ex.stats.weight_hits, ex.stats.weight_misses = h0, m0
+            if missed:
+                ex.stats.weight_misses += 1
+            else:
+                ex.stats.weight_hits += 1
+            ex.stats.dispatches += 1
+            builds0 = build_count()
+            st.run(prog.env, padded, ex)
+            ex.stats.retraces += build_count() - builds0
+            self._advance(prog, completed)
+
+    def _advance(self, prog: KernelProgram,
+                 completed: List[KernelProgram]) -> None:
+        """Step past the stage just run: declare the program's next op, or
+        complete it."""
+        prog.pc += 1
+        nxt = prog.advance_glue()
+        if nxt is None:
+            completed.append(prog)
+        else:
+            self._push_op(prog, nxt)
+
     def tick(self, now: float) -> TickEvent:
         """Execute one scheduler decision at virtual time ``now``."""
         self._sync_cache_stats()
@@ -823,10 +1133,19 @@ class JitSession:
         plan = decision.plan
         # a group whose ops all carry ONE weight key loads the weights once
         shared = shared_weight_key(plan.ops) is not None
-        outs = self.jit.executor.execute(plan.ops, shared_operand=shared)
-        serial_shapes = [o.shape for o in plan.ops]
-        t = self.cost.coalesced_time(serial_shapes, plan.block,
-                                     shared_operand=shared)
+        stacked = plan.ops[0].stack is not None
+        if stacked:
+            # coalesce_key keeps stacked and plain ops in disjoint buckets;
+            # the bodies run after the stats below (_run_stacked)
+            assert all(op.stack is not None for op in plan.ops)
+            serial_shapes = [s for op in plan.ops for _, s in op.stack]
+            t = plan.est_time_s
+        else:
+            outs = self.jit.executor.execute(plan.ops,
+                                             shared_operand=shared)
+            serial_shapes = [o.shape for o in plan.ops]
+            t = self.cost.coalesced_time(serial_shapes, plan.block,
+                                         shared_operand=shared)
         stats = self.stats
         stats.superkernels += 1
         stats.ops_executed += len(plan.ops)
@@ -840,15 +1159,13 @@ class JitSession:
         stats.modeled_time_s += t
         stats.modeled_serial_time_s += self.cost.time_multiplexed(
             serial_shapes, plan.block)
-        for op, out in zip(plan.ops, outs):
-            prog, st = self.live.pop(op.op_id)
-            st.output_fn(prog.env, out)
-            prog.pc += 1
-            nxt = prog.advance_glue()
-            if nxt is None:
-                completed.append(prog)
-            else:
-                self._push_op(prog, nxt)
+        if stacked:
+            self._run_stacked(plan.ops, completed)
+        else:
+            for op, out in zip(plan.ops, outs):
+                prog, st = self.live.pop(op.op_id)
+                st.output_fn(prog.env, out)
+                self._advance(prog, completed)
         # re-sync so a session that ends on this tick still reports the
         # executor/plan-cache work it just did
         self._sync_cache_stats()

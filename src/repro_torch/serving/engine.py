@@ -35,10 +35,17 @@ Prompts: the JAX package draws them with ``jax.random``; here a CPU
 ``prompt_fn(tenant, req) -> LongTensor[1, S]`` hook replaces the draw
 (parity tests pass the JAX package's prompts through it).
 
-Not ported in this slice (each raises ``NotImplementedError`` if asked
-for): the schedule certifier (``certify``), admission control, the real-
-clock front door (``serve_forever``), the modelled mesh
-(``num_devices > 1``) and layer-stacked templates (``stacked_layers``).
+Tenants compile to layer-stacked templates by default
+(``stacked_layers=True``, one body per homogeneous sub-stack of layers, as
+in the JAX package); ``stacked_layers=False`` serves the per-layer
+emission, the bitwise oracle. Both give the same tokens.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item
+when asked for; the keywords are accepted with the JAX package's defaults):
+the schedule certifier (``certify``), admission control (``admission_control``,
+``admission``), the real-clock front door (``serve_forever``,
+``token_sink``), the modelled mesh (``num_devices > 1``, ``devices``) and
+live tuning (``live_tune``, ``tune_objective``).
 """
 from __future__ import annotations
 
@@ -197,22 +204,29 @@ class ServingEngine:
                  predict_arrivals: bool = False,
                  arrival_alpha: float = 0.2,
                  weight_budget_bytes: Optional[int] = 1 << 30,
-                 stacked_layers: bool = False,
+                 stacked_layers: bool = True,
                  certify: bool = False,
                  num_devices: int = 1,
+                 devices: Optional[Any] = None,
+                 live_tune: bool = False,
+                 tune_objective: str = "collaborative",
                  admission_control: bool = False,
+                 admission: Optional[Any] = None,
+                 token_sink: Optional[Any] = None,
                  prompt_fn: Optional[PromptFn] = None,
                  device: DeviceLike = None):
         assert mode in ("time", "batched", "vliw")
-        if stacked_layers:
-            raise _not_ported("stacked_layers=True (layer-stacked "
-                              "templates)", "7")
         if certify:
             raise _not_ported("certify=True (the schedule certifier)", "11")
-        if admission_control:
+        if admission_control or admission is not None:
             raise _not_ported("admission control", "10")
-        if num_devices != 1:
+        if token_sink is not None:
+            raise _not_ported("token_sink (the front door's token stream)",
+                              "10")
+        if num_devices != 1 or devices is not None:
             raise _not_ported("the multi-device mesh", "9")
+        if live_tune or tune_objective != "collaborative":
+            raise _not_ported("live tuning", "14")
         self.tenants = {t.name: t for t in tenants}
         # the device the engine serves on: the current CUDA device unless
         # the caller names one (raises when none is given and CUDA is
@@ -224,7 +238,11 @@ class ServingEngine:
                                  f"{t.model.device}, the engine serves "
                                  f"{self.device}")
         self.mode = mode
-        self.stacked_layers = False
+        # True: one layer body per homogeneous sub-stack; False: per-layer
+        # stages (the bitwise oracle). The analytic charges below do not
+        # depend on it: a stacked op is charged as L sequential tile-waves,
+        # the total the per-layer stages add up to.
+        self.stacked_layers = stacked_layers
         self.declared_prefill = declared_prefill
         # prompts shorter than this stay on the analytic prefill charge
         # (their GEMMs are GEMV-shaped like a decode step's)
@@ -403,8 +421,10 @@ class ServingEngine:
         bucket = prefill_bucket(s)
         padded = F.pad(self._make_prompt(t, req), (0, bucket - s))
         template = self.jit.plan_cache.get_or_build(
-            prefill_program_cache_key(t.model, t.params, bucket, t.cache),
-            lambda: build_dense_prefill_template(t.model, t.params, bucket),
+            prefill_program_cache_key(t.model, t.params, bucket, t.cache,
+                                      stacked=self.stacked_layers),
+            lambda: build_dense_prefill_template(
+                t.model, t.params, bucket, stacked=self.stacked_layers),
             guard=(t.model, t.params),
             group=("tenant-prefill", t.name, bucket))
         final = req.arrival_t + req.slo_s
@@ -461,8 +481,10 @@ class ServingEngine:
             min(finals) if finals else math.inf
         batch = int(t.slot_tok.shape[0])
         template = self.jit.plan_cache.get_or_build(
-            dense_program_cache_key(t.model, t.params, batch, t.cache),
-            lambda: build_dense_decode_template(t.model, t.params, batch),
+            dense_program_cache_key(t.model, t.params, batch, t.cache,
+                                    stacked=self.stacked_layers),
+            lambda: build_dense_decode_template(
+                t.model, t.params, batch, stacked=self.stacked_layers),
             guard=(t.model, t.params), group=("tenant", t.name))
         return template.bind(
             stream_id=stream_id, tokens=t.slot_tok, cache=t.cache,

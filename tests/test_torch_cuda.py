@@ -19,6 +19,7 @@ tests/test_torch_attention.py); in bf16 at one bf16 ulp of the output, rtol
 P V with P split into two bf16 halves, and both sides round fp32 results
 of order 1 or less to bf16.
 """
+import dataclasses
 import importlib
 import importlib.util
 from pathlib import Path
@@ -168,7 +169,8 @@ def _to(tree, device):
 def test_engine_tokens_card_equals_cpu(cuda):
     """The same weights and prompts on the card (kernel) and on the CPU
     (plain versions) give the same greedy tokens. The two tenants have
-    distinct weights, so the card runs the grouped regime (G = 2)."""
+    distinct weights and per-layer templates, so the card runs the grouped
+    regime (G = 2)."""
     cfg = smoke_config("yi-9b")
     m_cpu = Model(cfg, param_dtype=torch.float32, device="cpu")
     params = [m_cpu.init(torch.Generator().manual_seed(i)) for i in (0, 1)]
@@ -181,11 +183,84 @@ def test_engine_tokens_card_equals_cpu(cuda):
                    for n, p in zip(("a", "b"), ps)]
         n0 = cg.coalesced_gemm.launches
         cg.coalesced_gemm.max_groups = 0
-        rep = ServingEngine(tenants, mode="vliw", device=m.device).run(trace)
+        rep = ServingEngine(tenants, mode="vliw", device=m.device,
+                            stacked_layers=False).run(trace)
         out.append({r.req_id: r.tokens_out for r in rep.requests})
         assert (cg.coalesced_gemm.launches > n0) == (m is m_gpu)
         if m is m_gpu:
             assert cg.coalesced_gemm.max_groups >= 2
+    assert out[0] == out[1]
+
+
+def _gemma8():
+    """gemma3-1b smoke at 8 layers with gemma3's period of one global
+    layer in six: sub-stacks of 5, 1 and 2 layers."""
+    return dataclasses.replace(smoke_config("gemma3-1b"), num_layers=8,
+                               global_every=6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_bitwise_equal_to_per_layer_on_card(cuda, dtype):
+    """On the card too, a layer-stacked template gives the per-layer
+    template's logits and cache leaves bit for bit, over 3 decode steps
+    and one prompt pass: both run every GEMM as a lone kernel launch at
+    the same shapes, and the gemm's rows are batch invariant."""
+    from repro_torch.core.jit import (VLIWJit, build_dense_decode_template,
+                                      build_dense_prefill_template)
+    m = Model(_gemma8(), param_dtype=dtype, device=cuda)
+    p = m.init(torch.Generator(device=cuda).manual_seed(4))
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, m.cfg.vocab_size, (2, 12), generator=g)
+    _, cache0 = m.prefill(p, {"tokens": prompt.to(cuda)}, cache_len=32)
+    tok0 = torch.randint(0, m.cfg.vocab_size, (2, 1), generator=g).to(cuda)
+    padded = torch.zeros((1, 16), dtype=torch.long)
+    padded[0, :12] = prompt[0]
+    out = {}
+    for stacked in (True, False):
+        n0 = cg.coalesced_gemm.launches
+        tmpl = build_dense_decode_template(m, p, 2, stacked=stacked)
+        vj = VLIWJit(max_group=8)
+        cache, tok, envs = cache0, tok0, []
+        for _ in range(3):
+            prog = tmpl.bind(stream_id=0, tokens=tok, cache=cache)
+            vj.run([prog])
+            envs.append(prog.env["logits"])
+            cache = prog.env["cache"]
+            tok = torch.argmax(prog.env["logits"], dim=-1)[:, None]
+        pre = build_dense_prefill_template(m, p, 16, stacked=stacked).bind(
+            stream_id=0, tokens=padded.to(cuda), cache=m.init_cache(2, 32),
+            env_extra={"real_len": 12, "slot": 1})
+        vj.run([pre])
+        assert cg.coalesced_gemm.launches - n0 == 4 * (7 * 8 + 1)
+        out[stacked] = (envs, cache, pre.env)
+    for a, b in zip(out[True][0], out[False][0]):
+        assert torch.equal(a, b)
+    for got, want in ((out[True][1], out[False][1]),
+                      (out[True][2]["cache"], out[False][2]["cache"])):
+        for leaf in ("k", "v"):
+            assert torch.equal(got["layers"][leaf], want["layers"][leaf])
+        assert torch.equal(got["pos"], want["pos"])
+    assert torch.equal(out[True][2]["logits"], out[False][2]["logits"])
+
+
+def test_stacked_engine_tokens_card_equals_cpu(cuda):
+    """Layer-stacked serving (the default) gives the same greedy tokens on
+    the card (every body GEMM a kernel launch) as on the CPU."""
+    m_cpu = Model(_gemma8(), param_dtype=torch.float32, device="cpu")
+    params = [m_cpu.init(torch.Generator().manual_seed(i)) for i in (0, 1)]
+    m_gpu = Model(_gemma8(), param_dtype=torch.float32, device=cuda)
+    trace = make_trace(["a", "b"], rate_hz=1e4, n_per_tenant=2,
+                       prompt_len=16, max_new_tokens=4, slo_s=1.0)
+    out = []
+    for m, ps in ((m_cpu, params), (m_gpu, [_to(p, cuda) for p in params])):
+        tenants = [Tenant(n, m, p, cache_len=32)
+                   for n, p in zip(("a", "b"), ps)]
+        n0 = cg.coalesced_gemm.launches
+        eng = ServingEngine(tenants, mode="vliw", device=m.device)
+        assert eng.stacked_layers
+        rep = eng.run(trace)
+        out.append({r.req_id: r.tokens_out for r in rep.requests})
+        assert (cg.coalesced_gemm.launches > n0) == (m is m_gpu)
     assert out[0] == out[1]
 
 

@@ -5,10 +5,14 @@ Two tenants (yi-9b and gemma3-1b smoke, weights carried across by
 prefill (prompts of 16 and 20 tokens, at least ``prefill_declare_min``).
 The port takes the JAX engine's own prompts through ``prompt_fn``. Each
 request's greedy tokens must be identical to the JAX package's
-``ServingEngine(..., stacked_layers=False)``; with the same cost model the
-two event loops also make the same scheduling decisions. ``time`` and
-``batched`` must give the port's ``vliw`` tokens too.
+``ServingEngine`` in the same regime (``stacked_layers`` False and True);
+with the same cost model the two event loops also make the same scheduling
+decisions. ``time`` and ``batched`` must give the port's ``vliw`` tokens
+too.
 """
+import dataclasses
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -76,15 +80,16 @@ def _tokens(report):
     return {r.req_id: list(r.tokens_out) for r in report.requests}
 
 
-def test_vliw_tokens_identical_to_reference(pair):
+@pytest.mark.parametrize("stacked", [False, True])
+def test_vliw_tokens_identical_to_reference(pair, stacked):
     jax_side, port_side = pair
     trace = _trace()
     jt = [JaxTenant(n, m, p, cache_len=32, max_batch=4)
           for n, (m, p) in zip(NAMES, jax_side)]
     jrep = JaxEngine(jt, mode="vliw", cost=JaxCostModel(JTPU),
-                     stacked_layers=False).run(trace)
-    trep = _port_engine(port_side, "vliw",
-                        cost=CostModel(TPUV5E)).run(trace)
+                     stacked_layers=stacked).run(trace)
+    trep = _port_engine(port_side, "vliw", cost=CostModel(TPUV5E),
+                        stacked_layers=stacked).run(trace)
     want, got = _tokens(jrep), _tokens(trep)
     assert all(len(v) == 3 for v in want.values())
     assert got == want
@@ -140,12 +145,35 @@ def test_shared_weight_tenants_share_dispatches(pair):
 
 
 def test_unported_options_raise(pair):
+    """Every keyword of the JAX package's engine is accepted; a value
+    other than its default raises ``NotImplementedError`` naming the
+    ROADMAP item, never ``TypeError``."""
     _, port_side = pair
-    for kw, item in ((dict(stacked_layers=True), "item 7"),
-                     (dict(num_devices=2), "item 9"),
+    for kw, item in ((dict(num_devices=2), "item 9"),
+                     (dict(devices=object()), "item 9"),
                      (dict(admission_control=True), "item 10"),
-                     (dict(certify=True), "item 11")):
+                     (dict(admission=object()), "item 10"),
+                     (dict(token_sink=lambda req, tok, t: None), "item 10"),
+                     (dict(certify=True), "item 11"),
+                     (dict(live_tune=True), "item 14"),
+                     (dict(tune_objective="greedy"), "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             _port_engine(port_side, "vliw", **kw)
     with pytest.raises(NotImplementedError, match="item 10"):
         _port_engine(port_side, "vliw").serve_forever()
+
+
+def test_engine_defaults_equal_reference():
+    """Every keyword the two engines share has the same default, so the
+    same call serves the same regime (``stacked_layers=True``)."""
+    want = inspect.signature(JaxEngine.__init__).parameters
+    got = inspect.signature(ServingEngine.__init__).parameters
+    shared = [k for k in want if k not in ("self", "tenants", "cost",
+                                           "sched_cfg")]
+    assert set(shared) <= set(got), set(shared) - set(got)
+    for k in shared:
+        assert got[k].default == want[k].default, k
+    assert got["stacked_layers"].default is True
+    # the two packages' SchedulerConfig classes are copies: equal by value
+    assert dataclasses.asdict(got["sched_cfg"].default) == \
+        dataclasses.asdict(want["sched_cfg"].default)

@@ -1,11 +1,13 @@
-"""The port's per-layer JIT templates against the JAX package's, on the CPU.
+"""The port's JIT templates against the JAX package's, on the CPU.
 
 Decode and prefill programs are built from the same weights (carried
 across by ``models/convert.py``) and inputs (numpy, from a seed) in both
 packages, run through ``VLIWJit``, and compared: logits and every cache leaf
 at 2e-4 in fp32, as tests/test_jit_engine.py holds its programs. The JAX side
-runs its ``stacked=False`` templates (per-layer emission, the regime this
-port covers) with the Pallas kernel in interpret mode. Both JITs use the
+runs its Pallas kernel in interpret mode. Decode runs in both regimes
+(``stacked`` False and True, the same on both sides); the tests that
+inspect per-layer ``GemmStage``s pin ``stacked=False``. The layer-stacked
+regime's own tests are in tests/test_torch_stacked.py. Both JITs use the
 same cost model, so their scheduling statistics must agree exactly.
 """
 import jax
@@ -63,12 +65,14 @@ def _close(got, want):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("stacked", [False, True])
 @pytest.mark.parametrize("arch", ["yi-9b", "gemma3-1b"])
-def test_decode_template_matches_reference(arch):
+def test_decode_template_matches_reference(arch, stacked):
     jm, jp, jc, jt, tm, tp, tc, tt = _setup(arch)
-    jprog = jjit.build_dense_decode_template(jm, jp, 2, stacked=False).bind(
-        stream_id=0, tokens=jt, cache=jc)
-    tprog = tjit.build_dense_decode_program(tm, tp, tt, tc, stream_id=0)
+    jprog = jjit.build_dense_decode_template(
+        jm, jp, 2, stacked=stacked).bind(stream_id=0, tokens=jt, cache=jc)
+    tprog = tjit.build_dense_decode_template(
+        tm, tp, 2, stacked=stacked).bind(stream_id=0, tokens=tt, cache=tc)
     jx, tx = _jits()
     js, ts = jx.run([jprog]), tx.run([tprog])
     _close(tprog.env["logits"], jprog.env["logits"])
@@ -97,7 +101,8 @@ def test_prefill_template_matches_reference(arch, S):
     extra = {"real_len": S, "slot": 1}
     jprog = jjit.build_dense_prefill_template(jm, jp, Sp, stacked=False).bind(
         stream_id=0, tokens=jnp.asarray(padded), cache=jc, env_extra=extra)
-    tprog = tjit.build_dense_prefill_template(tm, tp, Sp).bind(
+    tprog = tjit.build_dense_prefill_template(tm, tp, Sp,
+                                              stacked=False).bind(
         stream_id=0, tokens=torch.from_numpy(padded).long(), cache=tc,
         env_extra=dict(extra))
     before = {k: v.clone() for k, v in tc["layers"].items()}
@@ -128,8 +133,8 @@ def test_same_model_streams_share_weights():
     jm, jp, jc, jt, tm, tp, tc, tt = _setup("gemma3-1b")
     jtpl = jjit.build_dense_decode_template(jm, jp, 2, stacked=False)
     jprogs = [jtpl.bind(stream_id=i, tokens=jt, cache=jc) for i in range(3)]
-    tprogs = [tjit.build_dense_decode_template(tm, tp, 2).bind(
-        stream_id=i, tokens=tt, cache=tc) for i in range(3)]
+    tprogs = [tjit.build_dense_decode_template(tm, tp, 2, stacked=False)
+              .bind(stream_id=i, tokens=tt, cache=tc) for i in range(3)]
     jx, tx = _jits()
     js, ts = jx.run(jprogs), tx.run(tprogs)
     for stats in (js, ts):
@@ -149,9 +154,9 @@ def test_cross_model_groups_coalesce_without_sharing():
         jjit.build_dense_decode_template(jm2, jp2, 2, stacked=False).bind(
             stream_id=1, tokens=jt2, cache=jc2)]
     tprogs = [
-        tjit.build_dense_decode_template(tm1, tp1, 2).bind(
+        tjit.build_dense_decode_template(tm1, tp1, 2, stacked=False).bind(
             stream_id=0, tokens=tt1, cache=tc1),
-        tjit.build_dense_decode_template(tm2, tp2, 2).bind(
+        tjit.build_dense_decode_template(tm2, tp2, 2, stacked=False).bind(
             stream_id=1, tokens=tt2, cache=tc2)]
     jx, tx = _jits()
     js, ts = jx.run(jprogs), tx.run(tprogs)
@@ -166,8 +171,8 @@ def test_tied_unembed_and_layer_views_are_stable():
     weight objects, so the packed-weight guard never reads a template
     switch as a hot-swap."""
     _, _, _, _, tm, tp, tc, tt = _setup("gemma3-1b")
-    a = tjit.build_dense_decode_template(tm, tp, 2)
-    b = tjit.build_dense_prefill_template(tm, tp, 16)
+    a = tjit.build_dense_decode_template(tm, tp, 2, stacked=False)
+    b = tjit.build_dense_prefill_template(tm, tp, 16, stacked=False)
     wa = [st.weight_fn() for st in a.stages if isinstance(st, tjit.GemmStage)]
     wb = [st.weight_fn() for st in b.stages if isinstance(st, tjit.GemmStage)]
     assert len(wa) == len(wb) and all(x is y for x, y in zip(wa, wb))
@@ -176,14 +181,6 @@ def test_tied_unembed_and_layer_views_are_stable():
         jx.run([a.bind(stream_id=0, tokens=tt, cache=tc)])
     d = jx.executor.stats
     assert d.weight_invalidations == 0 and d.weight_hits == d.weight_misses
-
-
-def test_stacked_templates_name_the_roadmap_item():
-    _, _, _, _, tm, tp, _, _ = _setup("yi-9b")
-    for build in (tjit.build_dense_decode_template,
-                  tjit.build_dense_prefill_template):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            build(tm, tp, 16, stacked=True)
 
 
 def test_vliwjit_defaults_to_the_h100_model():
