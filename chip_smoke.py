@@ -25,7 +25,9 @@ Phases, each printing its own lines; a failing phase raises:
                    clusters of 8 the card holds and the K split (cluster
                    size) at K 2048 and 4096;
   3. kernel      — ``coalesced_gemm`` (CUDA) against its plain PyTorch
-                   version at the serving path's shapes, fp32 and bf16, with
+                   version at the serving paths' shapes (yi-9b, and the
+                   padded envelopes of grok-1's expert GEMMs and
+                   mamba2-2.7b's projections), fp32 and bf16, with
                    CUDA-event times (median and spread; L2 flushed before
                    every timed call) of the kernel, the plain version and
                    one PyTorch library call, the host µs a wrapper call
@@ -69,11 +71,26 @@ Phases, each printing its own lines; a failing phase raises:
   5. serve-grouped — two full-width yi-9b tenants with distinct weights
                    (bf16, 12 layers), both regimes as in phase 4: per-layer
                    the kernel runs with G >= 2 weight matrices;
+  5b. serve-moe  — two tenants sharing one full-width grok-1 weight set
+                   (bf16, 8 experts top-2, 2 layers: one layer's experts
+                   are 9.66 GB), both regimes as in phase 4, the bytes
+                   reckoned beside ``torch.cuda.mem_get_info``; per regime
+                   also ``expert_coalesced`` and ``nondense_programs``
+                   (launches: 4 + 3E a layer of a stacked body plus one a
+                   plain dispatch; expert GEMMs coalesced across the
+                   tenants per-layer), the extra step and ``profile``
+                   lines;
+  5c. serve-ssm  — the same with mamba2-2.7b (bf16, all 64 layers; 2
+                   launches a layer of a stacked body);
   6. card-vs-cpu — full-width yi-9b, fp32, 1 layer, two tenants with
                    distinct weights, both regimes (per-layer: the grouped
                    regime, G = 2): the same trace, weights and prompts
                    served on the card (kernel) and on the CPU (plain
-                   versions) give identical greedy tokens;
+                   versions) give identical greedy tokens; then the same
+                   for mamba2-2.7b at full width (fp32, 2 layers) and
+                   grok-1's smoke config (fp32), each line with the
+                   smallest router top-k margin of the run (a mismatch
+                   prints the first differing step and routing call);
   7. rnn-matvec  — the matvec regime's path: ``SuperkernelExecutor.matvec``
                    at the LSTM shape (fp32, G = 4) for 20 ticks, distinct
                    weights (``coalesced_gemv``) and shared weights
@@ -86,8 +103,9 @@ Phases, each printing its own lines; a failing phase raises:
 
 Launch counts are set to 0 just before each path phase (4-8), and in
 phases 4-6 before each regime's run, and read just after it; the
-comparisons of phase 3 are not counted there. Every line of numbers after
-phase 1 ends with the card's name and power limit (``card=``). Weights and
+comparisons of phase 3 are not counted there. A ``phase`` line gives each
+phase's seconds. Every line of numbers after phase 1 ends with the card's
+name and power limit (``card=``). Weights and
 inputs are random, made from fixed seeds. ``--gemm-only`` runs phase 1 and
 phase 3's ``kernel`` lines alone, ``--gemv-only`` phase 1 and the
 ``kernel-gemv`` lines; neither prints a result line. With ``--src`` they
@@ -334,14 +352,22 @@ def phase_build(build, cg, gv, fa):
 # ---------------------------------------------------------------------------
 
 SHAPES = [
-    # (label, rows per problem, K, N, shared weights); the last is
+    # (label, rows per problem, K, N, shared weights); the fifth is
     # serve-shared's most launched bucket (M 8, K 4096, G 1: as many
-    # launches at N 512, 4096 and 16384), at its widest N
+    # launches at N 512, 4096 and 16384), at its widest N. The last four
+    # are the MoE and SSM bodies' solo launches (G 1) at their padded
+    # envelopes: grok-1's expert GEMMs (C = 2 rows at B = 4; K 6144 and
+    # N 6144 pad to 8192) and mamba2-2.7b's projections (B = 4 rows; K 2560
+    # pads to 4096, N 10576 to 16384, K 5120 to 8192, N 2560 to 4096)
     ("yi-9b decode grouped (ffn gate/up)", (4, 4), 4096, 16384, False),
     ("shared regime (ffn down)", (8,), 16384, 4096, True),
     ("ragged prefill+decode (attn wq/wo)", (32, 4), 4096, 4096, False),
     ("unembed", (8,), 4096, 65536, True),
     ("shared regime decode (ffn gate/up)", (8,), 4096, 16384, True),
+    ("grok-1 expert gate/up", (2,), 8192, 32768, True),
+    ("grok-1 expert down", (2,), 32768, 8192, True),
+    ("mamba2 in_proj", (4,), 4096, 16384, True),
+    ("mamba2 out_proj", (4,), 8192, 4096, True),
 ]
 
 
@@ -586,16 +612,58 @@ def _full_yi(num_layers):
     return dataclasses.replace(get_config("yi-9b"), num_layers=num_layers)
 
 
-def _layer_bytes(cfg, db):
-    """(param bytes, padded-pack bytes) of one decoder layer."""
-    from repro_torch.kernels.ops import envelope_bucket as eb
+def _layer_gemms(cfg):
+    """(k, n) of every weight GEMM of one layer, in the per-layer
+    emission's order (an MoE layer's experts E times)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    shapes = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd),
-              (d, cfg.num_kv_heads * hd), (cfg.num_heads * hd, d),
-              (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+    if cfg.arch_type == "ssm":
+        s = cfg.ssm
+        d_inner = s.expand * d
+        return [(d, 2 * d_inner + 2 * s.d_state + s.num_heads(d)),
+                (d_inner, d)]
+    attn = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd),
+            (d, cfg.num_kv_heads * hd), (cfg.num_heads * hd, d)]
+    ffn = [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+    if cfg.arch_type == "moe":
+        return attn + ffn * cfg.moe.num_experts
+    return attn + ffn
+
+
+def _gemms_a_layer(cfg):
+    """Weight GEMMs of one layer: GEMM stages a layer of a per-layer
+    program, kernel launches a layer of a stacked body (7 dense, 4 + 3E
+    MoE, 2 SSM)."""
+    return len(_layer_gemms(cfg))
+
+
+def _layer_bytes(cfg, db):
+    """(param bytes, padded-pack bytes) of one decoder layer: its GEMM
+    weights (an MoE layer's router in fp32 besides) and their packs padded
+    to the executor's (K, N) envelope."""
+    from repro_torch.kernels.ops import envelope_bucket as eb
+    d = cfg.d_model
+    shapes = _layer_gemms(cfg)
     params = sum(k * n for k, n in shapes) * db + 2 * d * db
+    if cfg.arch_type == "moe":
+        params += d * cfg.moe.num_experts * 4
     packs = sum(eb(k) * eb(n) for k, n in shapes) * db
     return params, packs
+
+
+def _embed_bytes(cfg, db):
+    """(embed and unembed bytes, unembed pack bytes)."""
+    from repro_torch.kernels.ops import envelope_bucket as eb
+    V, d = cfg.padded_vocab, cfg.d_model
+    tables = (1 if cfg.tie_embeddings else 2) * V * d * db
+    return tables, eb(d) * eb(V) * db
+
+
+def _decode_builder(cfg):
+    """The family's decode-template builder."""
+    from repro_torch.core import jit
+    return {"moe": jit.build_moe_decode_template,
+            "ssm": jit.build_ssm_decode_template}.get(
+        cfg.arch_type, jit.build_dense_decode_template)
 
 
 REGIMES = ((True, "stacked"), (False, "per-layer"))
@@ -625,23 +693,29 @@ def _serve(torch, cfg, tenants_params, *, n_req, prompt_len, new_tokens,
 
 
 def _programs(cfg, rep, stacked):
-    """Programs run: a per-layer program dispatches 7 GEMM stages a layer
-    and its unembed, a stacked one one op a body and its unembed. Either
-    launches 7 * L + 1 GEMMs."""
-    ops = len(_spans(cfg)) + 1 if stacked else 7 * cfg.num_layers + 1
+    """Programs run: a per-layer program dispatches g GEMM stages a layer
+    (``_gemms_a_layer``) and its unembed, a stacked one one op a body and
+    its unembed. Either launches g * L + 1 GEMMs."""
+    ops = len(_spans(cfg)) + 1 if stacked \
+        else _gemms_a_layer(cfg) * cfg.num_layers + 1
     return rep.jit.ops_executed / ops
 
 
 def _spans(cfg):
+    """The layer bodies of a stacked program: one a homogeneous sub-stack;
+    an SSM model is one body."""
     from repro_torch.core.jit import partition_layers
+    if cfg.arch_type == "ssm":
+        return [(0, cfg.num_layers)]
     return partition_layers(cfg.global_layer_flags())
 
 
 def _check_launches(cfg, rep, launches, stacked):
     """Per-layer: one launch a scheduler dispatch. Stacked: one launch a
-    plain-op dispatch (the unembeds) plus 7 a layer of every body run.
-    ``dispatch.dispatches`` counts each plain dispatch once and each body
-    once, so the bodies are the programs times the sub-stacks."""
+    plain-op dispatch (the unembeds) plus g a layer of every body run (7
+    dense, 4 + 3E MoE, 2 SSM). ``dispatch.dispatches`` counts each plain
+    dispatch once and each body once, so the bodies are the programs times
+    the sub-stacks."""
     j = rep.jit
     if not stacked:
         assert launches == j.superkernels, (launches, j.superkernels)
@@ -649,7 +723,7 @@ def _check_launches(cfg, rep, launches, stacked):
     programs = round(_programs(cfg, rep, True))
     bodies = programs * len(_spans(cfg))
     plain = j.dispatch.dispatches - bodies
-    want = plain + 7 * cfg.num_layers * programs
+    want = plain + _gemms_a_layer(cfg) * cfg.num_layers * programs
     assert launches == want, (launches, want, plain, bodies)
 
 
@@ -658,14 +732,17 @@ def _report_serve(torch, phase, cfg, rep, wall, launches, max_groups,
     j = rep.jit
     programs = _programs(cfg, rep, regime == "stacked")
     toks = rep.tokens_out
+    g = _gemms_a_layer(cfg)
     say(phase, regime=regime, wall_s=f"{wall:.3f}", tokens=toks,
         tokens_per_s=f"{toks / wall:.2f}",
         scheduler_dispatches=j.superkernels, launches=launches,
         ops=j.ops_executed, programs=f"{programs:.1f}",
         launches_per_program=f"{launches / programs:.1f}"
-                             f"(7*L+1={7 * cfg.num_layers + 1})",
+                             f"({g}*L+1={g * cfg.num_layers + 1})",
         mean_group=f"{j.mean_group:.3f}", shared=j.shared_dispatches,
         prefill_coalesced=j.prefill_coalesced,
+        expert_coalesced=j.expert_coalesced,
+        nondense_programs=j.nondense_programs,
         weight_hit_rate=f"{j.dispatch.weight_hit_rate:.4f}",
         weight_invalidations=j.dispatch.weight_invalidations,
         kernel_builds=j.dispatch.retraces, max_G=max_groups,
@@ -737,6 +814,8 @@ def _serve_regimes(torch, cg, timed, phase, cfg, tenants_params, *, seed,
             launches_per_program=launches / programs,
             weight_hit_rate=rep.jit.dispatch.weight_hit_rate,
             peak_alloc_GiB=torch.cuda.max_memory_allocated() / GIB,
+            expert_coalesced=rep.jit.expert_coalesced,
+            nondense_programs=rep.jit.nondense_programs,
             launches_by_shape=by_shape)
         if after is not None and stacked:
             out.update(after(eng, rep))
@@ -780,8 +859,10 @@ def phase_serve_shared(torch, cg, timed):
         assert rep.jit.shared_dispatches > 0 and rep.jit.mean_group > 1.0
 
     def after(eng, rep):
-        return dict(extra_step=_extra_step(torch, eng, m, params, cfg),
-                    profile=phase_profile(torch, eng, m, params))
+        return dict(
+            extra_step=_extra_step(torch, eng, m, params, cfg,
+                                   "serve-shared"),
+            profile=phase_profile(torch, eng, m, params, "serve-shared"))
 
     out = _serve_regimes(torch, cg, timed, "serve-shared", cfg,
                          [(m, params), (m, params)], seed=0, budget=budget,
@@ -792,16 +873,15 @@ def phase_serve_shared(torch, cg, timed):
     return out
 
 
-def _extra_step(torch, eng, m, params, cfg):
+def _extra_step(torch, eng, m, params, cfg, phase):
     """One more decode step of tenant 0 through a stacked and a per-layer
     template: finite logits of the expected shape, bitwise equal between
     the two, beside the plain Model.decode_step."""
-    from repro_torch.core.jit import build_dense_decode_template
+    build = _decode_builder(cfg)
     t = eng.tenants["t0"]
     logits = {}
     for stacked, regime in REGIMES:
-        prog = build_dense_decode_template(
-            m, params, t.max_batch, stacked=stacked).bind(
+        prog = build(m, params, t.max_batch, stacked=stacked).bind(
             stream_id=0, tokens=t.slot_tok, cache=t.cache)
         eng.jit.run([prog])
         logits[regime] = prog.env["logits"]
@@ -812,7 +892,7 @@ def _extra_step(torch, eng, m, params, cfg):
     want, _ = m.decode_step(params, t.slot_tok, t.cache)
     diff = float((got - want[:, 0].float()).abs().max())
     agree = float((got.argmax(-1) == want[:, 0].argmax(-1)).float().mean())
-    say("serve-shared", extra_step_logits="finite",
+    say(phase, extra_step_logits="finite",
         stacked_vs_per_layer="bitwise_equal",
         max_abs_diff_vs_Model_decode_step_bf16=f"{diff:.4f}",
         argmax_agreement=f"{agree:.2f}")
@@ -855,9 +935,10 @@ def _host_split(prof, steps):
                      for k, (ms, n) in costly))
 
 
-def phase_profile(torch, eng, m, params, steps=3):
-    """Host and device time of one decode step of tenant 0 at serve-shared's
-    shape, through a stacked and a per-layer template, in a steady state
+def phase_profile(torch, eng, m, params, phase, steps=3):
+    """Host and device time of one decode step of tenant 0 at the serving
+    phase's shape, through a stacked and a per-layer template, in a steady
+    state
     (packs built, warmed). Host ms: until ``VLIWJit.run`` returns; wall ms:
     until the card has finished (synchronize). Then the same steps under
     ``torch.profiler`` (CPU and CUDA activities) for the device time of
@@ -866,12 +947,11 @@ def phase_profile(torch, eng, m, params, steps=3):
     CUDA events give the device span of a step instead (idle gaps
     included), and the line says so."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.jit import build_dense_decode_template
+    build = _decode_builder(m.cfg)
     t = eng.tenants["t0"]
     out = {}
     for stacked, regime in REGIMES:
-        tmpl = build_dense_decode_template(m, params, t.max_batch,
-                                           stacked=stacked)
+        tmpl = build(m, params, t.max_batch, stacked=stacked)
 
         def step():
             eng.jit.run([tmpl.bind(stream_id=0, tokens=t.slot_tok,
@@ -897,7 +977,8 @@ def phase_profile(torch, eng, m, params, steps=3):
             torch.cuda.synchronize()
         gemm_us, other_us = _device_split(prof)
         n_host, host_ops_ms, costly = _host_split(prof, steps)
-        say("profile", regime=regime, host_events_per_step=f"{n_host:.0f}",
+        say("profile", path=phase, regime=regime,
+            host_events_per_step=f"{n_host:.0f}",
             host_ms_in_them_per_step=f"{host_ops_ms:.3f}(profiled)",
             costliest=costly)
         if gemm_us + other_us == 0.0:
@@ -912,7 +993,7 @@ def phase_profile(torch, eng, m, params, steps=3):
             other_us = 1e3 * s_ev.elapsed_time(e_ev)
         gemm_ms, glue_ms = gemm_us / 1e3 / steps, other_us / 1e3 / steps
         busy = (gemm_ms + glue_ms) / wall_ms
-        say("profile", regime=regime, batch=t.max_batch,
+        say("profile", path=phase, regime=regime, batch=t.max_batch,
             layers=m.cfg.num_layers, steps=steps,
             host_ms_per_step=f"{host_ms:.3f}",
             wall_ms_per_step=f"{wall_ms:.3f}",
@@ -1022,6 +1103,229 @@ def phase_card_vs_cpu(torch, cg):
     del params, params_cpu, m_gpu, m_cpu
     _free(torch)
     result["max_abs_logit_diff"] = diff
+    return result
+
+
+def _full(arch, num_layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=num_layers)
+
+
+def _nondense_plan(torch, phase, arch, want_layers, db, margin):
+    """Depth, reckoned bytes and weight budget of a MoE / SSM serving phase
+    at full width: ``want_layers`` unless params, one regime's packs, the
+    largest single pack (built while the cache is full) and ``margin`` do
+    not fit in the card's free memory, in which case the depth is cut and
+    the cut printed. The budget leaves room for that largest pack."""
+    from repro_torch.kernels.ops import envelope_bucket as eb
+    free, total = torch.cuda.mem_get_info()
+    cfg1 = _full(arch, 1)
+    p_layer, k_layer = _layer_bytes(cfg1, db)
+    tables, emb_pack = _embed_bytes(cfg1, db)
+    mult = cfg1.moe.num_experts if cfg1.arch_type == "moe" else 1
+    pack_layer = mult * max(eb(k) * eb(n) for k, n in _layer_gemms(cfg1)) \
+        * db
+
+    def need(L):
+        return (L * p_layer + tables, L * k_layer + emb_pack, L * pack_layer)
+
+    L = want_layers
+    while L > 1 and sum(need(L)) + margin > free:
+        L -= 1
+    params, packs, largest = need(L)
+    if L < want_layers:
+        say(phase, depth_cut=f"{want_layers}->{L}",
+            reason=f"free={free / GIB:.1f}GiB holds params, one regime's "
+                   f"packs and its largest pack of {L} layers only")
+    assert params + packs + largest + margin <= free, (params, packs, free)
+    budget = int(free - margin - params - largest)
+    return _full(arch, L), dict(
+        free_GiB=free / GIB, total_GiB=total / GIB, param_GiB=params / GIB,
+        pack_GiB_per_regime=packs / GIB, largest_pack_GiB=largest / GIB,
+        layer_param_GiB=p_layer / GIB, layer_pack_GiB=k_layer / GIB,
+        weight_budget_GiB=budget / GIB), budget
+
+
+def _serve_nondense(torch, cg, timed, phase, arch, want_layers, seed):
+    """Two tenants sharing one full-width MoE or SSM weight set (bf16),
+    served in both regimes as serve-shared is, with the extra step (stacked
+    logits bitwise equal to per-layer) and the profile of one step."""
+    from repro_torch.models import Model
+    cfg, plan, budget = _nondense_plan(torch, phase, arch, want_layers, 2,
+                                       6 * GIB)
+    m = Model(cfg, param_dtype=torch.bfloat16)
+    params = m.init(torch.Generator(device=m.device).manual_seed(seed))
+    torch.cuda.synchronize()
+    free_after, _ = torch.cuda.mem_get_info()
+    widths = dict(d_model=cfg.d_model, vocab=cfg.vocab_size)
+    if cfg.arch_type == "moe":
+        widths.update(d_ff=cfg.d_ff, experts=cfg.moe.num_experts,
+                      top_k=cfg.moe.top_k,
+                      heads=f"{cfg.num_heads}/{cfg.num_kv_heads}")
+    else:
+        s = cfg.ssm
+        widths.update(d_state=s.d_state, head_dim=s.head_dim,
+                      ssm_heads=s.num_heads(cfg.d_model), expand=s.expand)
+    say(phase, layers=cfg.num_layers, **widths,
+        **{k: f"{v:.2f}" for k, v in plan.items()},
+        mem_get_info_free_GiB_after_init=f"{free_after / GIB:.2f}",
+        params_allocated_GiB=f"{torch.cuda.memory_allocated() / GIB:.2f}")
+
+    def check(rep, launches, max_g, regime):
+        assert launches > 0
+        assert rep.jit.nondense_programs > 0, rep.jit.nondense_programs
+        assert rep.jit.shared_dispatches > 0 and rep.jit.mean_group > 1.0
+        if cfg.arch_type == "moe" and regime == "per-layer":
+            # the two tenants' expert GEMMs share operands
+            assert rep.jit.expert_coalesced > 0, rep.jit.expert_coalesced
+
+    def after(eng, rep):
+        return dict(extra_step=_extra_step(torch, eng, m, params, cfg, phase),
+                    profile=phase_profile(torch, eng, m, params, phase))
+
+    out = _serve_regimes(torch, cg, timed, phase, cfg,
+                         [(m, params), (m, params)], seed=seed, budget=budget,
+                         check=check, after=after)
+    out.update(layers=cfg.num_layers, plan=plan)
+    del params, m
+    _free(torch)
+    return out
+
+
+def phase_serve_moe(torch, cg, timed):
+    # grok-1 at full width: one layer's experts are 9.66 GB of bf16, so the
+    # depth is cut from 64 to 2 (params and one regime's packs fit twice
+    # over in 80 GB at 2 layers, not at 3)
+    return _serve_nondense(torch, cg, timed, "serve-moe", "grok-1-314b", 2,
+                           seed=20)
+
+
+def phase_serve_ssm(torch, cg, timed):
+    # mamba2-2.7b at full width and full depth (64 layers)
+    return _serve_nondense(torch, cg, timed, "serve-ssm", "mamba2-2.7b", 64,
+                           seed=21)
+
+
+class _RouteLog:
+    """Records every MoE routing decision while it is active: the chosen
+    experts and the smallest top-k margin (the k-th largest router
+    probability minus the next) over the call's tokens. It wraps
+    ``models.moe.route``, which the templates' glue and ``moe_ffn`` call
+    through the module, and computes nothing the path uses."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.route
+        torch = self.torch
+
+        def route(router, x, cfg):
+            out = self.orig(router, x, cfg)
+            probs = torch.softmax(x.float() @ router, dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            k = cfg.top_k
+            margin = float((top[:, k - 1] - top[:, k]).min()) \
+                if cfg.num_experts > k else math.inf
+            self.calls.append((out[1].cpu(), margin))
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+        return False
+
+
+def _first_difference(want, got):
+    """(req_id, token index) of the first token where two runs differ."""
+    for rid in sorted(want):
+        a, b = want[rid], got.get(rid)
+        if b is None or a != b:
+            b = b or []
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            return rid, i
+    return None
+
+
+def phase_card_vs_cpu_nondense(torch, cg):
+    """card-vs-cpu for the MoE and SSM families: mamba2-2.7b at full width
+    (fp32, 2 layers) and grok-1's smoke config (fp32; a full-width grok
+    layer is 19 GB in fp32, which the CPU's plain path would stream every
+    token), two tenants with distinct weights, both regimes: the same
+    trace, weights and prompts give identical greedy tokens on the card
+    and on the CPU. A mismatch prints the first differing step and, for
+    MoE, the first routing call whose experts differ and its top-k
+    margin, then fails."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    result = {}
+    for arch, cfg, size in (
+            ("mamba2-2.7b", _full("mamba2-2.7b", 2), "full width, 2 layers"),
+            ("grok-1-314b", smoke_config("grok-1-314b"), "smoke config")):
+        m_gpu = Model(cfg, param_dtype=torch.float32)
+        m_cpu = Model(cfg, param_dtype=torch.float32, device="cpu")
+        params = [m_gpu.init(torch.Generator(device=m_gpu.device)
+                             .manual_seed(30 + i)) for i in range(2)]
+        params_cpu = [to_cpu(p) for p in params]
+        toks, routes = {}, {}
+        for stacked, regime in REGIMES:
+            for m, ps in ((m_gpu, params), (m_cpu, params_cpu)):
+                dev = m.device.type
+                _reset_counts(cg)
+                with _RouteLog(torch) as log:
+                    _, rep, wall = _serve(torch, cfg, [(m, p) for p in ps],
+                                          n_req=2, prompt_len=16,
+                                          new_tokens=4, budget=8 * GIB,
+                                          seed=3, stacked=stacked)
+                _check_served(rep, cfg, 4, 4)
+                toks[regime, dev] = {r.req_id: r.tokens_out
+                                     for r in rep.requests}
+                routes[regime, dev] = log.calls
+                launches = cg.coalesced_gemm.launches
+                if dev == "cuda":
+                    assert launches > 0, launches
+                    _check_launches(cfg, rep, launches, stacked)
+                    result[f"{arch} ({regime})"] = launches
+                margin = min((mg for _, mg in log.calls), default=math.inf)
+                say("card-vs-cpu", model=arch, size=size, dtype="float32",
+                    regime=regime, device=dev, wall_s=f"{wall:.3f}",
+                    launches=launches,
+                    max_G=cg.coalesced_gemm.max_groups,
+                    scheduler_dispatches=rep.jit.superkernels,
+                    nondense_programs=rep.jit.nondense_programs,
+                    expert_coalesced=rep.jit.expert_coalesced,
+                    routing_calls=len(log.calls),
+                    min_router_topk_margin=f"{margin:.3e}")
+            diff = _first_difference(toks[regime, "cpu"],
+                                     toks[regime, "cuda"])
+            if diff is not None:
+                card, cpu = routes[regime, "cuda"], routes[regime, "cpu"]
+                j = next((j for j, (a, b) in enumerate(zip(card, cpu))
+                          if not bool((a[0] == b[0]).all())), None)
+                say("card-vs-cpu", model=arch, regime=regime,
+                    mismatch=f"req {diff[0]} token {diff[1]}",
+                    first_routing_divergence=j,
+                    router_topk_margin_there="n/a" if j is None else
+                    f"card {card[j][1]:.3e} cpu {cpu[j][1]:.3e}")
+                raise AssertionError(f"card and CPU tokens differ: {arch} "
+                                     f"{regime}: {diff}")
+        assert toks["stacked", "cuda"] == toks["per-layer", "cuda"], toks
+        say("card-vs-cpu", model=arch,
+            tokens="identical(cuda=cpu, stacked=per-layer)",
+            requests=len(toks["stacked", "cpu"]))
+        del params, params_cpu, m_gpu, m_cpu
+        _free(torch)
     return result
 
 
@@ -1176,6 +1480,13 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     kind, smi = phase_device(torch)
+
+    def timed_phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        say("phase", name=name, seconds=f"{time.perf_counter() - t0:.1f}")
+        return out
+
     if args.gemm_only or args.gemv_only:
         flush = torch.zeros(64 << 20, device="cuda")
         if args.gemm_only:
@@ -1186,21 +1497,31 @@ def main(argv=None) -> int:
             phase_kernel_gemv(torch, gv, coalesced_gemv_ref, flush)
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         return 0
-    phase_build(build, cg, gv, fa)
+    timed_phase("build", phase_build, build, cg, gv, fa)
     # overwritten before every timed call of phase 3: 256 MB, five times
     # the L2 cache
     flush = torch.zeros(64 << 20, device="cuda")
-    shapes = phase_kernel(torch, cg, coalesced_gemm_ref, flush)
-    gemv_shapes = phase_kernel_gemv(torch, gv, coalesced_gemv_ref, flush)
-    attn_shapes = phase_kernel_attn(torch, fa, flash_attention_ref, flush)
+    shapes = timed_phase("kernel", phase_kernel, torch, cg,
+                         coalesced_gemm_ref, flush)
+    gemv_shapes = timed_phase("kernel-gemv", phase_kernel_gemv, torch, gv,
+                              coalesced_gemv_ref, flush)
+    attn_shapes = timed_phase("kernel-attn", phase_kernel_attn, torch, fa,
+                              flash_attention_ref, flush)
     del flush
     torch.cuda.empty_cache()
     timed = {(r["M"], r["K"], r["N"], r["G"], r["dtype"]) for r in shapes}
-    shared = phase_serve_shared(torch, cg, timed)
-    grouped = phase_serve_grouped(torch, cg, timed)
-    cpu = phase_card_vs_cpu(torch, cg)
-    rnn = phase_rnn_matvec(torch, cg, gv)
-    attn = phase_windowed_attention(torch, fa)
+    shared = timed_phase("serve-shared", phase_serve_shared, torch, cg,
+                         timed)
+    grouped = timed_phase("serve-grouped", phase_serve_grouped, torch, cg,
+                          timed)
+    moe = timed_phase("serve-moe", phase_serve_moe, torch, cg, timed)
+    ssm = timed_phase("serve-ssm", phase_serve_ssm, torch, cg, timed)
+    cpu = timed_phase("card-vs-cpu", phase_card_vs_cpu, torch, cg)
+    cpu_nondense = timed_phase("card-vs-cpu (moe, ssm)",
+                               phase_card_vs_cpu_nondense, torch, cg)
+    rnn = timed_phase("rnn-matvec", phase_rnn_matvec, torch, cg, gv)
+    attn = timed_phase("windowed-attention", phase_windowed_attention,
+                       torch, fa)
     bad = [k for k in ("jax", "repro") if k in sys.modules]
     assert not bad, f"imported {bad}"
 
@@ -1225,8 +1546,10 @@ def main(argv=None) -> int:
     by_phase = {f"{phase} ({regime})": out[regime]["launches"]
                 for phase, out in (("serve-shared", shared),
                                    ("serve-grouped", grouped),
+                                   ("serve-moe", moe), ("serve-ssm", ssm),
                                    ("card-vs-cpu", cpu))
                 for _, regime in REGIMES}
+    by_phase.update({f"card-vs-cpu {k}": n for k, n in cpu_nondense.items()})
     by_phase["rnn-matvec (shared)"] = rnn["shared"]["gemm"]
     kernels = [
         entry("coalesced_gemm", "src/repro/kernels/coalesced_gemm.py:43",
@@ -1250,7 +1573,8 @@ def main(argv=None) -> int:
     kernels[0]["launches_by_shape"] = {
         f"{phase} ({regime})": out[regime]["launches_by_shape"]
         for phase, out in (("serve-shared", shared),
-                           ("serve-grouped", grouped))
+                           ("serve-grouped", grouped),
+                           ("serve-moe", moe), ("serve-ssm", ssm))
         for _, regime in REGIMES}
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

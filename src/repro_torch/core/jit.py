@@ -44,8 +44,20 @@ equal to the per-layer one. A stacked op is charged as ``layers``
 sequential tile-waves per operand (``GemmShape.layers``) and coalesces
 only with ops of the same stack signature (``clustering.coalesce_key``);
 a coalesced group of bodies runs back to back. ``stacked=False`` keeps
-the per-layer emission as the bitwise oracle. MoE and SSM templates are
-ROADMAP queue 1 item 8.
+the per-layer emission as the bitwise oracle.
+
+MoE and SSM tenants compile the same way (``build_moe_decode_template``,
+``build_ssm_decode_template``). An MoE layer keeps the dense attention
+scaffolding and replaces the gated FFN by router / dispatch glue, 3·E
+per-expert GEMMs (tagged ``expert_*``, the expert index in the weight key,
+so the same expert's GEMMs coalesce across tenants: ``JitStats.
+expert_coalesced``) and a combine glue. An SSM layer is its in projection,
+the selective-scan recurrence as glue (``models/ssm.decode_core``) and its
+out projection. In the stacked regime an MoE body adds three expert packs
+of ``Lsub·E`` matrices, and an SSM model is ONE body over all its layers.
+The glue calls the functions ``Model.decode_step`` calls (``models/moe``,
+``models/ssm``), so the recurrence and the capacity/drop rules have one
+copy.
 """
 from __future__ import annotations
 
@@ -59,7 +71,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.clustering import shared_weight_key, weight_key
+from repro_torch.core.clustering import (is_expert_op, shared_weight_key,
+                                         weight_key)
 from repro_torch.core.coalescer import Coalescer
 from repro_torch.core.costmodel import CostModel, GemmShape, H100
 from repro_torch.core.dispatch import (DispatchStats, SuperkernelExecutor,
@@ -69,6 +82,8 @@ from repro_torch.core.plancache import PlanCache, PlanCacheStats
 from repro_torch.core.scheduler import OoOScheduler, SchedulerConfig
 from repro_torch.kernels.build import build_count
 from repro_torch.kernels.coalesced_gemm import coalesced_gemm
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_rope, rmsnorm, silu_mul
 
 NEG_INF = -2.0e38
@@ -379,7 +394,7 @@ def _layer_views(blocks, l: int):
 
 
 def _emit_dense_body(cfg: ModelConfig, params, stages: List[Stage], *,
-                     m_rows: int, attend_for,
+                     m_rows: int, attend_for, ffn_for=None,
                      attend_reads: Tuple = ("wq", "wk", "wv", "cache")
                      ) -> None:
     """Emit the per-layer stage scaffolding shared by the dense DECODE and
@@ -389,7 +404,13 @@ def _emit_dense_body(cfg: ModelConfig, params, stages: List[Stage], *,
     builders to emit identical weight keys and tags.
 
     ``m_rows`` is the activation-row count of every GEMM stage — the slotted
-    batch for decode, the padded prompt length for prefill."""
+    batch for decode, the padded prompt length for prefill.
+
+    ``ffn_for(l, lp, stages)``, when given, replaces layer ``l``'s gated-FFN
+    emission (the MoE builder's router glue and per-expert GEMMs); it reads
+    ``env['h2']`` and leaves ``env['x']`` with the FFN residual added. The
+    attention scaffolding stays this one copy, so MoE attention GEMMs
+    coalesce with dense tenants'."""
     hd = cfg.resolved_head_dim
     blocks = params["blocks"]
     # weight identity includes the params object: two tenants share
@@ -433,6 +454,9 @@ def _emit_dense_body(cfg: ModelConfig, params, stages: List[Stage], *,
             env["h2"] = rmsnorm(env["x"], lp["ln2"], cfg.norm_eps)
 
         glue(post_attn, reads=("x", "attn_proj"), writes=("x", "h2"))
+        if ffn_for is not None:
+            ffn_for(l, lp, stages)
+            continue
         gemm("ffn_gate", weight_key(cfg.name, pid, "w_gate", layer=l),
              lambda lp=lp: lp["mlp"]["w_gate"],
              lambda env: env["h2"],
@@ -566,18 +590,50 @@ def _decode_attend_for(cfg: ModelConfig, B: int):
     return attend_for
 
 
+def _moe_route(cfg: ModelConfig, router: torch.Tensor, h2: torch.Tensor,
+               C: int):
+    """Router and sort-based dispatch of one decode step's B tokens as one
+    group (``moe_ffn``'s G = 1 path): (buf [E, C, d], meta, weights
+    [B, k]). The glue of both MoE regimes."""
+    mcfg = cfg.moe
+    weights, experts, _aux = moe_lib.route(router, h2, mcfg)
+    buf, meta = moe_lib.dispatch_tokens(h2, weights, experts,
+                                        mcfg.num_experts, mcfg.top_k, C)
+    return buf, meta, weights
+
+
+def _moe_combine(cfg: ModelConfig, downs: List[torch.Tensor], weights,
+                 meta, h2: torch.Tensor) -> torch.Tensor:
+    """The experts' [C, d] outputs combined back to the B tokens, in h2's
+    dtype: the FFN residual of one MoE layer."""
+    B = int(h2.shape[0])
+    y = moe_lib.combine_tokens(torch.stack(downs), weights.reshape(-1),
+                               meta, B, cfg.d_model)
+    return y.to(h2.dtype)
+
+
+def _ssm_core(cfg: ModelConfig, mamba_p, zxbcdt: torch.Tensor,
+              conv: torch.Tensor, h: torch.Tensor):
+    """The selective-scan recurrence between a layer's two projections
+    (``ssm.decode_core``): (y [B, d_inner], new {"conv", "h"})."""
+    return ssm_lib.decode_core(mamba_p, zxbcdt, {"conv": conv, "h": h},
+                               cfg.ssm, cfg.d_model)
+
+
 def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
-                        m_rows: int, attend_for, reads: Tuple
-                        ) -> StackedGemmStage:
-    """ONE layer body covering layers [lo, hi) of a dense GQA model, in
-    place of their per-layer stages; shared by the decode and prefill
-    templates, as ``_emit_dense_body`` is. Its loop replays the per-layer
-    math exactly: ``_scan_gemm`` for every projection and the same
-    ``rmsnorm`` and ``silu_mul`` the per-layer glue calls.
-    ``attend_for(env, is_global)`` returns the phase's attention,
-    ``attend(l, q, k, v, dtype) -> (attn_out, k_new, v_new)`` for layer l,
-    the same function its per-layer glue calls. The layers' k/v are stacked
-    into one [Lsub, ...] chunk for the epilogue to concatenate."""
+                        m_rows: int, attend_for, reads: Tuple,
+                        moe: bool = False) -> StackedGemmStage:
+    """ONE layer body covering layers [lo, hi) of a GQA model (dense or,
+    with ``moe``, MoE), in place of their per-layer stages; shared by the
+    decode and prefill templates, as ``_emit_dense_body`` is. Its loop
+    replays the per-layer math exactly: ``_scan_gemm`` for every projection
+    and the same ``rmsnorm``, ``silu_mul`` and MoE glue (``_moe_route``,
+    ``_moe_combine``) the per-layer glue calls. ``attend_for(env,
+    is_global)`` returns the phase's attention, ``attend(l, q, k, v, dtype)
+    -> (attn_out, k_new, v_new)`` for layer l, the same function its
+    per-layer glue calls. The layers' k/v are stacked into one [Lsub, ...]
+    chunk for the epilogue to concatenate. An MoE body's expert packs hold
+    ``Lsub·E`` matrices, layer i's expert e at ``i·E + e``."""
     hd = cfg.resolved_head_dim
     d = cfg.d_model
     eps = cfg.norm_eps
@@ -586,28 +642,43 @@ def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
     Lsub = hi - lo
     is_global = bool(cfg.layer_is_global(lo))
     nq, nkv, dff = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
-    operands = _stacked_operands(cfg, blocks, pid, lo, hi, m=m_rows)
+    operands = _stacked_operands(cfg, blocks, pid, lo, hi, m=m_rows, moe=moe)
     ln1s = _stack_slice(blocks["ln1"], lo, hi)
     ln2s = _stack_slice(blocks["ln2"], lo, hi)
+    if moe:
+        E = cfg.moe.num_experts
+        C = moe_lib.capacity(m_rows, cfg.moe)
+        routers = _stack_slice(blocks["moe"]["router"], lo, hi)
 
     def run(env, padded, ex):
         attend = attend_for(env, is_global)
         x = env["x"]
         ks, vs = [], []
         for i in range(Lsub):
-            w = {tag: op[i] for tag, op in padded.items()}
             h = rmsnorm(x, ln1s[i], eps)
             attn_out, k_new, v_new = attend(
-                lo + i, _scan_gemm(h, w["attn_wq"], nq, ex),
-                _scan_gemm(h, w["attn_wk"], nkv, ex),
-                _scan_gemm(h, w["attn_wv"], nkv, ex), h.dtype)
+                lo + i, _scan_gemm(h, padded["attn_wq"][i], nq, ex),
+                _scan_gemm(h, padded["attn_wk"][i], nkv, ex),
+                _scan_gemm(h, padded["attn_wv"][i], nkv, ex), h.dtype)
             ks.append(k_new)
             vs.append(v_new)
-            x = x + _scan_gemm(attn_out, w["attn_wo"], d, ex)
+            x = x + _scan_gemm(attn_out, padded["attn_wo"][i], d, ex)
             h2 = rmsnorm(x, ln2s[i], eps)
-            act = silu_mul(_scan_gemm(h2, w["ffn_gate"], dff, ex),
-                           _scan_gemm(h2, w["ffn_up"], dff, ex))
-            x = x + _scan_gemm(act, w["ffn_down"], d, ex)
+            if moe:
+                buf, meta, wgt = _moe_route(cfg, routers[i], h2, C)
+                downs = []
+                for e in range(E):
+                    j = i * E + e
+                    act = silu_mul(
+                        _scan_gemm(buf[e], padded["expert_gate"][j], dff, ex),
+                        _scan_gemm(buf[e], padded["expert_up"][j], dff, ex))
+                    downs.append(_scan_gemm(act, padded["expert_down"][j], d,
+                                            ex))
+                x = x + _moe_combine(cfg, downs, wgt, meta, h2)
+                continue
+            act = silu_mul(_scan_gemm(h2, padded["ffn_gate"][i], dff, ex),
+                           _scan_gemm(h2, padded["ffn_up"][i], dff, ex))
+            x = x + _scan_gemm(act, padded["ffn_down"][i], d, ex)
         env["x"] = x
         env["new_layers"]["k"].append(torch.stack(ks))
         env["new_layers"]["v"].append(torch.stack(vs))
@@ -620,54 +691,80 @@ def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
 
 
 def _stacked_operands(cfg: ModelConfig, blocks, pid: int, lo: int, hi: int,
-                      *, m: int) -> List[StackedOperand]:
-    """The seven stacked projection operands of a dense body over layers
-    [lo, hi), in the per-layer emission's order, each guarded on the
-    ORIGINAL stacked params tensor."""
+                      *, m: int, moe: bool = False) -> List[StackedOperand]:
+    """The stacked projection operands of a body over layers [lo, hi), in
+    the per-layer emission's order, each guarded on the ORIGINAL stacked
+    params tensor: wq, wk, wv, wo, then the gated FFN's three or, for MoE,
+    the three expert packs. An expert pack flattens the [Lsub, E, k, n]
+    slice to [Lsub·E, k, n] (a view) and keeps the ``expert_*`` tag, which
+    ``clustering.is_expert_op`` reads; it counts ``Lsub·E`` sequential
+    waves of m = C rows."""
     hd = cfg.resolved_head_dim
     d = cfg.d_model
-    attn, mlp = blocks["attn"], blocks["mlp"]
+    attn = blocks["attn"]
+    Lsub = hi - lo
 
-    def sop(tag, name, t, n, k):
+    def sop(tag, name, t, n, k, rows=m, waves=Lsub):
+        def weight_fn(t=t):
+            w = _stack_slice(t, lo, hi)
+            return w.reshape(waves, k, n) if w.dim() == 4 else w
+
         return StackedOperand(
             tag, weight_key(cfg.name, pid, name, stack=(lo, hi)),
-            GemmShape(m=m, n=n, k=k, layers=hi - lo),
-            lambda t=t: _stack_slice(t, lo, hi), (t,))
+            GemmShape(m=rows, n=n, k=k, layers=waves), weight_fn, (t,))
 
-    return [
+    ops = [
         sop("attn_wq", "wq", attn["wq"], cfg.num_heads * hd, d),
         sop("attn_wk", "wk", attn["wk"], cfg.num_kv_heads * hd, d),
         sop("attn_wv", "wv", attn["wv"], cfg.num_kv_heads * hd, d),
         sop("attn_wo", "wo", attn["wo"], d, cfg.num_heads * hd),
+    ]
+    if moe:
+        mp = blocks["moe"]
+        C = moe_lib.capacity(m, cfg.moe)
+        waves = Lsub * cfg.moe.num_experts
+        return ops + [
+            sop("expert_gate", "w_gate", mp["w_gate"], cfg.d_ff, d, C, waves),
+            sop("expert_up", "w_up", mp["w_up"], cfg.d_ff, d, C, waves),
+            sop("expert_down", "w_down", mp["w_down"], d, cfg.d_ff, C, waves),
+        ]
+    mlp = blocks["mlp"]
+    return ops + [
         sop("ffn_gate", "w_gate", mlp["w_gate"], cfg.d_ff, d),
         sop("ffn_up", "w_up", mlp["w_up"], cfg.d_ff, d),
         sop("ffn_down", "w_down", mlp["w_down"], d, cfg.d_ff),
     ]
 
 
-def _decode_finish(concat):
-    """The decode epilogue: ``pos + 1`` and the layers' new caches joined
-    into [L, ...] (``torch.stack`` of per-layer tensors, ``torch.cat`` of
-    per-body chunks) as new cache tensors."""
+def _join_chunks(chunks: List[torch.Tensor]) -> torch.Tensor:
+    """The bodies' [Lsub, ...] cache chunks joined into [L, ...]. A model
+    of one body already has its [L, ...] tensor (new, made by its body),
+    so it is taken as it is rather than copied."""
+    return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
+
+
+def _decode_finish(concat, keys: Tuple[str, ...] = ("k", "v")):
+    """The decode epilogue: ``pos + 1`` and the layers' new caches (k / v,
+    or an SSM's conv / h) joined into [L, ...] (``torch.stack`` of
+    per-layer tensors, ``torch.cat`` of per-body chunks) as new cache
+    tensors."""
 
     def finish(env):
         cache = env["cache"]
         env["cache"] = {
             "pos": cache["pos"] + 1,
-            "layers": {
-                "k": concat(env["new_layers"]["k"]),
-                "v": concat(env["new_layers"]["v"]),
-            },
+            "layers": {k: concat(env["new_layers"][k]) for k in keys},
         }
 
     return GlueStage(finish, reads=("cache", "new_layers"),
                      writes=("cache",))
 
 
-def _build_stacked_gqa_decode_template(model, params, batch: int
-                                       ) -> ProgramTemplate:
+def _build_stacked_gqa_decode_template(model, params, batch: int, *,
+                                       moe: bool = False) -> ProgramTemplate:
     """Stacked counterpart of ``_build_gqa_decode_template``: one body
-    stage per homogeneous sub-stack instead of per-layer emission."""
+    stage per homogeneous sub-stack instead of per-layer emission (MoE
+    bodies with ``moe``)."""
     cfg: ModelConfig = model.cfg
     B = batch
 
@@ -688,22 +785,25 @@ def _build_stacked_gqa_decode_template(model, params, batch: int
     for lo, hi in partition_layers(cfg.global_layer_flags()):
         stages.append(_stacked_body_stage(
             cfg, params, lo, hi, m_rows=B, attend_for=attend_for,
-            reads=("x", "cache")))
+            reads=("x", "cache"), moe=moe))
     _emit_final_logits(cfg, params, stages, m_rows=B)
-    stages.append(_decode_finish(lambda ts: torch.cat(ts, dim=0)))
+    stages.append(_decode_finish(_join_chunks))
     return ProgramTemplate(stages=stages, batch=B, model_name=cfg.name)
 
 
-def _build_gqa_decode_template(model, params, batch: int) -> ProgramTemplate:
-    """Decode-template scaffold: embed glue, the per-layer attention + FFN
-    body, final norm, unembed and the KV-cache write-back epilogue."""
+def _build_gqa_decode_template(model, params, batch: int, *,
+                               ffn_for=None) -> ProgramTemplate:
+    """Decode-template scaffold of every GQA family: embed glue, the
+    per-layer attention + FFN body (``ffn_for`` swaps the gated FFN for the
+    MoE emitter), final norm, unembed and the KV-cache write-back
+    epilogue."""
     cfg: ModelConfig = model.cfg
     B = batch
     stages: List[Stage] = []
 
     _emit_decode_embed(cfg, params, stages)
     _emit_dense_body(cfg, params, stages, m_rows=B,
-                     attend_for=_decode_attend_for(cfg, B))
+                     attend_for=_decode_attend_for(cfg, B), ffn_for=ffn_for)
     _emit_final_logits(cfg, params, stages, m_rows=B)
     stages.append(_decode_finish(torch.stack))
     return ProgramTemplate(stages=stages, batch=B, model_name=cfg.name)
@@ -722,6 +822,252 @@ def build_dense_decode_template(model, params, batch: int, *,
     if stacked:
         return _build_stacked_gqa_decode_template(model, params, batch)
     return _build_gqa_decode_template(model, params, batch)
+
+
+# ---------------------------------------------------------------------------
+# non-dense decode programs: MoE and SSM tenants as first-class streams
+# ---------------------------------------------------------------------------
+
+def moe_program_cache_key(model, params, batch: int, cache, *,
+                          stacked: bool = True) -> Tuple:
+    """Plan-cache key for an MoE decode template, on the discipline of
+    ``dense_program_cache_key`` (params identity is guarded at the lookup
+    site). The expert capacity C is a function of (batch, cfg.moe), both
+    in the key through the batch and the model's identity."""
+    kc = cache["layers"]["k"]
+    return ("moe-decode", model.cfg.name, id(model), batch,
+            str(params["embed"].dtype), str(kc.dtype), tuple(kc.shape),
+            ("stacked", bool(stacked), model.cfg.num_layers))
+
+
+def build_moe_decode_template(model, params, batch: int, *,
+                              stacked: bool = True) -> ProgramTemplate:
+    """Compile the decode step of an MoE model into a ProgramTemplate,
+    equivalent to ``Model.decode_step`` for arch_type "moe".
+
+    The attention scaffolding is the dense builder's own emission (so MoE
+    attention GEMMs coalesce with dense tenants'); each layer's FFN becomes
+    a glue stage running the router and the sort-based capacity dispatch
+    (``_moe_route``: ``moe.route`` / ``dispatch_tokens``, the code
+    ``moe_ffn`` runs), 3·E per-expert ``GemmStage``s over the [C, d]
+    expert buffer, tagged ``expert_*`` with the expert index in the weight
+    key, and a combine glue. The expert slices are made once here and held
+    through ``_stable_view``, so the executor's identity guard never sees a
+    phantom hot-swap. ``stacked=True`` (default) runs the same glue inside
+    one body per sub-stack whose three expert packs are [Lsub·E, k, n];
+    ``stacked=False`` keeps the per-layer stages (the bitwise oracle)."""
+    cfg: ModelConfig = model.cfg
+    assert cfg.arch_type == "moe" and cfg.has_moe, cfg.arch_type
+    if stacked:
+        return _build_stacked_gqa_decode_template(model, params, batch,
+                                                  moe=True)
+    mcfg = cfg.moe
+    B, d = batch, cfg.d_model
+    E = mcfg.num_experts
+    # decode routes the step's B tokens as one group (moe_ffn's G = 1)
+    C = moe_lib.capacity(B, mcfg)
+    pid = id(params)
+    mp = params["blocks"]["moe"]
+
+    def ffn_for(l, lp, stages):
+        router = lp["moe"]["router"]
+
+        def glue(fn, reads=None, writes=None):
+            stages.append(GlueStage(fn, reads=reads, writes=writes))
+
+        def route_dispatch(env):
+            env["moe_buf"], env["moe_meta"], env["moe_w"] = _moe_route(
+                cfg, router, env["h2"], C)
+            env["moe_down"] = [None] * E
+
+        glue(route_dispatch, reads=("h2",),
+             writes=("moe_buf", "moe_meta", "moe_w", "moe_down"))
+        for e in range(E):
+            wg, wu, wd = (_stable_view(mp[name], (l, e),
+                                       lambda w, e=e: w[l, e])
+                          for name in ("w_gate", "w_up", "w_down"))
+            for tag, name, w, out in (("expert_gate", "w_gate", wg,
+                                       ("moe_gate", e)),
+                                      ("expert_up", "w_up", wu,
+                                       ("moe_up", e))):
+                stages.append(GemmStage(
+                    tag, weight_key(cfg.name, pid, name, layer=l, expert=e),
+                    lambda w=w: w,
+                    lambda env, e=e: env["moe_buf"][e],
+                    lambda env, o, out=out: env.__setitem__(out, o),
+                    shape=GemmShape(m=C, n=cfg.d_ff, k=d),
+                    reads=("moe_buf",), writes=(out,)))
+
+            def act(env, e=e):
+                env[("moe_act", e)] = silu_mul(env.pop(("moe_gate", e)),
+                                               env.pop(("moe_up", e)))
+
+            glue(act, reads=(("moe_gate", e), ("moe_up", e)),
+                 writes=(("moe_act", e),))
+            stages.append(GemmStage(
+                "expert_down",
+                weight_key(cfg.name, pid, "w_down", layer=l, expert=e),
+                lambda w=wd: w,
+                lambda env, e=e: env[("moe_act", e)],
+                lambda env, o, e=e: env["moe_down"].__setitem__(e, o),
+                shape=GemmShape(m=C, n=d, k=cfg.d_ff),
+                reads=(("moe_act", e),), writes=("moe_down",)))
+
+        def combine(env):
+            env.pop("moe_buf")
+            env["x"] = env["x"] + _moe_combine(
+                cfg, env.pop("moe_down"), env.pop("moe_w"),
+                env.pop("moe_meta"), env["h2"])
+
+        glue(combine, reads=("moe_down", "moe_w", "moe_meta", "moe_buf",
+                             "x", "h2"), writes=("x",))
+
+    return _build_gqa_decode_template(model, params, batch, ffn_for=ffn_for)
+
+
+def ssm_program_cache_key(model, params, batch: int, cache, *,
+                          stacked: bool = True) -> Tuple:
+    """Plan-cache key for an SSM decode template: (model identity, batch,
+    dtype, recurrent-cache geometry); guard discipline as for dense."""
+    cc = cache["layers"]["conv"]
+    return ("ssm-decode", model.cfg.name, id(model), batch,
+            str(params["embed"].dtype), str(cc.dtype), tuple(cc.shape),
+            tuple(cache["layers"]["h"].shape),
+            ("stacked", bool(stacked), model.cfg.num_layers))
+
+
+def _reset_ssm_layers(env):
+    env["new_layers"] = {"conv": [], "h": []}
+
+
+def _build_stacked_ssm_decode_template(model, params, batch: int
+                                       ) -> ProgramTemplate:
+    """Stacked counterpart of the per-layer SSM builder: an attention-free
+    stack is one homogeneous sub-stack, so ONE body stage declares the
+    stacked in / out projections and runs the recurrence (``_ssm_core``,
+    the per-layer glue's function) between them, layer by layer."""
+    cfg: ModelConfig = model.cfg
+    scfg = cfg.ssm
+    B, d = batch, cfg.d_model
+    d_inner = scfg.expand * d
+    n_in = 2 * d_inner + 2 * scfg.d_state + scfg.num_heads(d)
+    eps = cfg.norm_eps
+    blocks = params["blocks"]
+    mamba = blocks["mamba"]
+    pid = id(params)
+    L = cfg.num_layers
+    operands = [
+        StackedOperand(
+            "ssm_in_proj", weight_key(cfg.name, pid, "in_proj",
+                                      stack=(0, L)),
+            GemmShape(m=B, n=n_in, k=d, layers=L),
+            lambda: mamba["in_proj"], (mamba["in_proj"],)),
+        StackedOperand(
+            "ssm_out_proj", weight_key(cfg.name, pid, "out_proj",
+                                       stack=(0, L)),
+            GemmShape(m=B, n=d, k=d_inner, layers=L),
+            lambda: mamba["out_proj"], (mamba["out_proj"],)),
+    ]
+    # the recurrence reads the conv / dt / A / D / norm leaves; the
+    # projections are the stacked operands above
+    rest = [{k: v[l] for k, v in mamba.items()
+             if k not in ("in_proj", "out_proj")} for l in range(L)]
+    ln1s = blocks["ln1"]
+
+    def run(env, padded, ex):
+        layers = env["cache"]["layers"]
+        x = env["x"]
+        convs, hs = [], []
+        for l in range(L):
+            hh = rmsnorm(x, ln1s[l], eps)
+            zxbcdt = _scan_gemm(hh, padded["ssm_in_proj"][l], n_in, ex)
+            y, new_c = _ssm_core(cfg, rest[l], zxbcdt, layers["conv"][l],
+                                 layers["h"][l])
+            x = x + _scan_gemm(y, padded["ssm_out_proj"][l], d, ex)
+            convs.append(new_c["conv"])
+            hs.append(new_c["h"])
+        env["x"] = x
+        env["new_layers"]["conv"].append(torch.stack(convs))
+        env["new_layers"]["h"].append(torch.stack(hs))
+
+    stages: List[Stage] = []
+    _emit_decode_embed(cfg, params, stages)
+    stages.append(GlueStage(_reset_ssm_layers, reads=(),
+                            writes=("new_layers",)))
+    stages.append(StackedGemmStage(
+        tag=f"body_0_{L}",
+        weight_key=weight_key(cfg.name, pid, "body", stack=(0, L)),
+        operands=operands, layers=L, run=run,
+        reads=("x", "cache"), writes=("x", "new_layers")))
+    _emit_final_logits(cfg, params, stages, m_rows=B)
+    stages.append(_decode_finish(_join_chunks,
+                                 keys=("conv", "h")))
+    return ProgramTemplate(stages=stages, batch=B, model_name=cfg.name)
+
+
+def build_ssm_decode_template(model, params, batch: int, *,
+                              stacked: bool = True) -> ProgramTemplate:
+    """Compile the decode step of an attention-free SSM (Mamba-2) model
+    into a ProgramTemplate, equivalent to ``Model.decode_step`` for
+    arch_type "ssm": per layer, the in projection and the out projection
+    are declared ``GemmStage``s (coalescible across tenants) and the
+    recurrence between them runs as glue (``_ssm_core``: the function
+    ``ssd_decode_step`` calls). The epilogue stacks the layers' conv
+    windows and states back into the recurrent cache. ``stacked=True``
+    (default) runs one body over all the layers; ``stacked=False`` the
+    per-layer stages (the bitwise oracle)."""
+    cfg: ModelConfig = model.cfg
+    assert cfg.arch_type == "ssm" and cfg.has_ssm, cfg.arch_type
+    if stacked:
+        return _build_stacked_ssm_decode_template(model, params, batch)
+    scfg = cfg.ssm
+    B, d = batch, cfg.d_model
+    d_inner = scfg.expand * d
+    n_in = 2 * d_inner + 2 * scfg.d_state + scfg.num_heads(d)
+    blocks = params["blocks"]
+    pid = id(params)
+    stages: List[Stage] = []
+
+    def glue(fn, reads=None, writes=None):
+        stages.append(GlueStage(fn, reads=reads, writes=writes))
+
+    _emit_decode_embed(cfg, params, stages)
+    glue(_reset_ssm_layers, reads=(), writes=("new_layers",))
+    for l in range(cfg.num_layers):
+        lp = _layer_views(blocks, l)
+
+        def pre(env, lp=lp):
+            env["h"] = rmsnorm(env["x"], lp["ln1"], cfg.norm_eps)
+
+        glue(pre, reads=("x",), writes=("h",))
+        stages.append(GemmStage(
+            "ssm_in_proj", weight_key(cfg.name, pid, "in_proj", layer=l),
+            lambda lp=lp: lp["mamba"]["in_proj"],
+            lambda env: env["h"],
+            lambda env, out: env.__setitem__("zxbcdt", out),
+            shape=GemmShape(m=B, n=n_in, k=d),
+            reads=("h",), writes=("zxbcdt",)))
+
+        def scan(env, lp=lp, l=l):
+            layers = env["cache"]["layers"]
+            y, new_c = _ssm_core(cfg, lp["mamba"], env.pop("zxbcdt"),
+                                 layers["conv"][l], layers["h"][l])
+            env["new_layers"]["conv"].append(new_c["conv"])
+            env["new_layers"]["h"].append(new_c["h"])
+            env["ssm_y"] = y
+
+        glue(scan, reads=("cache", "zxbcdt"), writes=("new_layers", "ssm_y"))
+        stages.append(GemmStage(
+            "ssm_out_proj", weight_key(cfg.name, pid, "out_proj", layer=l),
+            lambda lp=lp: lp["mamba"]["out_proj"],
+            lambda env: env["ssm_y"],
+            lambda env, out: env.__setitem__("x", env["x"] + out),
+            shape=GemmShape(m=B, n=d, k=d_inner),
+            reads=("ssm_y", "x"), writes=("x",)))
+
+    _emit_final_logits(cfg, params, stages, m_rows=B)
+    stages.append(_decode_finish(torch.stack, keys=("conv", "h")))
+    return ProgramTemplate(stages=stages, batch=B, model_name=cfg.name)
 
 
 # ---------------------------------------------------------------------------
@@ -934,6 +1280,13 @@ class JitStats:
     mid_flight_admissions: int = 0  # programs joining live ops post-start
     # dispatched groups that packed a prefill op with another stream's op
     prefill_coalesced: int = 0
+    # MoE / SSM decode steps admitted as KernelPrograms (the serving
+    # engine counts one per program it admits for such a tenant)
+    nondense_programs: int = 0
+    # dispatched groups that packed an MoE expert GEMM (tag "expert_*", or
+    # a body with expert operands: clustering.is_expert_op) with another
+    # stream's op
+    expert_coalesced: int = 0
     # plan-cache deltas accrued during this run (core/plancache.py)
     plan_cache: PlanCacheStats = dataclasses.field(
         default_factory=PlanCacheStats)
@@ -1153,9 +1506,11 @@ class JitSession:
         stats.padding_waste.add(plan.padding_waste)
         stats.shared_dispatches += int(shared)
         stats.coalesced_groups += int(len(plan.ops) > 1)
-        if len({op.stream_id for op in plan.ops}) > 1 \
-                and any(op.op_kind == "prefill" for op in plan.ops):
-            stats.prefill_coalesced += 1
+        if len({op.stream_id for op in plan.ops}) > 1:
+            if any(op.op_kind == "prefill" for op in plan.ops):
+                stats.prefill_coalesced += 1
+            if any(is_expert_op(op) for op in plan.ops):
+                stats.expert_coalesced += 1
         stats.modeled_time_s += t
         stats.modeled_serial_time_s += self.cost.time_multiplexed(
             serial_shapes, plan.block)

@@ -6,7 +6,8 @@ Usage:
       --tenants gemma3-1b yi-9b --mode vliw --requests 4 --device cuda
 
 Tenants run the reduced (smoke) variants of their configs with random
-weights made from ``--seed``; ``--device cpu`` runs the plain PyTorch
+weights made from ``--seed``: dense, MoE (``grok-1-314b``,
+``llama4-maverick-400b-a17b``) and SSM (``mamba2-2.7b``) families; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead of the CUDA ones. Each line reports the
 modelled times (``modeled``, ``mean_lat``, ``p99``, ``tok/s`` — the cost
 model's ``H100`` device, spec-sheet values, not measurements) and the host
@@ -45,7 +46,9 @@ def _report_line(mode, rep):
                  f"group={rep.jit.mean_group:.2f} "
                  f"shared={rep.jit.shared_dispatches} "
                  f"wpack_hit={d.weight_hit_rate:.0%} "
-                 f"builds={d.retraces}]")
+                 f"builds={d.retraces} "
+                 f"nondense={rep.jit.nondense_programs} "
+                 f"expert_coalesced={rep.jit.expert_coalesced}]")
     return line
 
 

@@ -25,11 +25,12 @@ Params = Dict[str, Any]
 def dense_init_(out: torch.Tensor, generator: torch.Generator,
                 scale: float = 1.0) -> torch.Tensor:
     """Fill ``out`` with truncated-normal fan-in init (stddev = scale /
-    sqrt(fan_in), cut at ±2 stddev), drawn in fp32 one leading slice at a
-    time so a stacked [L, ...] weight never needs an fp32 copy of itself."""
+    sqrt(fan_in), cut at ±2 stddev), drawn in fp32 one [k, n] matrix at a
+    time so a stacked [L, ...] (or [L, E, ...]) weight never needs an fp32
+    copy of itself."""
     fan_in = out.shape[-2] if out.dim() >= 2 else out.shape[-1]
     std = scale / math.sqrt(fan_in)
-    slices = out if out.dim() >= 3 else out[None]
+    slices = out.view(-1, *out.shape[-2:]) if out.dim() >= 3 else out[None]
     for s in slices:
         tmp = torch.empty(s.shape, dtype=torch.float32, device=s.device)
         torch.nn.init.trunc_normal_(tmp, std=std, a=-2.0 * std, b=2.0 * std,

@@ -1,8 +1,8 @@
 """Multi-tenant serving engine: event-driven OoO serving with live admission.
 
 The counterpart of the JAX package's ``serving/engine.py`` for one device
-and dense tenants. Three execution modes, mirroring the paper's comparison
-end to end:
+and dense, MoE and SSM tenants. Three execution modes, mirroring the
+paper's comparison end to end:
 
   * "time"    — each request decodes alone, requests strictly serialized
                 (time-multiplexing, §4.1);
@@ -23,7 +23,29 @@ Token generation is real (greedy argmax through the actual models, on the
 engine's device); time is attributed with the cost model (``H100`` by
 default, spec-sheet values), so ``ServeReport.modeled_time_s`` is modelled
 and ``wall_time_s`` is the host clock. Greedy tokens are identical across
-the three modes because batch rows are independent.
+the three modes because batch rows are independent. An MoE step is the
+exception, as in the JAX package: it routes its whole slotted batch as one
+group with a per-expert capacity, so a row's tokens can depend on what
+its batchmates hold when drops occur.
+
+Arch support in vliw mode, as in the JAX package (the other families raise
+``NotImplementedError`` in ``Model``):
+
+  ==========  ================================  ==========================
+  arch_type   decode step                       prompt prefill
+  ==========  ================================  ==========================
+  dense       KernelProgram                     declared prefill program
+                                                (>= prefill_declare_min;
+                                                analytic below it)
+  moe         KernelProgram (router glue +      analytic (``Model.prefill``)
+              per-expert GEMMs)
+  ssm         KernelProgram (scan recurrence    analytic (``Model.prefill``)
+              glue)
+  ==========  ================================  ==========================
+
+``JitStats.nondense_programs`` counts the MoE / SSM decode programs
+admitted. The baseline modes ("time", "batched") run ``Model.decode_step``
+for every family.
 
 Continuous batching: each tenant owns a slotted decode cache (``max_batch``
 rows, per-row positions). Admission prefills a request and writes its KV
@@ -64,8 +86,12 @@ from repro_torch.core.costmodel import CostModel, H100
 from repro_torch.core.jit import (JitStats, KernelProgram, VLIWJit,
                                   build_dense_decode_template,
                                   build_dense_prefill_template,
-                                  dense_program_cache_key, prefill_bucket,
-                                  prefill_program_cache_key)
+                                  build_moe_decode_template,
+                                  build_ssm_decode_template,
+                                  dense_program_cache_key,
+                                  moe_program_cache_key, prefill_bucket,
+                                  prefill_program_cache_key,
+                                  ssm_program_cache_key)
 from repro_torch.core.kernelspec import gemm_population
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.models.model import Model
@@ -257,9 +283,9 @@ class ServingEngine:
         self.jit_stats = JitStats()
         self._seed = 0
         for t in tenants:
-            if t.cfg.arch_type != "dense":
+            if not self._jit_capable(t):
                 raise _not_ported(f"serving arch_type {t.cfg.arch_type!r}",
-                                  "8")
+                                  "12")
             t.cache = t.model.init_cache(t.max_batch, t.cache_len)
             t.slot_req = [None] * t.max_batch
             t.slot_tok = torch.zeros((t.max_batch, 1), dtype=torch.long,
@@ -282,6 +308,8 @@ class ServingEngine:
 
     def _attn_time(self, cfg: ModelConfig, m: int) -> float:
         """KV-cache streaming time (memory-bound), same for every mode."""
+        if cfg.is_attention_free:
+            return 0.0
         hd = cfg.resolved_head_dim
         lens = [t.cache_len for t in self.tenants.values() if t.cfg is cfg]
         mean_len = 0.5 * max(lens) if lens else 64
@@ -290,6 +318,8 @@ class ServingEngine:
 
     def _prefill_attn_time(self, cfg: ModelConfig, prompt_len: int) -> float:
         """KV write-back + causal attention streaming for one prompt."""
+        if cfg.is_attention_free:
+            return 0.0
         hd = cfg.resolved_head_dim
         s = prompt_len
         per_entry = 2 * cfg.num_layers * cfg.num_kv_heads * hd * 2
@@ -402,7 +432,14 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # the event loop (vliw mode)
     # ------------------------------------------------------------------
+    def _jit_capable(self, t: Tenant) -> bool:
+        """Whether the tenant's decode steps compile to KernelPrograms:
+        dense, MoE and SSM (the families ``Model`` ports)."""
+        return t.cfg.arch_type in ("dense", "moe", "ssm")
+
     def _prefill_capable(self, t: Tenant) -> bool:
+        # declared prefill covers dense tenants; MoE / SSM prompts take
+        # Model.prefill and the analytic charge, as in the JAX package
         return self.declared_prefill and t.cfg.arch_type == "dense"
 
     def _declare_prefill(self, t: Tenant, req: ServeRequest, stream_id: int,
@@ -480,11 +517,15 @@ class ServingEngine:
         deadline = min(future) if future else \
             min(finals) if finals else math.inf
         batch = int(t.slot_tok.shape[0])
+        key_fn, build = {
+            "moe": (moe_program_cache_key, build_moe_decode_template),
+            "ssm": (ssm_program_cache_key, build_ssm_decode_template),
+        }.get(t.cfg.arch_type, (dense_program_cache_key,
+                                build_dense_decode_template))
+        stacked = self.stacked_layers
         template = self.jit.plan_cache.get_or_build(
-            dense_program_cache_key(t.model, t.params, batch, t.cache,
-                                    stacked=self.stacked_layers),
-            lambda: build_dense_decode_template(
-                t.model, t.params, batch, stacked=self.stacked_layers),
+            key_fn(t.model, t.params, batch, t.cache, stacked=stacked),
+            lambda: build(t.model, t.params, batch, stacked=stacked),
             guard=(t.model, t.params), group=("tenant", t.name))
         return template.bind(
             stream_id=stream_id, tokens=t.slot_tok, cache=t.cache,
@@ -551,6 +592,8 @@ class ServingEngine:
             for name, t in self.tenants.items():
                 if name not in inflight and t.active_slots():
                     prog = self._build_program(t, stream_ids[name], now)
+                    if t.cfg.arch_type in ("moe", "ssm"):
+                        session.stats.nondense_programs += 1
                     inflight[name] = prog
                     session.admit(prog)
                     progressed = True

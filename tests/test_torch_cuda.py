@@ -264,6 +264,82 @@ def test_stacked_engine_tokens_card_equals_cpu(cuda):
     assert out[0] == out[1]
 
 
+def _nondense(arch):
+    """grok-1 smoke (4 experts) at 8 layers with gemma3's local/global
+    period (sub-stacks of 5, 1 and 2), or mamba2-2.7b smoke."""
+    cfg = smoke_config(arch)
+    if arch == "grok-1-314b":
+        cfg = dataclasses.replace(cfg, num_layers=8, window_size=8,
+                                  global_every=6)
+    return cfg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "mamba2-2.7b"])
+def test_nondense_stacked_bitwise_equal_to_per_layer_on_card(cuda, arch,
+                                                             dtype):
+    """MoE and SSM decode templates: the stacked template gives the
+    per-layer template's logits and cache leaves bit for bit on the card,
+    over 3 steps, with (4 + 3E) or 2 kernel launches a layer of each."""
+    from repro_torch.core.jit import (VLIWJit, build_moe_decode_template,
+                                      build_ssm_decode_template)
+    cfg = _nondense(arch)
+    build = build_moe_decode_template if cfg.arch_type == "moe" \
+        else build_ssm_decode_template
+    per_layer = 4 + 3 * cfg.moe.num_experts if cfg.arch_type == "moe" else 2
+    m = Model(cfg, param_dtype=dtype, device=cuda)
+    p = m.init(torch.Generator(device=cuda).manual_seed(4))
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 12), generator=g)
+    _, cache0 = m.prefill(p, {"tokens": prompt.to(cuda)}, cache_len=32)
+    tok0 = torch.randint(0, cfg.vocab_size, (4, 1), generator=g).to(cuda)
+    out = {}
+    for stacked in (True, False):
+        n0 = cg.coalesced_gemm.launches
+        tmpl = build(m, p, 4, stacked=stacked)
+        vj = VLIWJit(max_group=8)
+        cache, tok, logits = cache0, tok0, []
+        for _ in range(3):
+            prog = tmpl.bind(stream_id=0, tokens=tok, cache=cache)
+            vj.run([prog])
+            logits.append(prog.env["logits"])
+            cache = prog.env["cache"]
+            tok = torch.argmax(prog.env["logits"], dim=-1)[:, None]
+        assert cg.coalesced_gemm.launches - n0 == \
+            3 * (per_layer * cfg.num_layers + 1)
+        out[stacked] = (logits, cache)
+    for a, b in zip(out[True][0], out[False][0]):
+        assert bool(torch.isfinite(a.float()).all())
+        assert torch.equal(a, b)
+    for leaf, t in out[False][1]["layers"].items():
+        assert torch.equal(out[True][1]["layers"][leaf], t), leaf
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "mamba2-2.7b"])
+def test_nondense_engine_tokens_card_equals_cpu(cuda, arch, stacked):
+    """MoE and SSM tenants with distinct weights serve the same greedy
+    tokens on the card (every GEMM a kernel launch) as on the CPU, in
+    both regimes."""
+    cfg = _nondense(arch)
+    m_cpu = Model(cfg, param_dtype=torch.float32, device="cpu")
+    params = [m_cpu.init(torch.Generator().manual_seed(i)) for i in (0, 1)]
+    m_gpu = Model(cfg, param_dtype=torch.float32, device=cuda)
+    trace = make_trace(["a", "b"], rate_hz=1e4, n_per_tenant=2,
+                       prompt_len=16, max_new_tokens=4, slo_s=1.0)
+    out = []
+    for m, ps in ((m_cpu, params), (m_gpu, [_to(p, cuda) for p in params])):
+        tenants = [Tenant(n, m, p, cache_len=32)
+                   for n, p in zip(("a", "b"), ps)]
+        n0 = cg.coalesced_gemm.launches
+        rep = ServingEngine(tenants, mode="vliw", device=m.device,
+                            stacked_layers=stacked).run(trace)
+        out.append({r.req_id: r.tokens_out for r in rep.requests})
+        assert rep.jit.nondense_programs > 0
+        assert (cg.coalesced_gemm.launches > n0) == (m is m_gpu)
+    assert out[0] == out[1]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,K,N", [(3, 300, 256), (3, 384, 384),
                                    (2, 2048, 4096), (3, 2049, 256),

@@ -161,6 +161,15 @@ def test_unported_options_raise(pair):
             _port_engine(port_side, "vliw", **kw)
     with pytest.raises(NotImplementedError, match="item 10"):
         _port_engine(port_side, "vliw").serve_forever()
+    # hybrid, vlm and audio tenants, and the int8 KV cache, are item 12:
+    # their models refuse to be made, so no engine can hold them
+    for arch in ("hymba-1.5b", "internvl2-2b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            Model(smoke_config(arch), param_dtype=torch.float32,
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Model(smoke_config("gemma3-1b"), param_dtype=torch.float32,
+              device="cpu", kv_quant=True)
 
 
 def test_engine_defaults_equal_reference():
