@@ -82,6 +82,40 @@ Phases, each printing its own lines; a failing phase raises:
                    lines;
   5c. serve-ssm  — the same with mamba2-2.7b (bf16, all 64 layers; 2
                    launches a layer of a stacked body);
+  5d. serve-mesh — the modelled mesh: two full-width yi-9b tenants with
+                   distinct weights (bf16, 12 layers unless free memory
+                   forces a cut), mamba2-2.7b (bf16, 64 layers) and grok-1
+                   at full width (bf16, 1 layer, its 8 experts spanning a
+                   2-device mesh; one request at a time), stacked,
+                   ``certify=True``, on 1 and then 2 modelled devices (the
+                   bytes reckoned beside ``mem_get_info``); per mesh size
+                   wall s, tokens/s, programs a tenant, dispatches and
+                   coalesced groups per device, ``device_util``,
+                   ``device_skew``, the placement, the modelled collective
+                   µs, hazard checks and violations (0), the certifier's
+                   host ms a dispatch and launches (checked against the
+                   tenants' programs); tokens identical at the two sizes;
+  5e. serve-daemon — two tenants sharing one full-width yi-9b weight set
+                   (bf16, 48 layers unless free memory forces a cut)
+                   behind ``serve_forever`` on 2 modelled devices with
+                   ``certify`` and admission control: a preloaded door on
+                   a ``VirtualClock`` bitwise equal to ``run()``; one
+                   request served alone (its real seconds set the SLOs);
+                   then 32 live Poisson submissions at 8 req/s from a
+                   feeder thread on the real clock (``MonotonicClock``),
+                   tiers 0/1/2 (p 0.5/0.3/0.2) with SLOs 1x/2x/4x the
+                   alone request: heartbeat lines, attainment overall and
+                   per tier, goodput, shed, unfinished, real TTFT (from
+                   the feeder's submission instant) and per-token p50/p99
+                   (host instants taken in the ticket callback) beside the
+                   wait for the loop's poll and the engine's stamps, the
+                   modelled cost against the alone request's real
+                   seconds, hazard counters; every request finished or
+                   shed, ticket streams equal to the report's tokens;
+  5f. serve-cli  — ``python -m repro_torch.launch.serve --daemon
+                   --duration 3 --num-devices 2 --certify --admission
+                   --dtype bfloat16`` (smoke configs) as a subprocess:
+                   exits 0 with no hazard;
   6. card-vs-cpu — full-width yi-9b, fp32, 1 layer, two tenants with
                    distinct weights, both regimes (per-layer: the grouped
                    regime, G = 2): the same trace, weights and prompts
@@ -118,6 +152,7 @@ import ctypes
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -670,20 +705,24 @@ REGIMES = ((True, "stacked"), (False, "per-layer"))
 
 
 def _serve(torch, cfg, tenants_params, *, n_req, prompt_len, new_tokens,
-           budget, seed, stacked):
+           budget, seed, stacked=True, max_batch=None, **engine_kw):
+    """Serve one trace (``n_req`` requests a tenant) on a fresh vliw
+    engine; ``max_batch`` gives each tenant's slots (4 each by default),
+    ``engine_kw`` the engine's other options (the mesh, the certifier)."""
     from repro_torch.serving import ServingEngine, Tenant, make_trace
     names = [f"t{i}" for i in range(len(tenants_params))]
     trace = make_trace(names, rate_hz=1e4, n_per_tenant=n_req,
                        prompt_len=prompt_len, max_new_tokens=new_tokens,
                        slo_s=1.0, seed=seed)
     tenants = [Tenant(n, m, p, cache_len=prompt_len + new_tokens + 8,
-                      max_batch=4)
-               for n, (m, p) in zip(names, tenants_params)]
+                      max_batch=mb)
+               for n, (m, p), mb in zip(names, tenants_params,
+                                        max_batch or [4] * len(names))]
     # per-layer emission declares 7 weights a layer: room for every
     # packed entry of both regimes (shared and singleton) of 48 layers
     eng = ServingEngine(tenants, mode="vliw", weight_budget_bytes=budget,
                         plan_capacity=1024, stacked_layers=stacked,
-                        device=tenants_params[0][0].device)
+                        device=tenants_params[0][0].device, **engine_kw)
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1330,6 +1369,461 @@ def phase_card_vs_cpu_nondense(torch, cg):
 
 
 # ---------------------------------------------------------------------------
+# 5d-5f. the full serving loop: the modelled mesh, the daemon, the CLI
+# ---------------------------------------------------------------------------
+
+def _placement(eng):
+    """'name->device' for each tenant ('xN': experts spanning N devices)."""
+    return ",".join(
+        f"{name}->{pl.device}" + (f"(x{pl.expert_span})"
+                                  if pl.expert_span > 1 else "")
+        for name, pl in sorted(eng.placement.assignments.items()))
+
+
+def _per_device(eng, n):
+    """(dispatches, coalesced groups) per device, from the recorded trace."""
+    disp, coal = [0] * n, [0] * n
+    for rec in eng.last_trace.dispatches:
+        disp[rec.device] += 1
+        coal[rec.device] += int(len(rec.ops) > 1)
+    return disp, coal
+
+
+def _certify_ms_per_dispatch(eng):
+    """Host ms the certifier takes a dispatch record, by replaying the
+    run's trace through a fresh certifier (the engine runs the same
+    checks incrementally, one tick's records at a time)."""
+    from repro_torch.analysis import certify_trace
+    trace = eng.last_trace
+    t0 = time.perf_counter()
+    cert = certify_trace(trace)
+    ms = 1e3 * (time.perf_counter() - t0)
+    return ms / max(len(trace.dispatches), 1), cert.checks
+
+
+def _fleet_plan(torch, phase, fleet, db, margin):
+    """Bytes of a mixed fleet at full width (``fleet``: (name, cfg,
+    copies)), reckoned as ``_nondense_plan`` reckons one model: params, one
+    regime's packs and the largest single pack (a stacked body's slot, built
+    while the cache is full) beside the card's free memory. The yi-9b
+    tenants' depth is cut, and the cut printed, until it fits; the budget
+    leaves room for that largest pack."""
+    from repro_torch.kernels.ops import envelope_bucket as eb
+    free, total = torch.cuda.mem_get_info()
+
+    def need(cfgs):
+        params = packs = largest = 0
+        for _, cfg, copies in cfgs:
+            p_layer, k_layer = _layer_bytes(cfg, db)
+            tables, emb_pack = _embed_bytes(cfg, db)
+            mult = cfg.moe.num_experts if cfg.arch_type == "moe" else 1
+            slot = mult * max(eb(k) * eb(n) for k, n in _layer_gemms(cfg))
+            params += copies * (cfg.num_layers * p_layer + tables)
+            packs += copies * (cfg.num_layers * k_layer + emb_pack)
+            largest = max(largest, cfg.num_layers * slot * db)
+        return params, packs, largest
+
+    want = {name: cfg.num_layers for name, cfg, _ in fleet}
+    while sum(need(fleet)) + margin > free:
+        assert fleet[0][0] == "yi-9b" and fleet[0][1].num_layers > 1, \
+            "the fleet does not fit"
+        fleet = [(name, _full_yi(cfg.num_layers - 1)
+                  if name == "yi-9b" else cfg, copies)
+                 for name, cfg, copies in fleet]
+    params, packs, largest = need(fleet)
+    for name, cfg, _ in fleet:
+        if cfg.num_layers < want[name]:
+            say(phase, depth_cut=f"{name} {want[name]}->{cfg.num_layers}",
+                reason=f"free={free / GIB:.1f}GiB holds params, one "
+                       f"regime's packs and the largest pack only so")
+    budget = int(free - margin - params - largest)
+    return {name: cfg for name, cfg, _ in fleet}, dict(
+        free_GiB=free / GIB, total_GiB=total / GIB, param_GiB=params / GIB,
+        pack_GiB=packs / GIB, largest_pack_GiB=largest / GIB,
+        weight_budget_GiB=budget / GIB), budget
+
+
+def _check_fleet_launches(eng, rep, cfgs, launches):
+    """``_check_launches`` for a stacked mixed fleet: one launch a plain
+    dispatch plus g·L a program of each tenant (g its GEMMs a layer, L its
+    depth). The programs a tenant ran are its admissions in the certified
+    trace; its ops there must be its bodies plus its unembed a program.
+    ``dispatch.dispatches`` counts each plain dispatch once and each body
+    once. Returns the programs a tenant."""
+    from collections import Counter
+    trace = eng.last_trace
+    progs = Counter(a.stream for a in trace.prog_admits)
+    ops = Counter(op.stream for rec in trace.dispatches for op in rec.ops)
+    bodies = body_launches = 0
+    per_tenant = {}
+    # stream ids follow the engine's tenant order
+    for stream, (name, cfg) in enumerate(zip(eng.tenants, cfgs)):
+        n, spans = progs[stream], len(_spans(cfg))
+        assert ops[stream] == n * (spans + 1), (name, ops[stream], n, spans)
+        bodies += n * spans
+        body_launches += n * _gemms_a_layer(cfg) * cfg.num_layers
+        per_tenant[name] = n
+    plain = rep.jit.dispatch.dispatches - bodies
+    want = plain + body_launches
+    assert launches == want, (launches, want, plain, per_tenant)
+    return per_tenant
+
+
+def phase_serve_mesh(torch, cg):
+    """Two full-width yi-9b tenants with distinct weights (bf16, 12 layers),
+    mamba2-2.7b at full width and depth (bf16, 64 layers) and grok-1 at
+    full width (bf16, 1 layer of 64; its 8 experts span a 2-device mesh, so
+    it pays the modelled all-to-all at its real [m, 6144]), served stacked
+    with ``certify=True`` on 1 and then 2 modelled devices: tokens
+    identical, no hazard, launches as the programs predict. grok takes one
+    request at a time (``max_batch=1``): an MoE step routes its whole
+    slotted batch, so a row's tokens depend on its batchmates, and which
+    rows share a step depends on the mesh's timelines."""
+    from repro_torch.models import Model
+    db = 2
+    fleet = [("yi-9b", _full_yi(12), 2),
+             ("mamba2-2.7b", _full("mamba2-2.7b", 64), 1),
+             ("grok-1-314b", _full("grok-1-314b", 1), 1)]
+    cfg_of, plan, budget = _fleet_plan(torch, "serve-mesh", fleet, db,
+                                       6 * GIB)
+    yi, ssm, grok = (cfg_of[k] for k in ("yi-9b", "mamba2-2.7b",
+                                          "grok-1-314b"))
+    say("serve-mesh", tenants=f"yi-9b({yi.num_layers}L,distinct)x2,"
+        f"mamba2-2.7b({ssm.num_layers}L),grok-1-314b({grok.num_layers}L,"
+        f"{grok.moe.num_experts}experts,d_model={grok.d_model})",
+        dtype="bfloat16", **{k: f"{v:.2f}" for k, v in plan.items()})
+    # t0, t1: yi-9b; t2: mamba2; t3: grok-1
+    cfgs = (yi, yi, ssm, grok)
+    tp = []
+    for i, cfg in enumerate(cfgs):
+        m = Model(cfg, param_dtype=torch.bfloat16)
+        tp.append((m, m.init(torch.Generator(device=m.device)
+                             .manual_seed(40 + i))))
+    torch.cuda.synchronize()
+    free_after, _ = torch.cuda.mem_get_info()
+    say("serve-mesh",
+        params_allocated_GiB=f"{torch.cuda.memory_allocated() / GIB:.2f}",
+        mem_get_info_free_GiB_after_init=f"{free_after / GIB:.2f}")
+    out, tokens = {}, {}
+    for n in (1, 2):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(cg)
+        eng, rep, wall = _serve(torch, yi, tp, n_req=4, prompt_len=32,
+                                new_tokens=8, budget=budget, seed=4,
+                                max_batch=[4, 4, 4, 1], num_devices=n,
+                                certify=True)
+        launches = cg.coalesced_gemm.launches
+        j = rep.jit
+        assert rep.unfinished == 0 and launches > 0, (rep.unfinished,
+                                                      launches)
+        assert j.hazard_checks > 0 and j.hazard_violations == 0, \
+            (j.hazard_checks, j.hazard_violations)
+        assert (j.collective_time_s > 0) == (n > 1), j.collective_time_s
+        assert rep.num_devices == n
+        programs = _check_fleet_launches(eng, rep, cfgs, launches)
+        disp, coal = _per_device(eng, n)
+        cert_ms, _ = _certify_ms_per_dispatch(eng)
+        toks = rep.tokens_out
+        tokens[n] = {r.req_id: r.tokens_out for r in rep.requests}
+        say("serve-mesh", num_devices=n, wall_s=f"{wall:.3f}", tokens=toks,
+            tokens_per_s=f"{toks / wall:.2f}",
+            scheduler_dispatches=j.superkernels, launches=launches,
+            programs_per_tenant="/".join(map(str, programs.values())),
+            launches_per_program="/".join(
+                str(_gemms_a_layer(c) * c.num_layers + 1) for c in cfgs),
+            dispatches_per_device="/".join(map(str, disp)),
+            coalesced_per_device="/".join(map(str, coal)),
+            device_util="/".join(f"{u:.3f}" for u in rep.device_util),
+            device_skew=f"{rep.device_skew:.3f}",
+            placement=_placement(eng),
+            collective_us=f"{j.collective_time_s * 1e6:.3f}",
+            hazard_checks=j.hazard_checks,
+            hazard_violations=j.hazard_violations,
+            certify_host_ms_per_dispatch=f"{cert_ms:.4f}",
+            weight_hit_rate=f"{j.dispatch.weight_hit_rate:.4f}",
+            modeled_ms=f"{rep.modeled_time_s * 1e3:.3f}(H100 cost model)",
+            peak_alloc_GiB=f"{torch.cuda.max_memory_allocated() / GIB:.2f}")
+        out[n] = dict(wall_s=wall, tokens=toks, tokens_per_s=toks / wall,
+                      launches=launches, scheduler_dispatches=j.superkernels,
+                      programs_per_tenant=programs,
+                      dispatches_per_device=disp,
+                      coalesced_per_device=coal,
+                      device_util=rep.device_util,
+                      device_skew=rep.device_skew,
+                      placement=_placement(eng),
+                      collective_time_s=j.collective_time_s,
+                      hazard_checks=j.hazard_checks,
+                      hazard_violations=j.hazard_violations,
+                      certify_host_ms_per_dispatch=cert_ms)
+        del eng, rep
+        _free(torch)
+    assert tokens[1] == tokens[2], tokens
+    say("serve-mesh", tokens_1_vs_2_devices="identical",
+        requests=len(tokens[1]))
+    del tp
+    _free(torch)
+    out.update(plan=plan, layers={k: c.num_layers for k, c in cfg_of.items()})
+    return out
+
+
+def _check_tickets(tickets, rep):
+    """Every submitted request finished or shed, ticket streams equal to
+    the report's tokens, no tokens on a shed request."""
+    by_id = {r.req_id: r for r in rep.requests}
+    assert set(tickets) == set(by_id), (len(tickets), len(by_id))
+    for rid, tk in tickets.items():
+        r = by_id[rid]
+        assert r.shed or not math.isnan(r.finish_t), rid
+        if r.shed:
+            assert not tk.tokens and r.tokens_out is None, rid
+        else:
+            assert tk.tokens == r.tokens_out, rid
+    streamed = sum(len(tk.tokens) for tk in tickets.values())
+    assert streamed == rep.tokens_out, (streamed, rep.tokens_out)
+    return streamed
+
+
+def serve_daemon(torch, cg, eng, *, rate_hz, n_req, prompt_len, new_tokens,
+                 seed, stats_interval_s=1.0):
+    """The daemon's three runs on one engine (tenants t0, t1), each with
+    the counts set to 0 just before it and read just after:
+
+      1. a door preloaded with 8 scheduled requests on a ``VirtualClock``
+         against ``run()`` of the same trace (tokens and finish times
+         bitwise equal);
+      2. one request of the daemon's shape served alone (``run``): its
+         real seconds set the SLOs;
+      3. a ``MonotonicClock`` door fed by a thread: ``n_req`` live Poisson
+         submissions at ``rate_hz``, tiers 0/1/2 (p 0.5/0.3/0.2) with SLOs
+         1x/2x/4x the alone request's real seconds; the door closes after
+         the last one. Each request's submission instant on the door's
+         clock is recorded in the feeder, and each token's host instant in
+         the ticket callback beside the engine's stamp: real TTFT runs
+         from the submission, while the request's ``arrival_t`` is stamped
+         when the serving loop next polls the door.
+    """
+    import threading
+    import numpy as np
+    from repro_torch.serving import (FrontDoor, MonotonicClock,
+                                     ServeRequest, VirtualClock, make_trace)
+    out = {}
+    # 1. virtual clock against run(), at the real clock's rate: a denser
+    #    trace is overload to the controller's arrival forecast (it sheds
+    #    5 of 8 requests at 1e4 req/s)
+    trace = make_trace(["t0", "t1"], rate_hz=rate_hz, n_per_tenant=4,
+                       prompt_len=prompt_len, max_new_tokens=new_tokens,
+                       slo_s=1.0, seed=seed)
+    _reset_counts(cg)
+    rep_run = eng.run(trace, seed=seed)
+    launches_run = cg.coalesced_gemm.launches
+    door = FrontDoor()
+    for r in trace:
+        door.submit(ServeRequest(r.req_id, r.tenant, r.arrival_t,
+                                 r.prompt_len, r.max_new_tokens, r.slo_s),
+                    at=r.arrival_t)
+    door.close(at=max(r.arrival_t for r in trace))
+    _reset_counts(cg)
+    rep_door = eng.serve_forever(door, clock=VirtualClock(), seed=seed)
+    launches_door = cg.coalesced_gemm.launches
+    # repr: a shed request's finish time is nan, which equals nothing
+    want = {r.req_id: (r.tokens_out, repr(r.finish_t), r.shed)
+            for r in rep_run.requests}
+    got = {r.req_id: (r.tokens_out, repr(r.finish_t), r.shed)
+           for r in rep_door.requests}
+    assert got == want, (got, want)
+    assert rep_door.unfinished == 0 and rep_door.jit.hazard_violations == 0
+    say("serve-daemon", clock="virtual", requests=len(got),
+        tokens_and_finish_times_vs_run="bitwise_equal",
+        launches_run=launches_run, launches_door=launches_door,
+        shed=rep_door.shed, wall_s_run=f"{rep_run.wall_time_s:.3f}",
+        wall_s_door=f"{rep_door.wall_time_s:.3f}")
+    out["virtual"] = dict(requests=len(got), launches_run=launches_run,
+                          launches_door=launches_door)
+    # 2. one request alone
+    alone_req = ServeRequest(10_000, "t0", 0.0, prompt_len, new_tokens, 1e3)
+    _reset_counts(cg)
+    rep_alone = eng.run([alone_req], seed=seed)
+    alone_s = rep_alone.wall_time_s
+    cost_s = eng._request_cost_s(eng.tenants["t0"], alone_req)
+    lat_model = rep_alone.requests[0].latency
+    say("serve-daemon", alone_request=f"prompt {prompt_len}, "
+        f"{new_tokens} new tokens", real_s=f"{alone_s:.4f}",
+        modeled_cost_s=f"{cost_s:.6f}(admission's _request_cost_s)",
+        modeled_latency_s=f"{lat_model:.6f}(H100 cost model)",
+        real_over_modeled_cost=f"{alone_s / cost_s:.1f}",
+        launches=cg.coalesced_gemm.launches)
+    out["alone"] = dict(real_s=alone_s, modeled_cost_s=cost_s,
+                        modeled_latency_s=lat_model)
+    # 3. the real clock
+    slo = (1.0 * alone_s, 2.0 * alone_s, 4.0 * alone_s)
+    clock = MonotonicClock()
+    door = FrontDoor()
+    stamps = {}          # req_id -> [(engine stamp, host instant)]
+    tickets, submitted_at = {}, {}
+
+    def feeder():
+        rng = np.random.default_rng(seed)
+        t = 0.0
+        for i in range(n_req):
+            t += rng.exponential(1.0 / rate_hz)
+            pause = t - clock.now()
+            if pause > 0:
+                time.sleep(pause)
+            tier = int(rng.choice(3, p=[0.5, 0.3, 0.2]))
+            submitted_at[i] = clock.now()
+            tickets[i] = door.submit(
+                ServeRequest(i, ("t0", "t1")[i % 2], 0.0, prompt_len,
+                             new_tokens, slo_s=slo[tier], tier=tier),
+                on_token=lambda tok, ts, i=i: stamps.setdefault(
+                    i, []).append((ts, clock.now())))
+        door.close()
+
+    def heartbeat(stats):
+        say("serve-daemon", heartbeat=f"t={stats['t']:.2f}s",
+            submitted=stats["submitted"], finished=stats["finished"],
+            shed=stats["shed"], inflight=stats["inflight"],
+            waiting=stats["waiting"])
+
+    th = threading.Thread(target=feeder, daemon=True)
+    _reset_counts(cg)
+    th.start()
+    rep = eng.serve_forever(door, clock=clock, seed=seed, on_stats=heartbeat,
+                            stats_interval_s=stats_interval_s)
+    th.join(timeout=60)
+    assert not th.is_alive()
+    launches = cg.coalesced_gemm.launches
+    assert len(rep.requests) == n_req, len(rep.requests)
+    streamed = _check_tickets(tickets, rep)
+    not_shed_unfinished = rep.unfinished - rep.shed
+    assert not_shed_unfinished == 0, not_shed_unfinished
+    j = rep.jit
+    assert j.hazard_checks > 0 and j.hazard_violations == 0, \
+        (j.hazard_checks, j.hazard_violations)
+    by_id = {r.req_id: r for r in rep.requests}
+    # real TTFT from the submission; beside it the wait for the loop's
+    # poll, and TTFT from the poll-stamped arrival (host instant, engine
+    # stamp), which leaves that wait out
+    ttft, poll_wait, ttft_poll, ttft_model = [], [], [], []
+    gaps, gaps_model = [], []
+    for rid, st in stamps.items():
+        arr = by_id[rid].arrival_t
+        ttft.append(st[0][1] - submitted_at[rid])
+        poll_wait.append(arr - submitted_at[rid])
+        ttft_poll.append(st[0][1] - arr)
+        ttft_model.append(st[0][0] - arr)
+        gaps += [b[1] - a[1] for a, b in zip(st, st[1:])]
+        gaps_model += [b[0] - a[0] for a, b in zip(st, st[1:])]
+    assert min(poll_wait) >= 0.0, min(poll_wait)
+    q_ttft, q_wait, q_ttft_p, q_gap, q_ttft_m, q_gap_m = (
+        np.quantile(xs, [0.5, 0.99]) for xs in (
+            ttft, poll_wait, ttft_poll, gaps, ttft_model, gaps_model))
+    tiers = rep.tier_attainment()
+    say("serve-daemon", clock="monotonic", submitted=n_req,
+        rate_req_per_s=rate_hz, slo_s="/".join(f"{s:.3f}" for s in slo),
+        finished=len(rep.finished), shed=rep.shed,
+        unfinished=not_shed_unfinished,
+        degraded=sum(r.degraded_from is not None for r in rep.requests),
+        attainment=f"{rep.slo_attainment:.3f}",
+        tier_attainment=",".join(f"{k}:{v:.3f}" for k, v in tiers.items()),
+        goodput_rps=f"{rep.goodput_rps:.3f}", wall_s=f"{rep.wall_time_s:.3f}",
+        tokens_streamed=streamed, launches=launches,
+        hazard_checks=j.hazard_checks, hazard_violations=j.hazard_violations)
+    say("serve-daemon", real_ttft_p50_s=f"{q_ttft[0]:.4f}",
+        real_ttft_p99_s=f"{q_ttft[1]:.4f}",
+        poll_wait_p50_s=f"{q_wait[0]:.4f}",
+        poll_wait_p99_s=f"{q_wait[1]:.4f}",
+        ttft_from_poll_p50_s=f"{q_ttft_p[0]:.4f}",
+        ttft_from_poll_p99_s=f"{q_ttft_p[1]:.4f}",
+        real_per_token_p50_s=f"{q_gap[0]:.4f}",
+        real_per_token_p99_s=f"{q_gap[1]:.4f}",
+        engine_stamp_ttft_p50_s=f"{q_ttft_m[0]:.4f}",
+        engine_stamp_ttft_p99_s=f"{q_ttft_m[1]:.4f}",
+        engine_stamp_per_token_p50_s=f"{q_gap_m[0]:.4f}",
+        engine_stamp_per_token_p99_s=f"{q_gap_m[1]:.4f}",
+        alone_real_s=f"{alone_s:.4f}",
+        alone_modeled_cost_s=f"{cost_s:.6f}")
+    out["real"] = dict(
+        submitted=n_req, finished=len(rep.finished), shed=rep.shed,
+        attainment=rep.slo_attainment, tier_attainment=tiers,
+        goodput_rps=rep.goodput_rps, wall_s=rep.wall_time_s,
+        launches=launches, hazard_checks=j.hazard_checks,
+        ttft_p50_s=q_ttft[0], ttft_p99_s=q_ttft[1],
+        poll_wait_p50_s=q_wait[0], poll_wait_p99_s=q_wait[1],
+        ttft_from_poll_p50_s=q_ttft_p[0], ttft_from_poll_p99_s=q_ttft_p[1],
+        per_token_p50_s=q_gap[0], per_token_p99_s=q_gap[1],
+        engine_ttft_p50_s=q_ttft_m[0], engine_ttft_p99_s=q_ttft_m[1],
+        engine_per_token_p50_s=q_gap_m[0],
+        engine_per_token_p99_s=q_gap_m[1])
+    return out
+
+
+def phase_serve_daemon(torch, cg):
+    """Two tenants sharing one full-width yi-9b weight set (bf16, 48 layers
+    unless the card's free memory forces a cut, as serve-shared), served
+    by ``serve_forever`` with ``num_devices=2``, ``certify=True`` and
+    ``admission_control=True`` (``serve_daemon``)."""
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine, Tenant
+    db = 2
+    free, _ = torch.cuda.mem_get_info()
+    cfg48 = _full_yi(48)
+    p_layer, k_layer = _layer_bytes(cfg48, db)
+    emb = cfg48.padded_vocab * cfg48.d_model * db
+    margin = 6 * GIB
+    # one stacked pack set a device: each tenant is homed on its own
+    # device, and the weight cache keys every pack by device
+    L = min(48, int((free - margin - 4 * emb) // (p_layer + 2 * k_layer)))
+    if L < 48:
+        say("serve-daemon", depth_cut=f"48->{L}",
+            reason=f"free={free / GIB:.1f}GiB holds params+2 packs of "
+                   f"{L} layers only")
+    cfg = _full_yi(L)
+    m = Model(cfg, param_dtype=torch.bfloat16)
+    params = m.init(torch.Generator(device=m.device).manual_seed(1))
+    budget = int(free - margin - L * p_layer - 2 * emb)
+    eng = ServingEngine(
+        [Tenant(n, m, params, cache_len=48, max_batch=4)
+         for n in ("t0", "t1")], mode="vliw", num_devices=2, certify=True,
+        admission_control=True, weight_budget_bytes=budget,
+        plan_capacity=1024, device=m.device)
+    say("serve-daemon", layers=L, tenants=2, weights="shared",
+        num_devices=2, certify=True, admission=True,
+        param_GiB=f"{(L * p_layer + 2 * emb) / GIB:.2f}",
+        weight_budget_GiB=f"{budget / GIB:.2f}")
+    out = serve_daemon(torch, cg, eng, rate_hz=8.0, n_req=32,
+                       prompt_len=32, new_tokens=8, seed=5)
+    # the two tenants are homed on two devices
+    assert {pl.device for pl in eng.placement.assignments.values()} == \
+        {0, 1}, _placement(eng)
+    out.update(layers=L, placement=_placement(eng))
+    say("serve-daemon", placement=_placement(eng))
+    del eng, params, m
+    _free(torch)
+    return out
+
+
+def phase_serve_cli(torch):
+    """The daemon launcher as a user runs it, on the card: smoke configs,
+    bf16, 2 modelled devices, certified, admission on, 3 s."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--daemon",
+           "--duration", "3", "--num-devices", "2", "--certify",
+           "--admission", "--dtype", "bfloat16"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[-8:]:
+        print(f"    {line}", flush=True)
+    say("serve-cli", command=" ".join(cmd[1:]), rc=proc.returncode,
+        seconds=f"{secs:.1f}")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert any("violations=0" in line for line in lines), lines[-8:]
+    return dict(rc=proc.returncode, seconds=secs)
+
+
+# ---------------------------------------------------------------------------
 # 7-8. the matvec regime and windowed attention
 # ---------------------------------------------------------------------------
 
@@ -1516,6 +2010,9 @@ def main(argv=None) -> int:
                           timed)
     moe = timed_phase("serve-moe", phase_serve_moe, torch, cg, timed)
     ssm = timed_phase("serve-ssm", phase_serve_ssm, torch, cg, timed)
+    mesh = timed_phase("serve-mesh", phase_serve_mesh, torch, cg)
+    daemon = timed_phase("serve-daemon", phase_serve_daemon, torch, cg)
+    timed_phase("serve-cli", phase_serve_cli, torch)
     cpu = timed_phase("card-vs-cpu", phase_card_vs_cpu, torch, cg)
     cpu_nondense = timed_phase("card-vs-cpu (moe, ssm)",
                                phase_card_vs_cpu_nondense, torch, cg)
@@ -1550,6 +2047,12 @@ def main(argv=None) -> int:
                                    ("card-vs-cpu", cpu))
                 for _, regime in REGIMES}
     by_phase.update({f"card-vs-cpu {k}": n for k, n in cpu_nondense.items()})
+    by_phase.update({f"serve-mesh (stacked, {n} device{'s' * (n > 1)})":
+                     mesh[n]["launches"] for n in (1, 2)})
+    by_phase.update({
+        "serve-daemon (run)": daemon["virtual"]["launches_run"],
+        "serve-daemon (virtual clock)": daemon["virtual"]["launches_door"],
+        "serve-daemon (real clock)": daemon["real"]["launches"]})
     by_phase["rnn-matvec (shared)"] = rnn["shared"]["gemm"]
     kernels = [
         entry("coalesced_gemm", "src/repro/kernels/coalesced_gemm.py:43",

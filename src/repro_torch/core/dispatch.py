@@ -216,7 +216,8 @@ class SuperkernelExecutor:
     # ------------------------------------------------------------------
     def _packed_weights(self, weights: Sequence[torch.Tensor],
                         wkeys: Sequence[Tuple], K: int, N: int, G_pad: int,
-                        *, shared: bool, group=None) -> torch.Tensor:
+                        *, shared: bool, group=None,
+                        device: int = 0) -> torch.Tensor:
         """The group's padded weight operand — [K, N] (shared) or
         [G_pad, K, N] (stacked) — from the persistent cache.
 
@@ -227,9 +228,13 @@ class SuperkernelExecutor:
         by ``group`` — a params-free identity of the logical dispatch slot —
         whose key change drops the superseded entry at once. Both paths
         count in ``weight_invalidations``. On a hit, the bytes of the packed
-        operand are counted as traffic NOT re-staged this tick."""
+        operand are counted as traffic NOT re-staged this tick.
+
+        ``device`` (the mesh slot) is part of the key: the per-device op
+        pools share one executor, and a pack modelled as resident on one
+        device must not serve another's dispatch."""
         key = ("wpack", "shared" if shared else "stacked",
-               tuple(wkeys), K, N, G_pad, str(weights[0].dtype))
+               tuple(wkeys), K, N, G_pad, str(weights[0].dtype), device)
 
         def build() -> torch.Tensor:
             # the kernel takes contiguous operands only; F.pad returns a
@@ -263,7 +268,7 @@ class SuperkernelExecutor:
     # ------------------------------------------------------------------
     def stacked_operand(self, wkey: Tuple, k: int, n: int, layers: int,
                         weight_fn, guard: Sequence[torch.Tensor], *,
-                        group=None) -> torch.Tensor:
+                        group=None, device: int = 0) -> torch.Tensor:
         """One LAYER-STACKED weight operand, [layers, K, N] padded to the
         bucketed (K, N) envelope, from the persistent cache.
 
@@ -276,12 +281,12 @@ class SuperkernelExecutor:
         slice every tick would read as a hot-swap and repack the whole
         stack). A real hot-swap puts a new ``id(params)`` in ``wkey``;
         ``group`` (params-free slot identity) drops the superseded entry,
-        as in ``_packed_weights``. The port serves one device, so the key
-        has no device id."""
+        as in ``_packed_weights``, and keyed by the mesh slot ``device`` as
+        it is."""
         K = envelope_bucket(int(k))
         N = envelope_bucket(int(n))
         key = ("wstack", wkey, int(layers), K, N,
-               str(guard[0].dtype) if guard else "")
+               str(guard[0].dtype) if guard else "", device)
 
         def build() -> torch.Tensor:
             w = weight_fn()
@@ -293,8 +298,10 @@ class SuperkernelExecutor:
 
     # ------------------------------------------------------------------
     def execute(self, ops: Sequence[KernelOp], *,
-                shared_operand: bool = False) -> List[torch.Tensor]:
-        """Execute a planned group; returns per-problem outputs in op order.
+                shared_operand: bool = False,
+                device: int = 0) -> List[torch.Tensor]:
+        """Execute a planned group on mesh slot ``device``; returns
+        per-problem outputs in op order.
 
         Each op carries its operand binding (``op.payload`` =
         (activation, weight, weight_key), attached by
@@ -319,18 +326,18 @@ class SuperkernelExecutor:
                     f"tensors: key {wkeys[0]} vs {wkeys[bad]}",
                     detail={"keys": (wkeys[0], wkeys[bad])})
         group = (tuple((ops[i].stream_id, ops[i].tag, ops[i].seq_index)
-                       for i in order), shared_operand)
+                       for i in order), shared_operand, device)
         canon = self.execute_problems(problems, wkeys,
                                       shared_operand=shared_operand,
-                                      group=group)
+                                      group=group, device=device)
         outs: List[Optional[torch.Tensor]] = [None] * len(ops)
         for pos, i in enumerate(order):
             outs[i] = canon[pos]
         return outs
 
     def execute_problems(self, problems, wkeys, *,
-                         shared_operand: bool = False, group=None
-                         ) -> List[torch.Tensor]:
+                         shared_operand: bool = False, group=None,
+                         device: int = 0) -> List[torch.Tensor]:
         bm = self.bm
         acts = tuple(a for a, _ in problems)
         ws = [w for _, w in problems]
@@ -343,16 +350,16 @@ class SuperkernelExecutor:
         if G_pad > G:
             pad = torch.zeros_like(min(acts, key=lambda a: int(a.shape[0])))
             acts = acts + (pad,) * (G_pad - G)
-        device = acts[0].device
+        on = acts[0].device
         if shared_operand:
             w = ws[0]
             K = envelope_bucket(int(w.shape[0]))
             N = envelope_bucket(int(w.shape[1]))
             m_tiles = _tile_bucket([sum(int(a.shape[0]) for a in acts)], bm)
             b = self._packed_weights([w], [wkeys[0]], K, N, 1, shared=True,
-                                     group=group)
+                                     group=group, device=device)
             outs = _dispatch_shared(acts, b,
-                                    self.group_ids((0,) * m_tiles, device),
+                                    self.group_ids((0,) * m_tiles, on),
                                     n_real=int(w.shape[1]), m_tiles=m_tiles,
                                     bm=bm)
         else:
@@ -360,7 +367,7 @@ class SuperkernelExecutor:
             N = envelope_bucket(max(int(w.shape[1]) for w in ws))
             m_tiles = _tile_bucket([int(a.shape[0]) for a in acts], bm)
             b = self._packed_weights(ws, wkeys, K, N, G_pad, shared=False,
-                                     group=group)
+                                     group=group, device=device)
             n_real = [int(w.shape[1]) for w in ws]
             n_real += [n_real[0]] * (G_pad - G)
             gids = []
@@ -371,7 +378,7 @@ class SuperkernelExecutor:
                             * (_round_up(int(a.shape[0]), bm) // bm))
             gids.extend([0] * (m_tiles - len(gids)))  # pad tiles: group 0
             outs = _dispatch_grouped(
-                acts, b, self.group_ids(tuple(gids), device),
+                acts, b, self.group_ids(tuple(gids), on),
                 n_real=tuple(n_real), m_tiles=m_tiles, bm=bm)
         self.stats.retraces += build_count() - builds0
         return list(outs[:G])

@@ -24,6 +24,16 @@ flow into per-op ``latest_start_t``. ``VLIWJit.run`` is the closed-world
 wrapper. Program templates and block plans live in persistent plan caches
 owned by the ``VLIWJit``; packed weights live in the executor's cache.
 
+A session drives ONE device of the modelled mesh (``device``, its own
+``cost``): its scheduler and coalescer own that device's op pool, and the
+shared block-plan memo and packed-weight cache key every entry with the
+device id. ``record_trace=True`` (or a ``trace`` shared by the sessions of
+a mesh) records a ``ScheduleTrace`` for the schedule certifier
+(``analysis/certify.py``): program admissions, waits and one
+``DispatchRecord`` per superkernel, appended before it executes. A stream
+whose MoE experts span several devices (``set_stream_span``) pays the
+modelled all-to-all on every expert trio it dispatches.
+
 KV-cache updates are functional: every epilogue returns NEW cache tensors
 and leaves the bound ones as they were. The serving engine binds
 ``tenant.cache`` into programs and relies on that.
@@ -71,14 +81,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.clustering import (is_expert_op, shared_weight_key,
+from repro_torch.core.clustering import (is_expert_op, op_weight_identity,
+                                         op_weight_key, shared_weight_key,
                                          weight_key)
 from repro_torch.core.coalescer import Coalescer
 from repro_torch.core.costmodel import CostModel, GemmShape, H100
 from repro_torch.core.dispatch import (DispatchStats, SuperkernelExecutor,
                                        _pad_rows_cols, _tile_bucket)
-from repro_torch.core.kernelspec import make_op, op_aspect
+from repro_torch.core.kernelspec import KernelOp, make_op, op_aspect
 from repro_torch.core.plancache import PlanCache, PlanCacheStats
+from repro_torch.core.schedtrace import (DispatchRecord, OpRecord,
+                                         ProgramAdmit, ScheduleTrace)
 from repro_torch.core.scheduler import OoOScheduler, SchedulerConfig
 from repro_torch.kernels.build import build_count
 from repro_torch.kernels.coalesced_gemm import coalesced_gemm
@@ -223,6 +236,9 @@ class KernelProgram:
     req_deadlines: Tuple = ()
     # KV-cache rows this program writes, as ("kv", owner, slot) resources
     kv_writes: Tuple = ()
+    # the mesh device this program's ops run on, stamped at admission by
+    # the session that drives that device's timeline
+    device: int = 0
     uid: int = dataclasses.field(
         default_factory=lambda: next(_PROG_UIDS), compare=False)
     _gemm_suffix: Optional[List[float]] = dataclasses.field(
@@ -552,9 +568,13 @@ def _gqa_decode_attend(cfg: ModelConfig, B: int, q_flat, k_flat, v_flat,
     rows = torch.arange(B, device=kc.device)
     kc = kc.clone()
     vc = vc.clone()
-    kc[rows, :, pos] = k[:, 0].to(kc.dtype)
-    vc[rows, :, pos] = v[:, 0].to(vc.dtype)
     S = kc.shape[2]
+    # the JAX package's dynamic_update_slice clamps the write into the
+    # cache: an idle slot, whose position keeps advancing while the
+    # tenant decodes, writes its last entry instead of raising
+    wpos = pos.clamp(max=S - 1)
+    kc[rows, :, wpos] = k[:, 0].to(kc.dtype)
+    vc[rows, :, wpos] = v[:, 0].to(vc.dtype)
     G = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(B, 1, cfg.num_kv_heads, G, hd)
     scores = torch.einsum("bshgd,bhtd->bhgst", qg.float(), kc.float())
@@ -1294,6 +1314,14 @@ class JitStats:
         default_factory=PlanCacheStats)
     # dispatch fast-path deltas (core/dispatch.py)
     dispatch: DispatchStats = dataclasses.field(default_factory=DispatchStats)
+    # schedule-certifier counters (``ServingEngine(certify=True)``):
+    # legality checks run and violations observed; a clean pass needs
+    # checks > 0 as well as violations == 0
+    hazard_checks: int = 0
+    hazard_violations: int = 0
+    # modelled cross-device collective seconds charged (the all-to-all of
+    # MoE tenants whose experts span the mesh)
+    collective_time_s: float = 0.0
     # dispatched groups that actually coalesced (>1 op)
     coalesced_groups: int = 0
 
@@ -1328,16 +1356,37 @@ Arrival = Tuple[float, Union[KernelProgram, Callable[[], KernelProgram]]]
 
 
 class JitSession:
-    """A live, admission-open run of the VLIW JIT on one device: the
-    scheduler, live-op pool and stats persist across calls, and the caller
-    admits programs between superkernel dispatches and advances the virtual
-    clock one scheduler decision (``tick``) at a time."""
+    """A live, admission-open run of the VLIW JIT on one device of the
+    modelled mesh: the scheduler, live-op pool and stats persist across
+    calls, and the caller admits programs between superkernel dispatches
+    and advances the device's virtual clock one scheduler decision
+    (``tick``) at a time."""
 
-    def __init__(self, jit: "VLIWJit"):
+    def __init__(self, jit: "VLIWJit", record_trace: bool = False, *,
+                 device: int = 0, cost: Optional[CostModel] = None,
+                 trace: Optional[ScheduleTrace] = None):
         self.jit = jit
         self.stats = JitStats()
-        self.cost = jit.cost
-        self.sched = OoOScheduler(self.cost, jit.coalescer, jit.sched_cfg)
+        # one session drives ONE device's timeline. Device 0 on the jit's
+        # cost model is the single-device setup and reuses the jit's
+        # coalescer; any other device plans with its own cost model and
+        # keys the shared block-plan memo with its id
+        self.device = device
+        self.cost = cost if cost is not None else jit.cost
+        if device == 0 and cost is None:
+            coalescer = jit.coalescer
+        else:
+            coalescer = Coalescer(self.cost, max_group=jit.max_group,
+                                  memo=jit.block_plans, device_id=device)
+        self.sched = OoOScheduler(self.cost, coalescer, jit.sched_cfg,
+                                  device=device)
+        # expert-parallel span per stream: a stream whose MoE experts span
+        # more than one device pays the all-to-all on every expert trio
+        self.stream_span: Dict[int, int] = {}
+        # the certifier's audit log (None: record nothing). A mesh shares
+        # one trace across its per-device sessions
+        self.trace: Optional[ScheduleTrace] = trace if trace is not None \
+            else (ScheduleTrace() if record_trace else None)
         # pending GEMM or layer body per program: op_id -> (program, stage)
         self.live: Dict[int, Tuple[KernelProgram,
                                    Union[GemmStage, StackedGemmStage]]] = {}
@@ -1362,15 +1411,39 @@ class JitSession:
         """Tell the scheduler when the next admission is coming."""
         self.sched.next_arrival_t = t
 
+    def set_stream_span(self, stream_id: int, span: int) -> None:
+        """Declare a stream's expert-parallel device span (the placement
+        policy's ``TenantPlacement.expert_span``). A span > 1 charges the
+        all-to-all on every expert trio the stream declares from now on."""
+        self.stream_span[stream_id] = span
+
     def admit(self, prog: KernelProgram) -> None:
         """Add a program to the live pool (legal at any point in time)."""
         if self.live and self._started:
             self.stats.mid_flight_admissions += 1
+        prog.device = self.device     # placement binds at admission
+        if self.trace is not None:
+            self.trace.prog_admits.append(ProgramAdmit(
+                prog_uid=prog.uid, stream=prog.stream_id, kind=prog.kind,
+                req_ids=tuple(r for r, _ in prog.req_deadlines),
+                kv_writes=tuple(prog.kv_writes), device=self.device))
         st = prog.advance_glue()
         if st is None:            # pure-glue program: completes immediately
             self._done.append(prog)
             return
         self._push_op(prog, st)
+
+    def _expert_collective_s(self, stream_id: int, m: int, k: int,
+                             layers: int = 1, dtype_bytes: int = 2) -> float:
+        """All-to-all charge for one expert trio of a device-spanning MoE
+        stream: dispatch scatters the [m, k] expert activations to the
+        shards, combine gathers them back, 2·m·k bytes a layer. Charged
+        once a trio (on its gate GEMM); local streams pay nothing."""
+        span = self.stream_span.get(stream_id, 1)
+        if span <= 1:
+            return 0.0
+        return self.cost.all_to_all_time(
+            2.0 * layers * m * k * dtype_bytes, span)
 
     def _push_op(self, prog: KernelProgram, st: Stage) -> None:
         if isinstance(st, StackedGemmStage):
@@ -1389,12 +1462,18 @@ class JitSession:
         # operand bindings ride on the op (declarative dispatch payload)
         op.payload = (a, w, st.weight_key)
         op.prog_uid = prog.uid
+        op.device = self.device
+        if st.tag == "expert_gate":
+            op.collective_s = self._expert_collective_s(
+                prog.stream_id, op.shape.m, op.shape.k)
         op.req_deadlines = prog.req_deadlines
         if math.isfinite(op.deadline_t):
             # EDF anchor = deadline minus the program's remaining critical
-            # path, so upstream stages inherit the urgency of the whole step
+            # path (and any collective), so upstream stages inherit the
+            # urgency of the whole step
             op.latest_start_t = op.deadline_t \
-                - prog.remaining_gemm_time(self.cost, prog.pc)
+                - prog.remaining_gemm_time(self.cost, prog.pc) \
+                - op.collective_s
         self.live[op.op_id] = (prog, st)
         self.sched.push([op])
 
@@ -1419,12 +1498,39 @@ class JitSession:
                       tuple(t for od in st.operands for t in od.guard),
                       st.weight_key)
         op.prog_uid = prog.uid
+        op.device = self.device
+        # expert-parallel collective: charged on the body's first
+        # expert_gate operand, one dispatch + combine a layer of the trio
+        for od in st.operands:
+            if od.tag == "expert_gate":
+                op.collective_s = self._expert_collective_s(
+                    prog.stream_id, od.shape.m, od.shape.k,
+                    layers=od.shape.layers,
+                    dtype_bytes=od.shape.dtype_bytes)
+                break
         op.req_deadlines = prog.req_deadlines
         if math.isfinite(op.deadline_t):
             op.latest_start_t = op.deadline_t \
-                - prog.remaining_gemm_time(self.cost, prog.pc)
+                - prog.remaining_gemm_time(self.cost, prog.pc) \
+                - op.collective_s
         self.live[op.op_id] = (prog, st)
         self.sched.push([op])
+
+    def _op_record(self, op: KernelOp) -> OpRecord:
+        """Snapshot one live op for the dispatch trace. Env writes come
+        from the stage's declared ``writes``; an undeclared stage aliases
+        everything (``("*",)``), qualified by the env's identity so two
+        tenants' private envs never read as one resource."""
+        prog, st = self.live[op.op_id]
+        writes = getattr(st, "writes", None)
+        return OpRecord(
+            op_id=op.op_id, stream=op.stream_id, prog_uid=op.prog_uid,
+            tag=op.tag, seq=op.seq_index, op_kind=op.op_kind,
+            deadline_t=op.deadline_t, latest_start_t=op.latest_start_t,
+            weight_key=op_weight_key(op), weight_id=op_weight_identity(op),
+            kv_writes=tuple(prog.kv_writes),
+            env_writes=tuple(writes) if writes is not None else ("*",),
+            env_id=id(prog.env), device=op.device)
 
     def _run_stacked(self, ops, completed: List[KernelProgram]) -> None:
         """Dispatch a coalesced group of layer-body ops: fetch each op's
@@ -1445,7 +1551,7 @@ class JitSession:
                     + od.weight_key[2:]
                 padded[od.tag] = ex.stacked_operand(
                     od.weight_key, od.shape.k, od.shape.n, od.shape.layers,
-                    od.weight_fn, od.guard, group=group)
+                    od.weight_fn, od.guard, group=group, device=op.device)
             missed = ex.stats.weight_misses > m0
             ex.stats.weight_hits, ex.stats.weight_misses = h0, m0
             if missed:
@@ -1481,30 +1587,43 @@ class JitSession:
         self._sync_cache_stats()
         if decision.kind == "wait":
             self.stats.waits += 1
+            if self.trace is not None:
+                self.trace.waits.append(decision.wait_until)
             return TickEvent("wait", decision.wait_until, completed=completed)
         assert decision.kind == "dispatch" and decision.plan
         plan = decision.plan
         # a group whose ops all carry ONE weight key loads the weights once
         shared = shared_weight_key(plan.ops) is not None
         stacked = plan.ops[0].stack is not None
+        if self.trace is not None:
+            # recorded BEFORE execution: a dispatch that raises still
+            # leaves the offending group on the trace
+            self.trace.dispatches.append(DispatchRecord(
+                t=now, shared_operand=shared, device=self.device,
+                ops=tuple(self._op_record(op) for op in plan.ops)))
+        # one all-to-all covers the group (a per-layer exchange, not per
+        # member): charge the max, as Coalescer.plan does for est_time_s
+        coll = max((op.collective_s for op in plan.ops), default=0.0)
         if stacked:
             # coalesce_key keeps stacked and plain ops in disjoint buckets;
             # the bodies run after the stats below (_run_stacked)
             assert all(op.stack is not None for op in plan.ops)
             serial_shapes = [s for op in plan.ops for _, s in op.stack]
-            t = plan.est_time_s
+            t = plan.est_time_s          # already includes the collective
         else:
             outs = self.jit.executor.execute(plan.ops,
-                                             shared_operand=shared)
+                                             shared_operand=shared,
+                                             device=self.device)
             serial_shapes = [o.shape for o in plan.ops]
             t = self.cost.coalesced_time(serial_shapes, plan.block,
-                                         shared_operand=shared)
+                                         shared_operand=shared) + coll
         stats = self.stats
         stats.superkernels += 1
         stats.ops_executed += len(plan.ops)
         stats.groups.add(len(plan.ops))
         stats.padding_waste.add(plan.padding_waste)
         stats.shared_dispatches += int(shared)
+        stats.collective_time_s += coll
         stats.coalesced_groups += int(len(plan.ops) > 1)
         if len({op.stream_id for op in plan.ops}) > 1:
             if any(op.op_kind == "prefill" for op in plan.ops):
@@ -1513,7 +1632,7 @@ class JitSession:
                 stats.expert_coalesced += 1
         stats.modeled_time_s += t
         stats.modeled_serial_time_s += self.cost.time_multiplexed(
-            serial_shapes, plan.block)
+            serial_shapes, plan.block) + coll
         if stacked:
             self._run_stacked(plan.ops, completed)
         else:
@@ -1557,9 +1676,16 @@ class VLIWJit:
                                       byte_capacity=weight_budget_bytes)
         self.executor = SuperkernelExecutor(self.weight_cache, bm=bm)
 
-    def session(self) -> JitSession:
-        """Open an admission-open event-loop session (engine entry point)."""
-        return JitSession(self)
+    def session(self, record_trace: bool = False, *, device: int = 0,
+                cost: Optional[CostModel] = None,
+                trace: Optional[ScheduleTrace] = None) -> JitSession:
+        """Open an admission-open event-loop session (engine entry point).
+        ``record_trace=True`` keeps a ``ScheduleTrace`` for the schedule
+        certifier; a mesh opens one session per device (``device``,
+        ``cost``), all sharing this JIT's caches and optionally one
+        ``trace``."""
+        return JitSession(self, record_trace=record_trace, device=device,
+                          cost=cost, trace=trace)
 
     def run(self, programs: Sequence[KernelProgram],
             arrivals: Optional[Sequence[Arrival]] = None,

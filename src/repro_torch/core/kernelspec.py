@@ -77,7 +77,7 @@ class KernelOp:
     # JitSession._push_op from KernelProgram.uid; 0 for raw op streams).
     # seq_index alone cannot express program order across a stream's
     # successive step programs — the schedule certifier
-    # (analysis.certify, not ported yet) needs (prog_uid, seq) to verify
+    # (analysis/certify.py) needs (prog_uid, seq) to verify
     # that ops of one program ran in order AND that two programs of one
     # stream never interleaved.
     prog_uid: int = dataclasses.field(default=0, compare=False)

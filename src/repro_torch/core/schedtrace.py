@@ -3,8 +3,8 @@
 This module is the dependency-free data layer shared by the runtime
 (``JitSession`` records a ``ScheduleTrace``; ``SuperkernelExecutor`` raises
 ``OperandIdentityHazard`` on a bad shared-operand dispatch) and the static
-analyses (the schedule certifier, ``analysis.certify``, not ported yet,
-replays a trace and re-derives the legality of every OoO decision). It lives in ``core`` — below both — so
+analyses (``analysis/certify.py`` replays a trace and re-derives the
+legality of every OoO decision). It lives in ``core`` — below both — so
 neither layer imports the other.
 
 A ``ScheduleTrace`` is the OoO JIT's audit log: program admissions,
@@ -15,7 +15,7 @@ construction — tuples of ids, keys and floats, never arrays — so recording
 it per tick costs O(group size) appends.
 
 Hazard classes (the certifier's rejection taxonomy; see
-``analysis`` in the JAX package for the full discussion):
+``analysis/__init__.py`` for the full discussion):
 
   * ``ProgramOrderHazard``   — per-stream program order broken: an op ran
     before its predecessor in the same program, or two ops of one stream

@@ -89,8 +89,14 @@ def attention_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
     rows = torch.arange(B, device=x.device)
     k_cache = k_cache.clone()
     v_cache = v_cache.clone()
-    k_cache[rows, :, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, :, pos] = v[:, 0].to(v_cache.dtype)
+    # a row whose position is past the cache (an idle slot that kept
+    # advancing) writes nothing, as the JAX package's mask-select does
+    wpos = pos.clamp(max=S - 1)
+    keep = (pos < S)[:, None, None]
+    k_cache[rows, :, wpos] = torch.where(
+        keep, k[:, 0].to(k_cache.dtype), k_cache[rows, :, wpos])
+    v_cache[rows, :, wpos] = torch.where(
+        keep, v[:, 0].to(v_cache.dtype), v_cache[rows, :, wpos])
     q = q.reshape(B, 1, num_kv_heads, G, head_dim)
     scores = torch.einsum("bshgd,bhtd->bhgst", q.to(k_cache.dtype), k_cache)
     scores = scores.float() / math.sqrt(head_dim)

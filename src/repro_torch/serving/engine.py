@@ -1,8 +1,8 @@
 """Multi-tenant serving engine: event-driven OoO serving with live admission.
 
-The counterpart of the JAX package's ``serving/engine.py`` for one device
-and dense, MoE and SSM tenants. Three execution modes, mirroring the
-paper's comparison end to end:
+The counterpart of the JAX package's ``serving/engine.py`` for dense, MoE
+and SSM tenants. Three execution modes, mirroring the paper's comparison
+end to end:
 
   * "time"    — each request decodes alone, requests strictly serialized
                 (time-multiplexing, §4.1);
@@ -62,12 +62,50 @@ Tenants compile to layer-stacked templates by default
 in the JAX package); ``stacked_layers=False`` serves the per-layer
 emission, the bitwise oracle. Both give the same tokens.
 
+The modelled mesh (``num_devices`` or an explicit ``DeviceSet``): each
+tenant binds to a home device at its FIRST admission
+(``distributed/placement.py``) and every op it declares runs on that
+device's own virtual timeline — one ``JitSession`` per device, all sharing
+one ``VLIWJit``'s plan and weight caches (keyed with the device id). Ops
+never coalesce across devices. An MoE tenant whose expert count the mesh
+size divides spans the mesh with its experts and pays a modelled
+all-to-all on every expert trio. The devices are virtual timelines: their
+kernels all run on the one card the engine serves on, so tokens are
+identical at every mesh size.
+
+``certify=True`` records one ``ScheduleTrace`` across the mesh and runs
+the schedule certifier (``analysis/certify.py``) on every tick's
+dispatches and, at the end, the request conservation check; a
+``HazardViolation`` raises at the offending dispatch. The trace stays on
+``last_trace``.
+
+The front door: ``run`` replays a finite trace in virtual time;
+``serve_forever(door)`` serves a ``FrontDoor`` (``serving/frontdoor.py``)
+through the SAME per-device event-loop machinery until the door closes,
+streaming each token through ``token_sink(req, tok, t)`` (the door's
+per-request ``Ticket``) at its retire time ``t`` on the device timeline.
+Emitting a token reads the argmax on the host, which is also where the
+host waits for the card. With a ``MonotonicClock`` (the default) each
+device timeline is floored at real elapsed time every iteration, so
+arrival stamps, SLO deadlines and modelled charges share one axis; a
+``VirtualClock`` follows the modelled timelines instead, and a door
+preloaded with a scheduled trace replays exactly like ``run`` at every
+mesh size (each device looks ahead only to the door's submissions that
+can land on it; the JAX package's daemon looks ahead fleet-wide).
+
+Admission control (``admission_control=True`` or an explicit
+``AdmissionController``): when a request becomes due, the controller
+admits it, degrades it down the SLO tier ladder, or sheds it, from the
+modelled request cost (``_request_cost_s``) against the device's
+committed backlog and the arrival forecast. Shed requests never take a
+slot and count as SLO misses.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item
 when asked for; the keywords are accepted with the JAX package's defaults):
-the schedule certifier (``certify``), admission control (``admission_control``,
-``admission``), the real-clock front door (``serve_forever``,
-``token_sink``), the modelled mesh (``num_devices > 1``, ``devices``) and
-live tuning (``live_tune``, ``tune_objective``).
+live tuning (``live_tune``, ``tune_objective``). The JAX package's
+monolithic fallback for tenants without a KernelProgram (hybrid, audio,
+int8 KV) has no counterpart: those models are item 12 and refuse to be
+made.
 """
 from __future__ import annotations
 
@@ -81,8 +119,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.analysis.certify import ScheduleCertifier, check_conservation
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.costmodel import CostModel, H100
+from repro_torch.core.dispatch import DispatchStats
 from repro_torch.core.jit import (JitStats, KernelProgram, VLIWJit,
                                   build_dense_decode_template,
                                   build_dense_prefill_template,
@@ -93,8 +133,13 @@ from repro_torch.core.jit import (JitStats, KernelProgram, VLIWJit,
                                   prefill_program_cache_key,
                                   ssm_program_cache_key)
 from repro_torch.core.kernelspec import gemm_population
+from repro_torch.core.plancache import PlanCacheStats
+from repro_torch.core.schedtrace import ScheduleTrace
 from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.distributed.placement import DeviceSet, PlacementPolicy
 from repro_torch.models.model import Model
+from repro_torch.serving.admission import AdmissionController
+from repro_torch.serving.frontdoor import FrontDoor, MonotonicClock
 from repro_torch.serving.workload import ServeRequest
 
 PromptFn = Callable[["Tenant", ServeRequest], torch.Tensor]
@@ -129,6 +174,28 @@ class ServeReport:
     modeled_time_s: float
     wall_time_s: float
     jit: Optional[JitStats] = None
+    # vliw runs only (None otherwise): index d = mesh slot d
+    device_time_s: Optional[List[float]] = None   # final per-device clock
+    device_busy_s: Optional[List[float]] = None   # modelled busy time
+
+    @property
+    def num_devices(self) -> int:
+        return len(self.device_time_s) if self.device_time_s else 1
+
+    @property
+    def device_util(self) -> List[float]:
+        """Per-device busy fraction of the fleet makespan."""
+        if not self.device_busy_s or not self.modeled_time_s:
+            return []
+        return [b / self.modeled_time_s for b in self.device_busy_s]
+
+    @property
+    def device_skew(self) -> float:
+        """max/mean per-device busy time; 1.0 = perfectly balanced."""
+        if not self.device_busy_s:
+            return 1.0
+        mean = sum(self.device_busy_s) / len(self.device_busy_s)
+        return max(self.device_busy_s) / mean if mean > 0 else 1.0
 
     @property
     def finished(self) -> List[ServeRequest]:
@@ -136,15 +203,41 @@ class ServeReport:
 
     @property
     def unfinished(self) -> int:
-        """Requests that never finished (stalled / unadmittable)."""
+        """Requests that never finished (shed / stalled / unadmittable)."""
         return len(self.requests) - len(self.finished)
+
+    @property
+    def shed(self) -> int:
+        """Requests the front door refused at admission (a subset of
+        ``unfinished``; they count as SLO misses)."""
+        return sum(1 for r in self.requests if r.shed)
 
     @property
     def slo_attainment(self) -> float:
         """Fraction of ALL requests that finished within their SLO
-        (unfinished requests count as misses)."""
+        (shed and unfinished requests count as misses)."""
         n = len(self.requests)
         return sum(r.met_slo for r in self.requests) / max(n, 1)
+
+    def tier_attainment(self, original: bool = True) -> Dict[int, float]:
+        """Per-tier SLO attainment (shed/unfinished count as misses).
+        ``original=True`` groups a degraded request under the tier it
+        arrived with; ``original=False`` under the tier it was served at."""
+        def tier_of(r: ServeRequest) -> int:
+            if original and r.degraded_from is not None:
+                return r.degraded_from
+            return r.tier
+        out: Dict[int, List[ServeRequest]] = {}
+        for r in self.requests:
+            out.setdefault(tier_of(r), []).append(r)
+        return {tier: sum(r.met_slo for r in grp) / len(grp)
+                for tier, grp in sorted(out.items())}
+
+    @property
+    def goodput_rps(self) -> float:
+        """SLO-met completions per modelled second."""
+        met = sum(r.met_slo for r in self.requests)
+        return met / self.modeled_time_s if self.modeled_time_s else 0.0
 
     @property
     def mean_latency(self) -> float:
@@ -206,6 +299,10 @@ class ArrivalPredictor:
         self._last.clear()
         self._gap.clear()
 
+    def gap(self, tenant: str) -> float:
+        """The tenant's current EWMA inter-arrival gap (inf if unseen)."""
+        return self._gap.get(tenant, math.inf)
+
     def predict(self, now: float) -> float:
         est = math.inf
         for tenant, gap in self._gap.items():
@@ -214,6 +311,30 @@ class ArrivalPredictor:
                 t_hat = now + gap
             est = min(est, t_hat)
         return est
+
+
+@dataclasses.dataclass
+class _LoopState:
+    """Mutable state of one event-loop epoch — a ``run`` replay or an open
+    ``serve_forever`` door session — so both loops drive the identical
+    per-device machinery; only the outer termination policy differs."""
+    sessions: List[Any]
+    trace: Optional[ScheduleTrace]
+    cert: Optional[ScheduleCertifier]
+    stream_ids: Dict[str, int]
+    id2name: Dict[int, str]
+    tenant_dev: Dict[str, int]
+    queues: List[List[ServeRequest]]     # per-device admission queues
+    pis: List[int]
+    waiting: List[List[ServeRequest]]
+    inflight: Dict[str, Any]
+    now: List[float]                     # per-device virtual clocks
+    busy: List[float]                    # analytic charges per device
+    committed: List[float]               # admission-committed horizon
+    certified: int = 0                   # dispatch records already certified
+    n_done: int = 0
+    total: int = 0
+    next_hint: Optional[Any] = None      # daemon: door's scheduled lookahead
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -242,15 +363,6 @@ class ServingEngine:
                  prompt_fn: Optional[PromptFn] = None,
                  device: DeviceLike = None):
         assert mode in ("time", "batched", "vliw")
-        if certify:
-            raise _not_ported("certify=True (the schedule certifier)", "11")
-        if admission_control or admission is not None:
-            raise _not_ported("admission control", "10")
-        if token_sink is not None:
-            raise _not_ported("token_sink (the front door's token stream)",
-                              "10")
-        if num_devices != 1 or devices is not None:
-            raise _not_ported("the multi-device mesh", "9")
         if live_tune or tune_objective != "collaborative":
             raise _not_ported("live tuning", "14")
         self.tenants = {t.name: t for t in tenants}
@@ -264,6 +376,11 @@ class ServingEngine:
                                  f"{t.model.device}, the engine serves "
                                  f"{self.device}")
         self.mode = mode
+        # certify=True records a ScheduleTrace and certifies every tick's
+        # dispatches (and the run's request conservation); the last run's
+        # trace stays on ``last_trace``
+        self.certify = certify
+        self.last_trace: Optional[ScheduleTrace] = None
         # True: one layer body per homogeneous sub-stack; False: per-layer
         # stages (the bitwise oracle). The analytic charges below do not
         # depend on it: a stacked op is charged as L sequential tile-waves,
@@ -276,7 +393,38 @@ class ServingEngine:
         self.predict_arrivals = predict_arrivals
         self._arrival_pred = ArrivalPredictor(alpha=arrival_alpha)
         self.prompt_fn = prompt_fn
+        # the front door's admit/degrade/shed policy, consulted once per
+        # request when it becomes due (run and serve_forever alike); None
+        # admits everything
+        self.admission = admission if admission is not None else (
+            AdmissionController() if admission_control else None)
+        assert self.admission is None or mode == "vliw", \
+            "admission control lives in the vliw event loop"
+        # called as token_sink(req, token, t) for every token as it retires
+        # on the device timeline; serve_forever wires the door's tickets
+        self.token_sink = token_sink
         self.cost = cost or CostModel(H100)
+        # the modelled mesh: N virtual device timelines, each with its own
+        # scheduler and coalescer, sharing one VLIWJit's caches (keyed
+        # with the device id); tenants bind at first admission
+        if devices is not None:
+            self.devices = devices
+            if cost is not None and cost.device is devices.devices[0]:
+                devices.bind_cost(0, cost)
+            self.cost = devices.cost(0)
+        else:
+            self.devices = DeviceSet.homogeneous(self.cost.device,
+                                                 max(1, int(num_devices)))
+            # mesh slot 0 IS the engine's cost model: the template's
+            # GEMM-suffix memo keys on cost identity
+            self.devices.bind_cost(0, self.cost)
+        assert len(self.devices) == 1 or mode == "vliw", \
+            "multi-device serving requires mode='vliw' (baseline modes " \
+            "define single-device round semantics)"
+        self.placement = PlacementPolicy(self.devices)
+        # per-device clocks and busy times of the last vliw run
+        self._last_device_time: Optional[List[float]] = None
+        self._last_device_busy: Optional[List[float]] = None
         self.jit = VLIWJit(self.cost, sched_cfg=sched_cfg,
                            max_group=max_group, plan_capacity=plan_capacity,
                            weight_budget_bytes=weight_budget_bytes)
@@ -291,9 +439,6 @@ class ServingEngine:
             t.slot_tok = torch.zeros((t.max_batch, 1), dtype=torch.long,
                                      device=self.device)
             t.slot_remaining = [0] * t.max_batch
-
-    def serve_forever(self, *args, **kwargs):
-        raise _not_ported("serve_forever (the real-clock front door)", "10")
 
     # ------------------------------------------------------------------
     # modeled step times
@@ -333,6 +478,19 @@ class ServingEngine:
             t += reps * self.cost.gemm_time(shape)
         return t + self._prefill_attn_time(cfg, prompt_len)
 
+    def _request_cost_s(self, t: Tenant, req: ServeRequest) -> float:
+        """Modelled end-to-end service cost of one request — the front
+        door's admission currency: full prefill plus the remaining decode
+        steps at the tenant's batch width, amortized over the batch."""
+        m = max(t.max_batch, 1)
+        per_tok = self._ops_time(t.cfg, m) / m
+        return self._prefill_time(t.cfg, req.prompt_len) \
+            + max(req.max_new_tokens - 1, 0) * per_tok
+
+    def _emit_token(self, req: ServeRequest, tok: int, t: float) -> None:
+        if self.token_sink is not None:
+            self.token_sink(req, tok, t)
+
     # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
@@ -367,6 +525,7 @@ class ServingEngine:
         tok = int(torch.argmax(logits[0, -1]))
         req.tokens_out = [tok]
         dt = self._prefill_time(m.cfg, req.prompt_len)
+        self._emit_token(req, tok, now + dt)
         if not needs_slot:
             req.finish_t = now + dt    # done at admission: no decode steps
             return dt
@@ -389,33 +548,38 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # one decode round (baseline modes only)
     # ------------------------------------------------------------------
-    def _decode_round(self) -> float:
+    def _decode_round(self, now: float = 0.0) -> float:
         live = [t for t in self.tenants.values() if t.active_slots()]
         dt = 0.0
         if self.mode == "batched":
             for t in live:
-                dt += self._tenant_batched_step(t)
+                dt += self._tenant_batched_step(t, now + dt)
         else:  # time: every active request decodes alone, serialized
             for t in live:
                 n_active = len(t.active_slots())
                 logits, t.cache = t.model.decode_step(t.params, t.slot_tok,
                                                       t.cache)
-                self._consume(t, logits)
+                self._consume(t, logits, now + dt)
                 dt += n_active * self._ops_time(t.cfg, 1)
         return dt
 
-    def _tenant_batched_step(self, t: Tenant) -> float:
+    def _tenant_batched_step(self, t: Tenant, now: float = 0.0) -> float:
         logits, t.cache = t.model.decode_step(t.params, t.slot_tok, t.cache)
         dt = self._ops_time(t.cfg, len(t.active_slots()))
-        self._consume(t, logits)
+        self._consume(t, logits, now + dt)
         return dt
 
-    def _consume(self, t: Tenant, logits: torch.Tensor) -> None:
+    def _consume(self, t: Tenant, logits: torch.Tensor,
+                 now: float = 0.0) -> None:
+        """Append each active slot's greedy token and stream it out at
+        ``now``. Reading the tokens on the host waits for the card."""
         toks = torch.argmax(logits[:, -1], dim=-1)
         t.slot_tok = toks[:, None].to(torch.long)
         host = toks.tolist()
         for slot in t.active_slots():
-            t.slot_req[slot].tokens_out.append(int(host[slot]))
+            req = t.slot_req[slot]
+            req.tokens_out.append(int(host[slot]))
+            self._emit_token(req, int(host[slot]), now)
             t.slot_remaining[slot] -= 1
 
     def _retire(self, t: Tenant, now: float) -> List[ServeRequest]:
@@ -490,6 +654,7 @@ class ServingEngine:
         tok = int(torch.argmax(prog.env["logits"][0]))
         req.tokens_out = [tok]
         now += self._prefill_attn_time(t.cfg, prog.env["real_len"])
+        self._emit_token(req, tok, now)
         slot = prog.env["slot"]
         if slot is None:
             req.finish_t = now     # single token: done at prefill, no slot
@@ -534,101 +699,396 @@ class ServingEngine:
             req_deadlines=tuple((r.req_id, f)
                                 for (r, _), f in zip(reqs, finals)))
 
-    def _run_event_loop(self, pending: List[ServeRequest]) -> float:
+    def _open_loop(self, *, next_hint: Optional[Any] = None) -> _LoopState:
+        """A fresh event-loop epoch: one JitSession per mesh device, all
+        sharing this engine's VLIWJit and (when certifying) ONE trace, so
+        the certifier sees the whole mesh. Device 0 reuses the jit's own
+        coalescer (the single-device setup)."""
+        # arrival history of a previous epoch describes another workload
         self._arrival_pred.reset()
-        session = self.jit.session()
+        n_dev = len(self.devices)
+        trace = ScheduleTrace() if self.certify else None
+        sessions = [self.jit.session(
+            device=d, cost=None if d == 0 else self.devices.cost(d),
+            trace=trace) for d in range(n_dev)]
         stream_ids = {name: i for i, name in enumerate(self.tenants)}
-        id2name = {i: name for name, i in stream_ids.items()}
-        inflight: Dict[str, KernelProgram] = {}
-        waiting: List[ServeRequest] = []
-        now, pi, n_done = 0.0, 0, 0
+        return _LoopState(
+            sessions=sessions, trace=trace,
+            cert=ScheduleCertifier() if trace is not None else None,
+            stream_ids=stream_ids,
+            id2name={i: name for name, i in stream_ids.items()},
+            tenant_dev={n: p.device
+                        for n, p in self.placement.assignments.items()},
+            queues=[[] for _ in range(n_dev)], pis=[0] * n_dev,
+            waiting=[[] for _ in range(n_dev)], inflight={},
+            now=[0.0] * n_dev, busy=[0.0] * n_dev,
+            committed=[0.0] * n_dev, next_hint=next_hint)
+
+    def _dev_of(self, st: _LoopState, name: str) -> int:
+        """The tenant's home device, bound at its first admission. A MoE
+        tenant whose experts span the mesh registers its span with its
+        home session, which prices the all-to-all from then on."""
+        d = st.tenant_dev.get(name)
+        if d is None:
+            t = self.tenants[name]
+            pl = self.placement.place(name, t.cfg, batch=t.max_batch)
+            d = st.tenant_dev[name] = pl.device
+            if pl.expert_span > 1:
+                st.sessions[d].set_stream_span(st.stream_ids[name],
+                                               pl.expert_span)
+        return d
+
+    def _route(self, st: _LoopState, req: ServeRequest) -> int:
+        """Append ``req`` to its home device's admission queue."""
+        d = self._dev_of(st, req.tenant)
+        st.queues[d].append(req)
+        st.total += 1
+        return d
+
+    def _door_decision(self, st: _LoopState, req: ServeRequest, d: int
+                       ) -> bool:
+        """Consult the admission controller once, when ``req`` first
+        becomes due on its device's clock. False: shed at the door (it
+        never takes a slot and stays out of the trace, but counts as an
+        SLO miss)."""
+        t = self.tenants[req.tenant]
+        cost_s = self._request_cost_s(t, req)
+        backlog = max(0.0, st.committed[d] - st.now[d])
+        dec = self.admission.decide(req, st.now[d], backlog, cost_s,
+                                    self._arrival_pred.gap(req.tenant))
+        if dec.action == "shed":
+            req.shed = True
+            st.n_done += 1
+            return False
+        if dec.action == "degrade":
+            req.degraded_from = req.tier
+            req.tier = dec.tier
+            req.slo_s = dec.slo_s
+        # commit the modelled cost to the device's completion horizon
+        st.committed[d] = max(st.committed[d], st.now[d]) + cost_s
+        return True
+
+    def _note_retires(self, st: _LoopState, reqs, d: int) -> None:
+        if st.trace is not None:
+            st.trace.req_retires.extend((r.req_id, st.now[d]) for r in reqs)
+            for r in reqs:
+                st.trace.retire_devices[r.req_id] = d
+
+    def _device_pass(self, st: _LoopState, d: int) -> bool:
+        """One pass over device ``d``'s timeline: drain due arrivals
+        (through the admission controller when there is one), admit
+        waiting requests, keep every tenant homed here with live requests
+        in the pool, take one scheduler decision and land completions.
+        Returns True if anything progressed."""
+        progressed = False
+        session, q, wq = st.sessions[d], st.queues[d], st.waiting[d]
+        trace, cert, now, busy = st.trace, st.cert, st.now, st.busy
+        # 1. live admission on device d's timeline: dense tenants DECLARE
+        #    the prompt pass as a prefill program; short prompts and MoE /
+        #    SSM tenants take the analytic charge. A tenant with a program
+        #    inflight admits at its next step boundary; other tenants' due
+        #    requests are admitted past it.
+        while st.pis[d] < len(q) and q[st.pis[d]].arrival_t <= now[d]:
+            req = q[st.pis[d]]
+            st.pis[d] += 1
+            if self.predict_arrivals or self.admission is not None:
+                self._arrival_pred.observe(req.tenant, req.arrival_t)
+            if self.admission is not None \
+                    and not self._door_decision(st, req, d):
+                progressed = True   # shed at the door: resolved here
+                continue
+            wq.append(req)
+        still: List[ServeRequest] = []
+        for req in wq:
+            t = self.tenants[req.tenant]
+            if req.tenant in st.inflight:
+                still.append(req)
+                continue
+            if self._prefill_capable(t) \
+                    and req.prompt_len >= self.prefill_declare_min:
+                prog = self._declare_prefill(
+                    t, req, st.stream_ids[req.tenant], now[d])
+                if prog is None:
+                    still.append(req)  # slots full; retry later
+                    continue
+                st.inflight[req.tenant] = prog
+                session.admit(prog)
+                if trace is not None:
+                    trace.req_admits.append((req.req_id, now[d]))
+                    trace.req_devices[req.req_id] = d
+                progressed = True
+                continue
+            dt = self._admit(t, req, now[d])
+            if dt == 0.0 and req.tokens_out is None:
+                still.append(req)      # tenant slots full; retry later
+                continue
+            now[d] += dt
+            busy[d] += dt
+            if trace is not None:
+                trace.req_admits.append((req.req_id, now[d]))
+                trace.req_devices[req.req_id] = d
+            if not math.isnan(req.finish_t):
+                st.n_done += 1         # retired at admission
+                self._note_retires(st, [req], d)
+            progressed = True
+        st.waiting[d] = still
+        if self.predict_arrivals:
+            hint = self._arrival_pred.predict(now[d])
+        else:
+            # replay: oracle lookahead into the routed trace; the daemon
+            # also consults the door's scheduled submissions that can land
+            # on this device (its tenants', and those not placed yet)
+            hint = q[st.pis[d]].arrival_t if st.pis[d] < len(q) \
+                else math.inf
+            if st.next_hint is not None:
+                nxt = st.next_hint(
+                    now[d], lambda r: st.tenant_dev.get(r.tenant, d) == d)
+                if nxt is not None:
+                    hint = min(hint, nxt)
+        session.set_next_arrival(hint)
+
+        # 2. every tenant homed here with live requests keeps a decode
+        #    program in this device's pool — admitted between dispatches
+        for name, t in self.tenants.items():
+            if st.tenant_dev.get(name) != d:
+                continue
+            if name not in st.inflight and t.active_slots():
+                prog = self._build_program(t, st.stream_ids[name], now[d])
+                if t.cfg.arch_type in ("moe", "ssm"):
+                    session.stats.nondense_programs += 1
+                st.inflight[name] = prog
+                session.admit(prog)
+                progressed = True
+
+        # 3. one scheduler decision on device d's virtual clock
+        ev = session.tick(now[d])
+        if cert is not None:
+            # certify this tick's dispatches where they happened: a
+            # HazardViolation raises here with the offending group last
+            # on the (mesh-wide) trace
+            for dr in trace.dispatches[st.certified:]:
+                cert.observe(dr)
+            st.certified = len(trace.dispatches)
+        progressed |= ev.kind != "idle"
+        now[d] = max(now[d], ev.t)
+        for prog in ev.completed:
+            name = st.id2name[prog.stream_id]
+            t = self.tenants[name]
+            del st.inflight[name]
+            if prog.kind == "prefill":
+                t0 = now[d]
+                now[d], done = self._on_prefill_complete(t, prog, now[d])
+                busy[d] += now[d] - t0
+                st.n_done += done
+                if done:
+                    self._note_retires(st, [prog.env["req"]], d)
+                continue
+            t.cache = prog.env["cache"]
+            attn = self._attn_time(t.cfg, max(len(t.active_slots()), 1))
+            self._consume(t, prog.env["logits"][:, None, :], now[d] + attn)
+            now[d] += attn
+            busy[d] += attn
+            retired = self._retire(t, now[d])
+            st.n_done += len(retired)
+            self._note_retires(st, retired, d)
+        return progressed
+
+    def _close_loop(self, st: _LoopState,
+                    requests: Sequence[ServeRequest]) -> None:
+        trace, cert, sessions = st.trace, st.cert, st.sessions
+        if trace is not None:
+            # close the request lifecycle, then balance it: SLO-demoted
+            # requests from every device's scheduler, plus admitted
+            # requests that never finished (shed requests were never
+            # admitted and stay out of the trace)
+            trace.evicted = set()
+            for s in sessions:
+                trace.evicted |= set(s.sched.demoted_requests())
+            by_id = {r.req_id: r for r in requests}
+            admitted = {rid for rid, _ in trace.req_admits}
+            trace.unfinished = {rid for rid in admitted
+                                if math.isnan(by_id[rid].finish_t)}
+            cert.checks += 1
+            cert.violations.extend(check_conservation(trace))
+            sessions[0].stats.hazard_checks += cert.checks
+            sessions[0].stats.hazard_violations += len(cert.violations)
+        self.last_trace = trace
+        # dispatch time lives in each session's stats; the analytic
+        # charges (prefill, attention) were accumulated in st.busy
+        self._last_device_time = list(st.now)
+        self._last_device_busy = [
+            st.busy[d] + sessions[d].stats.modeled_time_s
+            for d in range(len(sessions))]
+        if len(sessions) > 1:
+            # the mesh's sessions share one executor and one pair of plan
+            # caches, so each session's delta of them holds the others'
+            # work too: fold the loop's delta in once (device 0's, which
+            # was opened first)
+            sessions[0]._sync_cache_stats()
+            for s in sessions[1:]:
+                s.stats.plan_cache = PlanCacheStats()
+                s.stats.block_plans = PlanCacheStats()
+                s.stats.dispatch = DispatchStats()
+        for s in sessions:
+            self.jit_stats.merge(s.stats)
+
+    def _all_idle(self, st: _LoopState) -> bool:
+        """Nothing live, inflight or decoding on any device."""
+        return not any(s.live for s in st.sessions) and not st.inflight \
+            and not any(t.active_slots() for t in self.tenants.values())
+
+    def _idle_jump(self, st: _LoopState) -> bool:
+        """Idle devices jump to their next routed arrival; True if any
+        clock moved."""
+        advanced = False
+        for d in range(len(st.queues)):
+            if st.pis[d] < len(st.queues[d]) \
+                    and st.now[d] < st.queues[d][st.pis[d]].arrival_t:
+                st.now[d] = st.queues[d][st.pis[d]].arrival_t
+                advanced = True
+        return advanced
+
+    def _run_event_loop(self, pending: List[ServeRequest]) -> float:
+        st = self._open_loop()
+        # route the arrival-sorted trace onto per-device admission queues;
+        # placement binds in arrival order of each tenant's first request
+        for req in pending:
+            self._route(st, req)
+        n_dev = len(self.devices)
         while True:
             progressed = False
-            # 1. live admission: dense tenants DECLARE the prompt pass as a
-            #    prefill program; short prompts take the analytic charge. A
-            #    tenant with a program inflight admits at its next step
-            #    boundary; other tenants' requests are admitted past it.
-            while pi < len(pending) and pending[pi].arrival_t <= now:
-                req = pending[pi]
-                pi += 1
-                if self.predict_arrivals:
-                    self._arrival_pred.observe(req.tenant, req.arrival_t)
-                waiting.append(req)
-            still: List[ServeRequest] = []
-            for req in waiting:
-                t = self.tenants[req.tenant]
-                if req.tenant in inflight:
-                    still.append(req)
-                    continue
-                if self._prefill_capable(t) \
-                        and req.prompt_len >= self.prefill_declare_min:
-                    prog = self._declare_prefill(
-                        t, req, stream_ids[req.tenant], now)
-                    if prog is None:
-                        still.append(req)  # slots full; retry later
-                        continue
-                    inflight[req.tenant] = prog
-                    session.admit(prog)
-                    progressed = True
-                    continue
-                dt = self._admit(t, req, now)
-                if dt == 0.0 and req.tokens_out is None:
-                    still.append(req)      # tenant slots full; retry later
-                    continue
-                now += dt
-                if not math.isnan(req.finish_t):
-                    n_done += 1            # retired at admission
-                progressed = True
-            waiting = still
-            if self.predict_arrivals:
-                hint = self._arrival_pred.predict(now)
-            else:
-                hint = pending[pi].arrival_t if pi < len(pending) \
-                    else math.inf
-            session.set_next_arrival(hint)
-
-            # 2. every tenant with live requests keeps a decode program in
-            #    the pool — admitted between dispatches, not per round
-            for name, t in self.tenants.items():
-                if name not in inflight and t.active_slots():
-                    prog = self._build_program(t, stream_ids[name], now)
-                    if t.cfg.arch_type in ("moe", "ssm"):
-                        session.stats.nondense_programs += 1
-                    inflight[name] = prog
-                    session.admit(prog)
-                    progressed = True
-
-            # 3. one scheduler decision on the virtual clock
-            ev = session.tick(now)
-            progressed |= ev.kind != "idle"
-            now = max(now, ev.t)
-            for prog in ev.completed:
-                t = self.tenants[id2name[prog.stream_id]]
-                del inflight[t.name]
-                if prog.kind == "prefill":
-                    now, done = self._on_prefill_complete(t, prog, now)
-                    n_done += done
-                    continue
-                t.cache = prog.env["cache"]
-                attn = self._attn_time(t.cfg, max(len(t.active_slots()), 1))
-                self._consume(t, prog.env["logits"][:, None, :])
-                now += attn
-                n_done += len(self._retire(t, now))
-
-            if n_done >= len(pending) and not session.live \
-                    and pi >= len(pending) and not waiting:
+            for d in range(n_dev):
+                progressed |= self._device_pass(st, d)
+            if st.n_done >= st.total \
+                    and not any(s.live for s in st.sessions) \
+                    and all(st.pis[d] >= len(st.queues[d])
+                            for d in range(n_dev)) \
+                    and not any(st.waiting):
                 break
             if not progressed:
-                if pi < len(pending) and now < pending[pi].arrival_t:
-                    now = pending[pi].arrival_t   # idle: jump to arrival
+                if self._idle_jump(st):
                     continue
-                # stall guard: nothing live, nothing decoding, nothing due
-                # that could admit — the waiting requests stay unfinished
-                if not session.live and not inflight and not any(
-                        t.active_slots() for t in self.tenants.values()):
+                if not any(st.waiting):
                     break
-        self.jit_stats.merge(session.stats)
-        return now
+                # stall guard: every queue is exhausted, every waiting
+                # request was refused admission, and nothing inflight or
+                # decoding could change that — the requests stay
+                # unfinished and surface in ServeReport.unfinished
+                if self._all_idle(st):
+                    break
+        self._close_loop(st, pending)
+        return max(st.now)
+
+    # ------------------------------------------------------------------
+    # the front door (daemon mode)
+    # ------------------------------------------------------------------
+    def _live_stats(self, st: _LoopState, served: List[ServeRequest],
+                    t: float) -> Dict[str, Any]:
+        return {
+            "t": t,
+            "submitted": len(served),
+            "finished": sum(1 for r in served
+                            if not math.isnan(r.finish_t)),
+            "shed": sum(1 for r in served if r.shed),
+            "inflight": len(st.inflight),
+            "waiting": sum(len(w) for w in st.waiting),
+            "device_time_s": list(st.now),
+        }
+
+    def serve_forever(self, door: FrontDoor, *,
+                      clock: Optional[Any] = None,
+                      seed: int = 0,
+                      idle_poll_s: float = 0.005,
+                      on_stats: Optional[Any] = None,
+                      stats_interval_s: float = 1.0) -> ServeReport:
+        """Serve continuously from ``door`` until it closes (daemon mode).
+
+        The same per-device event-loop machinery as ``run``, driven by a
+        clock instead of a finite trace: requests stream in through the
+        thread-safe ``FrontDoor`` (arrival-stamped on the clock), the
+        admission controller (when configured) admits / degrades / sheds
+        each one as it becomes due, tokens stream out per request as they
+        retire (``FrontDoor.deliver`` -> the request's ``Ticket``), and
+        the engine IDLES while the door is open and empty. Closing the
+        door flushes all in-flight work; the loop then returns the
+        epoch's ``ServeReport`` (shed requests included, as SLO misses).
+
+        ``clock`` is a ``MonotonicClock`` by default: each device timeline
+        is floored at real elapsed time every iteration. A follower
+        ``VirtualClock`` tracks the modelled timelines instead, so a door
+        preloaded with scheduled submissions replays exactly like ``run``.
+        ``seed`` keys prompt synthesis, as in ``run``. ``on_stats`` is
+        called at most every ``stats_interval_s`` clock seconds with a
+        live-stats dict — the daemon's heartbeat. All torch work runs on
+        the calling thread."""
+        assert self.mode == "vliw", \
+            "daemon serving is a vliw-engine feature (baseline modes " \
+            "define closed-trace round semantics)"
+        self._seed = int(seed)
+        clock = clock if clock is not None else MonotonicClock()
+        wall0 = _time.perf_counter()
+        st = self._open_loop(next_hint=door.next_arrival)
+        served: List[ServeRequest] = []
+        seen_ids: Dict[int, int] = {}
+        n_dev = len(self.devices)
+        prev_sink = self.token_sink
+        if prev_sink is None:
+            self.token_sink = door.deliver
+        last_stats = clock.now()
+        try:
+            while True:
+                now_r = clock.now()
+                if clock.authoritative:
+                    # real clock: a device cannot serve in the past
+                    for d in range(n_dev):
+                        st.now[d] = max(st.now[d], now_r)
+                for req in door.poll(now_r):
+                    if req.req_id in seen_ids:
+                        raise ValueError(
+                            f"duplicate req_id {req.req_id} through the "
+                            f"door — request ids key prompt synthesis "
+                            f"and retirement accounting")
+                    seen_ids[req.req_id] = 1
+                    served.append(req)
+                    self._route(st, req)
+                progressed = False
+                for d in range(n_dev):
+                    progressed |= self._device_pass(st, d)
+                # a follower clock tracks the modelled timelines; the real
+                # clock ignores this
+                clock.advance_to(max(st.now))
+                if on_stats is not None \
+                        and clock.now() - last_stats >= stats_interval_s:
+                    last_stats = clock.now()
+                    on_stats(self._live_stats(st, served, last_stats))
+                if progressed or self._idle_jump(st):
+                    continue
+                if self._all_idle(st):
+                    # closed and drained: the flush is complete. Open:
+                    # idle-wait for a submission or the closing
+                    if door.finished(now_r) \
+                            and all(st.pis[d] >= len(st.queues[d])
+                                    for d in range(n_dev)):
+                        break
+                    targets = []
+                    nxt = door.next_arrival(now_r)
+                    if nxt is not None:
+                        targets.append(max(nxt, now_r))
+                    if door.close_at is not None \
+                            and door.close_at > now_r:
+                        targets.append(door.close_at)
+                    clock.sleep_until(min(targets) if targets
+                                      else now_r + idle_poll_s)
+        finally:
+            self.token_sink = prev_sink
+        self._close_loop(st, served)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = _time.perf_counter() - wall0
+        return ServeReport("vliw", served, max(st.now) if st.now else 0.0,
+                           wall, jit=self.jit_stats,
+                           device_time_s=self._last_device_time,
+                           device_busy_s=self._last_device_busy)
 
     # ------------------------------------------------------------------
     # round loop (baseline modes: rounds ARE their semantics)
@@ -648,7 +1108,7 @@ class ServingEngine:
                     n_done += 1        # retired at admission (single token)
                 pi += 1
                 progressed = True
-            dt = self._decode_round()
+            dt = self._decode_round(now)
             if dt == 0.0 and not progressed:
                 if pi < len(pending):
                     now = max(now, pending[pi].arrival_t)
@@ -680,10 +1140,13 @@ class ServingEngine:
         wall0 = _time.perf_counter()
         if self.mode == "vliw":
             makespan = self._run_event_loop(pending)
+            dev_t, dev_b = self._last_device_time, self._last_device_busy
         else:
             makespan = self._run_rounds(pending)
+            dev_t = dev_b = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = _time.perf_counter() - wall0
         return ServeReport(self.mode, requests, makespan, wall,
-                           jit=self.jit_stats if self.mode == "vliw" else None)
+                           jit=self.jit_stats if self.mode == "vliw" else None,
+                           device_time_s=dev_t, device_busy_s=dev_b)

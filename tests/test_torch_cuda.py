@@ -478,3 +478,34 @@ def test_build_phase_on_a_warm_cache(cuda, monkeypatch, capsys):
                       or "gemv_kernel=" in ln])
     assert len(lines[0]) == len(fa.DTYPE_CODES) * (len(fa.HEAD_DIMS) + 2)
     assert lines[1] == lines[0]
+
+
+def test_certified_mesh_stacked_tokens_card_equals_cpu(cuda):
+    """A certified 2-device stacked run (two dense tenants with distinct
+    weights and one grok-1 smoke tenant, whose experts span the mesh)
+    serves the CPU's tokens on the card, with no hazard, a collective
+    charge, work on both devices, and kernel launches on the card."""
+    dense = Model(_gemma8(), param_dtype=torch.float32, device="cpu")
+    grok = Model(smoke_config("grok-1-314b"), param_dtype=torch.float32,
+                 device="cpu")
+    spec = [("a", dense, dense.init(torch.Generator().manual_seed(0)), 2),
+            ("b", dense, dense.init(torch.Generator().manual_seed(1)), 2),
+            ("g", grok, grok.init(torch.Generator().manual_seed(2)), 1)]
+    trace = make_trace(["a", "b", "g"], rate_hz=1e4, n_per_tenant=2,
+                       prompt_len=16, max_new_tokens=4, slo_s=1.0)
+    out = []
+    for dev in ("cpu", cuda):
+        tenants = [Tenant(n, Model(m.cfg, param_dtype=torch.float32,
+                                   device=dev), _to(p, dev), cache_len=32,
+                          max_batch=mb) for n, m, p, mb in spec]
+        n0 = cg.coalesced_gemm.launches
+        eng = ServingEngine(tenants, mode="vliw", num_devices=2,
+                            certify=True, device=dev)
+        rep = eng.run(trace)
+        assert rep.unfinished == 0 and rep.num_devices == 2
+        assert rep.jit.hazard_checks > 0 and rep.jit.hazard_violations == 0
+        assert rep.jit.collective_time_s > 0
+        assert {d.device for d in eng.last_trace.dispatches} == {0, 1}
+        assert (cg.coalesced_gemm.launches > n0) == (dev is cuda)
+        out.append({r.req_id: r.tokens_out for r in rep.requests})
+    assert out[0] == out[1]

@@ -41,6 +41,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     expected = {m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")}
     assert int(n) == len(expected) and len(expected) >= 30
+    # the certifier, the mesh and the front door are among them
+    assert {"repro_torch.analysis.certify", "repro_torch.analysis.depgraph",
+            "repro_torch.analysis.lint", "repro_torch.distributed.placement",
+            "repro_torch.serving.admission",
+            "repro_torch.serving.frontdoor"} <= expected
     assert bad == "", f"loaded: {bad}"
 
 
