@@ -68,6 +68,20 @@ Phases, each printing its own lines; a failing phase raises:
                    wall ms of one steady decode step in each regime, the
                    device time of ``coalesced_gemm`` and of the other
                    kernels (``torch.profiler``), and the device busy share;
+  4b. serve-tuned — phase 4's tenants at 12 layers (the script's time),
+                   stacked, served untuned and live-tuned
+                   (``live_tune=True``) with each objective, collaborative
+                   and greedy, in turns, each setting twice: tokens bitwise
+                   equal to the untuned run's; one tuner search a group
+                   signature and hits after (misses == the tuner's results
+                   > 0, hits > misses). Per run: wall s, launches, the
+                   tuned (bm, bn, bk) by plans and by signatures, and the
+                   kernel's launches by bm (each a tuned bm);
+  4c. kernel-bm  — ``coalesced_gemm`` at every bm serve-tuned launched and
+                   at 16, 32 and 64, on serve-tuned's decode and prompt
+                   shapes, fp32 and bf16, against its plain version and
+                   timed as in phase 3; the real rows must be BITWISE equal
+                   to the bm = 8 launch on the same inputs;
   5. serve-grouped — two full-width yi-9b tenants with distinct weights
                    (bf16, 12 layers), both regimes as in phase 4: per-layer
                    the kernel runs with G >= 2 weight matrices;
@@ -116,6 +130,26 @@ Phases, each printing its own lines; a failing phase raises:
                    --duration 3 --num-devices 2 --certify --admission
                    --dtype bfloat16`` (smoke configs) as a subprocess:
                    exits 0 with no hazard;
+  5g. serve-families — one engine of five tenants at each config's full
+                   width and depth, bf16: two internvl2-2b on one weight
+                   set (24 layers; a prompt is 256 patch tokens and the
+                   text), hymba-1.5b (32), whisper-tiny (4 + 4, 1500
+                   encoder frames) and gemma3-1b with an int8 KV cache (26
+                   layers, cache 4096); the params reckoned beside
+                   ``mem_get_info``; served in vliw (stacked: the vlm
+                   tenants' decode steps are KernelPrograms, the others the
+                   monolithic step), then in batched. Per tenant: programs
+                   or monolithic steps, tokens, the smallest top-2 logit
+                   margin; per mode: wall s, tokens/s, launches (checked in
+                   vliw, 0 in batched), peak GiB; the int8 cache's bytes
+                   against a bf16 cache of its shape. The monolithic
+                   tenants' tokens must be identical in both modes; the vlm
+                   tenants' agreement is printed (bf16 kernel against bf16
+                   matmuls). It runs after 5f: it ends with the card's
+                   free memory 2.3 GiB lower than it found it (0.25 GiB
+                   still allocated pins 3.3 GiB of the allocator's
+                   segments; printed at its end), which cut serve-mesh's
+                   depth when it ran before it;
   6. card-vs-cpu — full-width yi-9b, fp32, 1 layer, two tenants with
                    distinct weights, both regimes (per-layer: the grouped
                    regime, G = 2): the same trace, weights and prompts
@@ -125,6 +159,10 @@ Phases, each printing its own lines; a failing phase raises:
                    grok-1's smoke config (fp32), each line with the
                    smallest router top-k margin of the run (a mismatch
                    prints the first differing step and routing call);
+                   then one vliw engine of serve-families' five tenants
+                   at full width, fp32, 1–2 layers (whisper 2 + 2):
+                   identical tokens, with each tenant's smallest top-2
+                   logit margin;
   7. rnn-matvec  — the matvec regime's path: ``SuperkernelExecutor.matvec``
                    at the LSTM shape (fp32, G = 4) for 20 ticks, distinct
                    weights (``coalesced_gemv``) and shared weights
@@ -136,8 +174,9 @@ Phases, each printing its own lines; a failing phase raises:
   9. the kernel table as one JSON line, then the result line.
 
 Launch counts are set to 0 just before each path phase (4-8), and in
-phases 4-6 before each regime's run, and read just after it; the
-comparisons of phase 3 are not counted there. A ``phase`` line gives each
+phases 4-6 before each run (a regime, a tuning setting, a mode), and
+read just after it; the comparisons of phases 3 and 4c are not counted
+there. A ``phase`` line gives each
 phase's seconds. Every line of numbers after phase 1 ends with the card's
 name and power limit (``card=``). Weights and
 inputs are random, made from fixed seeds. ``--gemm-only`` runs phase 1 and
@@ -705,10 +744,12 @@ REGIMES = ((True, "stacked"), (False, "per-layer"))
 
 
 def _serve(torch, cfg, tenants_params, *, n_req, prompt_len, new_tokens,
-           budget, seed, stacked=True, max_batch=None, **engine_kw):
+           budget, seed, stacked=True, max_batch=None, setup=None,
+           **engine_kw):
     """Serve one trace (``n_req`` requests a tenant) on a fresh vliw
     engine; ``max_batch`` gives each tenant's slots (4 each by default),
-    ``engine_kw`` the engine's other options (the mesh, the certifier)."""
+    ``engine_kw`` the engine's other options (the mesh, the certifier,
+    live tuning); ``setup(engine)`` runs before the trace."""
     from repro_torch.serving import ServingEngine, Tenant, make_trace
     names = [f"t{i}" for i in range(len(tenants_params))]
     trace = make_trace(names, rate_hz=1e4, n_per_tenant=n_req,
@@ -723,6 +764,8 @@ def _serve(torch, cfg, tenants_params, *, n_req, prompt_len, new_tokens,
     eng = ServingEngine(tenants, mode="vliw", weight_budget_bytes=budget,
                         plan_capacity=1024, stacked_layers=stacked,
                         device=tenants_params[0][0].device, **engine_kw)
+    if setup is not None:
+        setup(eng)
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -793,6 +836,7 @@ def _reset_counts(cg):
     cg.coalesced_gemm.launches = 0
     cg.coalesced_gemm.max_groups = 0
     cg.coalesced_gemm.launches_by_shape = {}
+    cg.coalesced_gemm.launches_by_bm = {}
 
 
 def _report_shapes(phase, cg, timed):
@@ -1244,6 +1288,445 @@ def phase_serve_ssm(torch, cg, timed):
     # mamba2-2.7b at full width and full depth (64 layers)
     return _serve_nondense(torch, cg, timed, "serve-ssm", "mamba2-2.7b", 64,
                            seed=21)
+
+
+# ---------------------------------------------------------------------------
+# 4b. live tuning: the tuned tile reaches the superkernel
+# ---------------------------------------------------------------------------
+
+TUNED_LAYERS = 12
+TUNED_KW = {"untuned": {}, "collaborative": dict(live_tune=True),
+            "greedy": dict(live_tune=True, tune_objective="greedy")}
+# in turns, each setting twice, so a wall-clock difference between
+# settings can be read against the spread of one setting's two runs
+TUNED_ORDER = ("untuned", "collaborative", "greedy", "greedy",
+               "collaborative", "untuned")
+
+
+def phase_serve_tuned(torch, cg):
+    """serve-shared's tenants (yi-9b, bf16, two tenants on one weight set,
+    4 requests each, 32-token prompts, 8 new tokens), stacked, at 12
+    layers (the script's time), served untuned and live-tuned with each
+    objective in this one process, in turns (``TUNED_ORDER``). The tuned
+    runs' tokens must be bitwise the untuned run's; each tuner searches
+    once a group signature (misses == its results, > 0) and hits after.
+    Per run: wall s, launches, the tuned (bm, bn, bk) by plans and by
+    signatures, and the kernel's launches by bm (every one a tuned bm).
+    Returns the first run of each setting with its walls in turn order,
+    and the set of bm the tuned runs launched."""
+    from repro_torch.models import Model
+    L = TUNED_LAYERS
+    cfg = _full_yi(L)
+    free, _ = torch.cuda.mem_get_info()
+    m = Model(cfg, param_dtype=torch.bfloat16)
+    params = m.init(torch.Generator(device=m.device).manual_seed(1))
+    budget = int(free - 6 * GIB - L * _layer_bytes(cfg, 2)[0]
+                 - 2 * _embed_bytes(cfg, 2)[0])
+    say("serve-tuned", layers=L, depth_cut=f"48->{L}",
+        reason="three runs in the script's time", d_model=cfg.d_model,
+        weight_budget_GiB=f"{budget / GIB:.2f}")
+    runs, tokens, launched = {}, {}, set()
+    for label in TUNED_ORDER:
+        kw = TUNED_KW[label]
+        plans = {}
+
+        def count_plans(eng):
+            tuner = eng.jit.tuner
+            if tuner is None:
+                return
+            tune = tuner.tune
+
+            def counted(shapes, **k):
+                b = tune(shapes, **k)
+                key = (b.bm, b.bn, b.bk)
+                plans[key] = plans.get(key, 0) + 1
+                return b
+
+            tuner.tune = counted
+
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(cg)
+        eng, rep, wall = _serve(torch, cfg, [(m, params), (m, params)],
+                                n_req=4, prompt_len=32, new_tokens=8,
+                                budget=budget, seed=0, setup=count_plans,
+                                **kw)
+        launches = cg.coalesced_gemm.launches
+        by_bm = dict(sorted(cg.coalesced_gemm.launches_by_bm.items()))
+        _check_served(rep, cfg, 8, 8)
+        _check_launches(cfg, rep, launches, True)
+        toks = {r.req_id: r.tokens_out for r in rep.requests}
+        # every run's tokens bitwise the first (untuned) run's
+        assert not tokens or toks == tokens["untuned"], label
+        tokens[label] = toks
+        st = eng.jit.tune_cache.stats
+        signatures = {}
+        if eng.jit.tuner is None:
+            assert set(by_bm) == {8} and st.accesses == 0, (by_bm, st)
+        else:
+            results = eng.jit.tuner.results
+            assert st.misses == len(results) > 0, (st, len(results))
+            assert st.hits > st.misses, st
+            assert rep.jit.tune_cache.accesses == st.accesses
+            for r in results.values():
+                b = (r.block.bm, r.block.bn, r.block.bk)
+                signatures[b] = signatures.get(b, 0) + 1
+            # every launch took a tuned bm
+            assert set(by_bm) <= {b[0] for b in signatures}, \
+                (by_bm, signatures)
+            launched |= set(by_bm)
+        say("serve-tuned", run=label, wall_s=f"{wall:.3f}",
+            tokens_per_s=f"{rep.tokens_out / wall:.2f}",
+            scheduler_dispatches=rep.jit.superkernels, launches=launches,
+            launches_by_bm=by_bm, tune_hits=st.hits, tune_misses=st.misses,
+            tuned_blocks_by_plans=dict(sorted(plans.items())),
+            tuned_blocks_by_signatures=dict(sorted(signatures.items())),
+            peak_alloc_GiB=f"{torch.cuda.max_memory_allocated() / GIB:.2f}",
+            modeled_ms=f"{rep.modeled_time_s * 1e3:.3f}(H100 cost model)")
+        if label in runs:
+            assert launches == runs[label]["launches"], label
+            runs[label]["wall_s"].append(wall)
+        else:
+            runs[label] = dict(wall_s=[wall], launches=launches,
+                               launches_by_bm=by_bm, tune_hits=st.hits,
+                               tune_misses=st.misses,
+                               modeled_ms=rep.modeled_time_s * 1e3)
+        del eng, rep
+        _free(torch)
+    say("serve-tuned", tokens_tuned_vs_untuned="bitwise_equal",
+        requests=len(tokens["untuned"]), tuned_bm_launched=sorted(launched),
+        wall_s_in_turns={k: [f"{w:.3f}" for w in r["wall_s"]]
+                         for k, r in runs.items()})
+    del params, m
+    _free(torch)
+    return runs, launched
+
+
+BM_SHAPES = [
+    # (label, rows per problem, K, N, shared weights): serve-tuned's
+    # decode groups and its prompt bodies (m 32, tuned to bm 32 alone or
+    # 64 coalesced)
+    ("yi-9b decode grouped (ffn gate/up)", (4, 4), 4096, 16384, False),
+    ("yi-9b prefill body (ffn gate/up)", (32,), 4096, 16384, True),
+    ("yi-9b prefill coalesced (attn wq)", (32, 32), 4096, 4096, False),
+]
+
+
+def _real_rows(out, rows, bm):
+    """The real rows of a launch's output, problem by problem (each
+    problem's rows start on a bm boundary)."""
+    parts, s = [], 0
+    for m in rows:
+        parts.append(out[s:s + m])
+        s += -(-m // bm) * bm
+    return parts
+
+
+def phase_kernel_bm(torch, cg, ref, flush, bms):
+    """``coalesced_gemm`` at each tuned ``bm`` (every bm serve-tuned
+    launched, and 16, 32 and 64) against its plain version, timed like
+    phase 3; the real rows must be BITWISE equal to the bm = 8 launch on
+    the same inputs (a row's summation order is a function of K)."""
+    rows_out = []
+    for label, rows, K, N, shared in BM_SHAPES:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            a8, b8, g8 = _operands(torch, rows, K, N, shared, dtype, bm=8)
+            base = _real_rows(cg.coalesced_gemm(a8, b8, g8, bm=8), rows, 8)
+            for bm in sorted(bms):
+                a, b, gid = _operands(torch, rows, K, N, shared, dtype,
+                                      bm=bm)
+                assert torch.equal(b, b8)
+                got = cg.coalesced_gemm(a, b, gid, bm=bm)
+                want = ref(a, b, gid, bm)
+                rtol, atol = TOL[dname]
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=rtol, atol=atol)
+                err = float((got.float() - want.float()).abs().max())
+                for p, q in zip(_real_rows(got, rows, bm), base):
+                    assert torch.equal(p, q), (label, dname, bm)
+                M, G = int(a.shape[0]), int(b.shape[0])
+                call = lambda: cg.coalesced_gemm(a, b, gid, bm=bm)  # noqa
+                ms, ms_min, ms_max = time_spread(call, flush=flush)
+                plain_ms = time_ms(lambda: ref(a, b, gid, bm), reps=5,
+                                   flush=flush)
+                if G == 1:
+                    bw = b[0]
+                    library_ms = time_ms(lambda: torch.matmul(a, bw),
+                                         flush=flush)
+                    library = "torch.matmul"
+                else:
+                    tiles = a.view(M // bm, bm, K)
+                    b_tile = b[gid.long()].contiguous()
+                    library_ms = time_ms(lambda: torch.bmm(tiles, b_tile),
+                                         flush=flush)
+                    library = "torch.bmm"
+                    del b_tile
+                db = a.element_size()
+                moved = (M * K + G * K * N + M * N) * db + gid.numel() * 4
+                bound_ms, bound_by = _bound(moved, 2.0 * M * K * N, dname,
+                                            MMA_PEAK_FLOPS)
+                rows_out.append(dict(shape=label, dtype=dname, bm=bm, M=M,
+                                     K=K, N=N, G=G, max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms,
+                                     library_ms=library_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by))
+                say("kernel-bm", shape=repr(label), dtype=dname, bm=bm,
+                    A=f"[{M},{K}]", B=f"[{G},{K},{N}]",
+                    real_rows_vs_bm8="bitwise_equal",
+                    max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
+                    spread_ms=f"{ms_min:.4f}..{ms_max:.4f}",
+                    plain_ms=f"{plain_ms:.4f}",
+                    library_ms=f"{library_ms:.4f}({library})",
+                    bound_ms=f"{bound_ms:.4f}({bound_by})",
+                    bound_share=f"{bound_ms / ms:.3f}")
+                del a, b, gid, got, want
+            del a8, b8, g8, base
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
+# 5g. the remaining families: vlm, hybrid, audio, int8 KV
+# ---------------------------------------------------------------------------
+
+# (tenant, arch, kv_quant, cache_len): the two vlm tenants share one weight
+# set; a vlm prompt is its 256 patch tokens and the text
+FAMILY_FLEET = (("vlm0", "internvl2-2b", False, 304),
+                ("vlm1", "internvl2-2b", False, 304),
+                ("hybrid", "hymba-1.5b", False, 48),
+                ("audio", "whisper-tiny", False, 48),
+                ("int8", "gemma3-1b", True, 4096))
+
+
+def _family_models(torch, cfgs, dtype, device=None):
+    """{arch: (Model, params)} for the fleet's archs (one weight set an
+    arch), from fixed seeds."""
+    from repro_torch.models import Model
+    out = {}
+    for i, (name, arch, kvq, _) in enumerate(FAMILY_FLEET):
+        if arch in out:
+            continue
+        m = Model(cfgs[arch], param_dtype=dtype, device=device,
+                  kv_quant=kvq)
+        out[arch] = (m, m.init(torch.Generator(device=m.device)
+                               .manual_seed(40 + i)))
+    return out
+
+
+def _serve_fleet(torch, models, mode, *, n_req, prompt_len, new_tokens,
+                 seed, cache_lens=None):
+    """Serve the family fleet in ``mode`` on one engine, counting each
+    tenant's decode programs (``_build_program``) and monolithic steps
+    (``_tenant_batched_step``) and the smallest top-2 logit margin of its
+    decode steps. Returns (engine, report, wall, per-tenant counts)."""
+    from repro_torch.serving import ServingEngine, Tenant, make_trace
+    tenants = [Tenant(name, *models[arch],
+                      cache_len=(cache_lens or {}).get(name, cl),
+                      max_batch=4)
+               for name, arch, _, cl in FAMILY_FLEET]
+    eng = ServingEngine(tenants, mode=mode, plan_capacity=1024,
+                        device=tenants[0].model.device)
+    counts = {t.name: dict(programs=0, steps=0, margin=math.inf)
+              for t in tenants}
+    build, step, consume = (eng._build_program, eng._tenant_batched_step,
+                            eng._consume)
+
+    def build_counted(t, *a, **k):
+        counts[t.name]["programs"] += 1
+        return build(t, *a, **k)
+
+    def step_counted(t, *a, **k):
+        counts[t.name]["steps"] += 1
+        return step(t, *a, **k)
+
+    def consume_margin(t, logits, *a, **k):
+        act = t.active_slots()
+        if act:
+            top = torch.topk(logits[act, -1].float(), 2, dim=-1).values
+            c = counts[t.name]
+            c["margin"] = min(c["margin"],
+                              float((top[:, 0] - top[:, 1]).min()))
+        return consume(t, logits, *a, **k)
+
+    eng._build_program, eng._tenant_batched_step, eng._consume = \
+        build_counted, step_counted, consume_margin
+    trace = make_trace([n for n, *_ in FAMILY_FLEET], rate_hz=1e4,
+                       n_per_tenant=n_req, prompt_len=prompt_len,
+                       max_new_tokens=new_tokens, slo_s=1.0, seed=seed)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = eng.run(trace, seed=seed)
+    return eng, rep, time.perf_counter() - t0, counts
+
+
+def phase_serve_families(torch, cg):
+    """One engine of five tenants at each config's full width and depth,
+    bf16: two internvl2-2b tenants on one weight set (vlm: their decode
+    steps are KernelPrograms on coalesced_gemm), hymba-1.5b (hybrid),
+    whisper-tiny (audio) and gemma3-1b with an int8 KV cache (the last
+    three take the monolithic step). Served in vliw (stacked), then in
+    batched. The monolithic tenants run the same Model.decode_step in both
+    modes, so their tokens must be identical; the vlm tenants' projections
+    run on the kernel in vliw and as bf16 matmuls in batched, so their
+    agreement is printed (their exact checks: stacked vs per-layer in
+    phase 4, card vs CPU in card-vs-cpu)."""
+    from repro_torch.configs import get_config
+    cfgs = {arch: get_config(arch) for _, arch, _, _ in FAMILY_FLEET}
+    free0, total = torch.cuda.mem_get_info()
+    reckoned = sum(c.param_count() * 2 for c in cfgs.values())
+    models = _family_models(torch, cfgs, torch.bfloat16)
+    torch.cuda.synchronize()
+    free1, _ = torch.cuda.mem_get_info()
+    say("serve-families",
+        tenants=",".join(f"{n}:{a}" + ("(int8 KV)" if q else "")
+                         for n, a, q, _ in FAMILY_FLEET),
+        layers=",".join(f"{a}={c.num_layers}"
+                        + (f"+{c.num_encoder_layers}enc"
+                           if c.is_encdec else "")
+                        for a, c in cfgs.items()),
+        reckoned_param_GiB=f"{reckoned / GIB:.2f}",
+        params_allocated_GiB=f"{torch.cuda.memory_allocated() / GIB:.2f}",
+        mem_get_info_free_GiB=f"{free0 / GIB:.2f}->{free1 / GIB:.2f}",
+        total_GiB=f"{total / GIB:.2f}")
+    vlm_cfg = cfgs["internvl2-2b"]
+    out, toks = {}, {}
+    for mode in ("vliw", "batched"):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(cg)
+        eng, rep, wall, counts = _serve_fleet(torch, models, mode, n_req=4,
+                                              prompt_len=32, new_tokens=8,
+                                              seed=5)
+        launches = cg.coalesced_gemm.launches
+        assert rep.unfinished == 0, rep.unfinished
+        for r in rep.requests:
+            assert len(r.tokens_out) == 8, (r.req_id, r.tokens_out)
+        toks[mode] = {r.req_id: (r.tenant, r.tokens_out)
+                      for r in rep.requests}
+        peak = torch.cuda.max_memory_allocated() / GIB
+        if mode == "vliw":
+            _check_launches(vlm_cfg, rep, launches, True)
+            assert launches > 0
+            assert counts["vlm0"]["programs"] > 0
+            for name in ("vlm0", "vlm1"):
+                assert counts[name]["steps"] == 0
+            for name in ("hybrid", "audio", "int8"):
+                assert counts[name]["steps"] > 0
+                assert counts[name]["programs"] == 0
+            int8 = eng.tenants["int8"].cache["layers"]
+            q8 = sum(int8[k].nbytes for k in ("k", "v"))
+            scales = sum(int8[k].nbytes for k in ("k_scale", "v_scale"))
+            bf16 = 2 * q8
+            say("serve-families", int8_cache_bytes=q8 + scales,
+                int8_values=q8, scales=scales, bf16_cache_bytes=bf16,
+                ratio=f"{(q8 + scales) / bf16:.4f}",
+                shape=tuple(int8["k"].shape))
+        else:
+            assert launches == 0, launches
+        served = {}
+        for r in rep.requests:
+            served[r.tenant] = served.get(r.tenant, 0) + len(r.tokens_out)
+        for name, arch, _, _ in FAMILY_FLEET:
+            c = counts[name]
+            say("serve-families", mode=mode, tenant=name, arch=arch,
+                programs=c["programs"], monolithic_steps=c["steps"],
+                tokens=served[name],
+                tokens_per_run_s=f"{served[name] / wall:.2f}",
+                min_top2_logit_margin=f"{c['margin']:.3e}")
+        say("serve-families", mode=mode, wall_s=f"{wall:.3f}",
+            tokens=rep.tokens_out,
+            tokens_per_s=f"{rep.tokens_out / wall:.2f}",
+            launches=launches,
+            nondense_programs=(rep.jit.nondense_programs
+                               if rep.jit else 0),
+            scheduler_dispatches=rep.jit.superkernels if rep.jit else 0,
+            peak_alloc_GiB=f"{peak:.2f}")
+        out[mode] = dict(wall_s=wall, launches=launches,
+                         tokens=rep.tokens_out, peak_alloc_GiB=peak,
+                         counts={k: dict(programs=v["programs"],
+                                         steps=v["steps"])
+                                 for k, v in counts.items()})
+        del eng, rep
+        _free(torch)
+    agree, first = {}, {}
+    for rid, (name, a) in toks["vliw"].items():
+        b = toks["batched"][rid][1]
+        if name.startswith("vlm"):
+            agree[name] = agree.get(name, 0) + int(a == b)
+            if a != b:
+                i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                first[name] = min(first.get(name, i), i)
+        else:
+            assert a == b, (name, rid, a, b)
+    say("serve-families", monolithic_tokens_vliw_vs_batched="identical",
+        vlm_requests_agreeing=agree,
+        vlm_first_differing_step=first or "none")
+    out["vlm_agreeing"] = agree
+    del models
+    _free(torch)
+    free2, _ = torch.cuda.mem_get_info()
+    say("serve-families", mem_get_info_free_GiB_after=f"{free2 / GIB:.2f}",
+        allocated_GiB=f"{torch.cuda.memory_allocated() / GIB:.2f}",
+        reserved_GiB=f"{torch.cuda.memory_reserved() / GIB:.2f}")
+    return out
+
+
+def phase_card_vs_cpu_families(torch, cg):
+    """card-vs-cpu for the four families, fp32, at full width: internvl2-2b
+    1 layer, hymba-1.5b 2, whisper-tiny 2 + 2 (1500 frames) and gemma3-1b
+    2 layers with the int8 cache; one vliw engine of the five tenants on
+    each device, the same trace, weights and prompts: identical greedy
+    tokens. A mismatch prints the first differing step and the smallest
+    top-2 logit margin, then fails."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    depth = {"internvl2-2b": dict(num_layers=1),
+             "hymba-1.5b": dict(num_layers=2),
+             "whisper-tiny": dict(num_layers=2, num_encoder_layers=2),
+             "gemma3-1b": dict(num_layers=2)}
+    cfgs = {a: dataclasses.replace(get_config(a), **kw)
+            for a, kw in depth.items()}
+    gpu = _family_models(torch, cfgs, torch.float32)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    from repro_torch.models import Model
+    cpu = {a: (Model(m.cfg, param_dtype=torch.float32, device="cpu",
+                     kv_quant=m.kv_quant), to_cpu(p))
+           for a, (m, p) in gpu.items()}
+    lens = {"vlm0": 288, "vlm1": 288, "int8": 32}
+    toks, margins = {}, {}
+    result = {}
+    for dev, models in (("cuda", gpu), ("cpu", cpu)):
+        _reset_counts(cg)
+        _, rep, wall, counts = _serve_fleet(torch, models, "vliw", n_req=2,
+                                            prompt_len=16, new_tokens=4,
+                                            seed=6, cache_lens=lens)
+        assert rep.unfinished == 0
+        toks[dev] = {r.req_id: r.tokens_out for r in rep.requests}
+        margins[dev] = {k: v["margin"] for k, v in counts.items()}
+        launches = cg.coalesced_gemm.launches
+        if dev == "cuda":
+            assert launches > 0
+            result["launches"] = launches
+        say("card-vs-cpu", model="families", dtype="float32", device=dev,
+            depth=",".join(f"{a}={c.num_layers}" for a, c in cfgs.items()),
+            wall_s=f"{wall:.3f}", launches=launches,
+            min_top2_logit_margin={k: f"{v:.3e}"
+                                   for k, v in margins[dev].items()})
+    diff = _first_difference(toks["cpu"], toks["cuda"])
+    if diff is not None:
+        say("card-vs-cpu", model="families",
+            mismatch=f"req {diff[0]} token {diff[1]}",
+            min_top2_logit_margin=margins)
+        raise AssertionError(f"card and CPU tokens differ: {diff}")
+    say("card-vs-cpu", model="families", tokens="identical(cuda=cpu)",
+        requests=len(toks["cpu"]))
+    del gpu, cpu
+    _free(torch)
+    return result
 
 
 class _RouteLog:
@@ -2006,6 +2489,14 @@ def main(argv=None) -> int:
     timed = {(r["M"], r["K"], r["N"], r["G"], r["dtype"]) for r in shapes}
     shared = timed_phase("serve-shared", phase_serve_shared, torch, cg,
                          timed)
+    tuned, tuned_bms = timed_phase("serve-tuned", phase_serve_tuned, torch,
+                                   cg)
+    flush = torch.zeros(64 << 20, device="cuda")
+    bm_shapes = timed_phase("kernel-bm", phase_kernel_bm, torch, cg,
+                            coalesced_gemm_ref, flush,
+                            tuned_bms | {16, 32, 64})
+    del flush
+    torch.cuda.empty_cache()
     grouped = timed_phase("serve-grouped", phase_serve_grouped, torch, cg,
                           timed)
     moe = timed_phase("serve-moe", phase_serve_moe, torch, cg, timed)
@@ -2013,9 +2504,15 @@ def main(argv=None) -> int:
     mesh = timed_phase("serve-mesh", phase_serve_mesh, torch, cg)
     daemon = timed_phase("serve-daemon", phase_serve_daemon, torch, cg)
     timed_phase("serve-cli", phase_serve_cli, torch)
+    # after the mesh and the daemon: the free memory it leaves lower
+    # (printed at its end) cut serve-mesh's depth when it ran before it
+    families = timed_phase("serve-families", phase_serve_families, torch,
+                           cg)
     cpu = timed_phase("card-vs-cpu", phase_card_vs_cpu, torch, cg)
     cpu_nondense = timed_phase("card-vs-cpu (moe, ssm)",
                                phase_card_vs_cpu_nondense, torch, cg)
+    cpu_families = timed_phase("card-vs-cpu (families)",
+                               phase_card_vs_cpu_families, torch, cg)
     rnn = timed_phase("rnn-matvec", phase_rnn_matvec, torch, cg, gv)
     attn = timed_phase("windowed-attention", phase_windowed_attention,
                        torch, fa)
@@ -2047,6 +2544,11 @@ def main(argv=None) -> int:
                                    ("card-vs-cpu", cpu))
                 for _, regime in REGIMES}
     by_phase.update({f"card-vs-cpu {k}": n for k, n in cpu_nondense.items()})
+    by_phase["card-vs-cpu families (stacked)"] = cpu_families["launches"]
+    by_phase.update({f"serve-tuned ({label}, stacked)": run["launches"]
+                     for label, run in tuned.items()})
+    by_phase["serve-families (vliw, stacked)"] = \
+        families["vliw"]["launches"]
     by_phase.update({f"serve-mesh (stacked, {n} device{'s' * (n > 1)})":
                      mesh[n]["launches"] for n in (1, 2)})
     by_phase.update({
@@ -2073,6 +2575,10 @@ def main(argv=None) -> int:
               f"q/k/v [{a_head['BH']},{a_head['S']},{a_head['D']}], "
               f"window {a_head['window']}"),
     ]
+    kernels[0]["tuned_bm"] = bm_shapes
+    kernels[0]["launches_by_bm"] = {
+        f"serve-tuned ({label})": run["launches_by_bm"]
+        for label, run in tuned.items()}
     kernels[0]["launches_by_shape"] = {
         f"{phase} ({regime})": out[regime]["launches_by_shape"]
         for phase, out in (("serve-shared", shared),

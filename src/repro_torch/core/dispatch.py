@@ -62,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.clustering import matvec_weight_key
+from repro_torch.core.costmodel import BlockConfig
 from repro_torch.core.kernelspec import KernelOp
 from repro_torch.core.plancache import PlanCache
 from repro_torch.core.schedtrace import OperandIdentityHazard
@@ -299,13 +300,24 @@ class SuperkernelExecutor:
     # ------------------------------------------------------------------
     def execute(self, ops: Sequence[KernelOp], *,
                 shared_operand: bool = False,
-                device: int = 0) -> List[torch.Tensor]:
+                device: int = 0,
+                block: Optional[BlockConfig] = None) -> List[torch.Tensor]:
         """Execute a planned group on mesh slot ``device``; returns
         per-problem outputs in op order.
 
         Each op carries its operand binding (``op.payload`` =
         (activation, weight, weight_key), attached by
-        ``JitSession._push_op``)."""
+        ``JitSession._push_op``). ``block`` is the group's live-tuned tile
+        (``VLIWJit(live_tune=True)``; None keeps the executor's ``bm``).
+        Its ``bm`` drives this dispatch: the m-tile bucket, the per-problem
+        row padding, the group ids and the ``coalesced_gemm`` launch. A
+        real row's result does not depend on it (the kernel's summation
+        order is a function of K alone), so tuned and untuned runs give the
+        same tokens. Its ``bn`` and ``bk`` stay modelled (the cost model's
+        estimate and the trace): the kernel keeps its 128-column block and
+        its K-only split, and a ``bk`` that reached it would change a row's
+        summation order. The packed weights depend on (K, N) alone, so a
+        change of tuned block repacks nothing."""
         # pack in CANONICAL op order so the same set of ops in another
         # order hits the same packed-weight entry; outputs are restored to
         # call order below
@@ -329,7 +341,8 @@ class SuperkernelExecutor:
                        for i in order), shared_operand, device)
         canon = self.execute_problems(problems, wkeys,
                                       shared_operand=shared_operand,
-                                      group=group, device=device)
+                                      group=group, device=device,
+                                      block=block)
         outs: List[Optional[torch.Tensor]] = [None] * len(ops)
         for pos, i in enumerate(order):
             outs[i] = canon[pos]
@@ -337,8 +350,13 @@ class SuperkernelExecutor:
 
     def execute_problems(self, problems, wkeys, *,
                          shared_operand: bool = False, group=None,
-                         device: int = 0) -> List[torch.Tensor]:
-        bm = self.bm
+                         device: int = 0,
+                         block: Optional[BlockConfig] = None
+                         ) -> List[torch.Tensor]:
+        # the live-tuned m-tile (see ``execute``); the tuner's candidates
+        # are powers of two, which the m-tile bucketing relies on
+        bm = self.bm if block is None else block.bm
+        assert bm & (bm - 1) == 0, f"bm must be a power of two, got {bm}"
         acts = tuple(a for a, _ in problems)
         ws = [w for _, w in problems]
         G = len(acts)

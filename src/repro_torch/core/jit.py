@@ -67,7 +67,14 @@ out projection. In the stacked regime an MoE body adds three expert packs
 of ``Lsub·E`` matrices, and an SSM model is ONE body over all its layers.
 The glue calls the functions ``Model.decode_step`` calls (``models/moe``,
 ``models/ssm``), so the recurrence and the capacity/drop rules have one
-copy.
+copy. A vlm tenant decodes through the dense template (its text path).
+
+Live tuning (``VLIWJit(live_tune=True)``): every coalescer consults a
+``LiveTuner`` per plan, which tunes the group's (bm, bn, bk) once per
+group signature into the jit's ``tune_cache`` (a mesh device's tuner keys
+it with the device id). ``tick`` hands the plan's block to the executor
+and to the stacked bodies, whose launches take its ``bm``; ``bn`` and
+``bk`` stay modelled (``SuperkernelExecutor.execute``).
 """
 from __future__ import annotations
 
@@ -81,11 +88,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.autotuner import LiveTuner
 from repro_torch.core.clustering import (is_expert_op, op_weight_identity,
                                          op_weight_key, shared_weight_key,
                                          weight_key)
 from repro_torch.core.coalescer import Coalescer
-from repro_torch.core.costmodel import CostModel, GemmShape, H100
+from repro_torch.core.costmodel import (BlockConfig, CostModel, GemmShape,
+                                        H100)
 from repro_torch.core.dispatch import (DispatchStats, SuperkernelExecutor,
                                        _pad_rows_cols, _tile_bucket)
 from repro_torch.core.kernelspec import KernelOp, make_op, op_aspect
@@ -180,10 +189,11 @@ class StackedGemmStage:
     weight_key: Tuple              # clustering.weight_key("body", stack=...)
     operands: List[StackedOperand]
     layers: int                    # hi - lo
-    # run(env, {operand tag -> padded stacked tensor}, executor): runs the
-    # body and writes its results (residual stream, cache chunk) to env
+    # run(env, {operand tag -> padded stacked tensor}, executor, block):
+    # runs the body and writes its results (residual stream, cache chunk)
+    # to env; ``block`` is the dispatch's live-tuned tile or None
     run: Callable[[Dict[str, Any], Dict[str, torch.Tensor],
-                   SuperkernelExecutor], None]
+                   SuperkernelExecutor, Optional[BlockConfig]], None]
     reads: Optional[Tuple] = None
     writes: Optional[Tuple] = None
 
@@ -192,21 +202,24 @@ Stage = Any  # GemmStage | GlueStage | StackedGemmStage
 
 
 def _scan_gemm(a: torch.Tensor, w_pad: torch.Tensor, n_real: int,
-               ex: SuperkernelExecutor) -> torch.Tensor:
+               ex: SuperkernelExecutor,
+               block: Optional[BlockConfig] = None) -> torch.Tensor:
     """One GEMM inside a layer body, replicating the executor's dispatch
     of a lone op exactly: the same m-tile bucket, the same padded (K, N)
     envelope (``w_pad`` is one layer of a cached ``stacked_operand``), one
     ``coalesced_gemm`` launch with G = 1 and all-zero group ids. So a
     stacked body is bitwise equal to the per-layer path dispatching each
     stage. It calls the kernel's wrapper directly, so the wrapper's launch
-    counters count it. The JAX package's ``bn`` / ``bk`` have no
-    counterpart: the CUDA kernel fixes its own tile geometry."""
+    counters count it. ``block`` is the live-tuned tile of the dispatch
+    (None: the executor's default); only its ``bm`` reaches the launch, as
+    in ``SuperkernelExecutor.execute``."""
+    bm = ex.bm if block is None else block.bm
     m = int(a.shape[0])
     K = int(w_pad.shape[-2])
-    m_tiles = _tile_bucket([m], ex.bm)
-    ap = _pad_rows_cols(a, m_tiles * ex.bm, K).contiguous()
+    m_tiles = _tile_bucket([m], bm)
+    ap = _pad_rows_cols(a, m_tiles * bm, K).contiguous()
     out = coalesced_gemm(ap, w_pad[None],
-                         ex.group_ids((0,) * m_tiles, a.device), bm=ex.bm)
+                         ex.group_ids((0,) * m_tiles, a.device), bm=bm)
     return out[:m, :n_real]
 
 
@@ -670,35 +683,36 @@ def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
         C = moe_lib.capacity(m_rows, cfg.moe)
         routers = _stack_slice(blocks["moe"]["router"], lo, hi)
 
-    def run(env, padded, ex):
+    def run(env, padded, ex, block=None):
         attend = attend_for(env, is_global)
+
+        def gemm(a, tag, j, n):
+            return _scan_gemm(a, padded[tag][j], n, ex, block)
+
         x = env["x"]
         ks, vs = [], []
         for i in range(Lsub):
             h = rmsnorm(x, ln1s[i], eps)
             attn_out, k_new, v_new = attend(
-                lo + i, _scan_gemm(h, padded["attn_wq"][i], nq, ex),
-                _scan_gemm(h, padded["attn_wk"][i], nkv, ex),
-                _scan_gemm(h, padded["attn_wv"][i], nkv, ex), h.dtype)
+                lo + i, gemm(h, "attn_wq", i, nq), gemm(h, "attn_wk", i, nkv),
+                gemm(h, "attn_wv", i, nkv), h.dtype)
             ks.append(k_new)
             vs.append(v_new)
-            x = x + _scan_gemm(attn_out, padded["attn_wo"][i], d, ex)
+            x = x + gemm(attn_out, "attn_wo", i, d)
             h2 = rmsnorm(x, ln2s[i], eps)
             if moe:
                 buf, meta, wgt = _moe_route(cfg, routers[i], h2, C)
                 downs = []
                 for e in range(E):
                     j = i * E + e
-                    act = silu_mul(
-                        _scan_gemm(buf[e], padded["expert_gate"][j], dff, ex),
-                        _scan_gemm(buf[e], padded["expert_up"][j], dff, ex))
-                    downs.append(_scan_gemm(act, padded["expert_down"][j], d,
-                                            ex))
+                    act = silu_mul(gemm(buf[e], "expert_gate", j, dff),
+                                   gemm(buf[e], "expert_up", j, dff))
+                    downs.append(gemm(act, "expert_down", j, d))
                 x = x + _moe_combine(cfg, downs, wgt, meta, h2)
                 continue
-            act = silu_mul(_scan_gemm(h2, padded["ffn_gate"][i], dff, ex),
-                           _scan_gemm(h2, padded["ffn_up"][i], dff, ex))
-            x = x + _scan_gemm(act, padded["ffn_down"][i], d, ex)
+            act = silu_mul(gemm(h2, "ffn_gate", i, dff),
+                           gemm(h2, "ffn_up", i, dff))
+            x = x + gemm(act, "ffn_down", i, d)
         env["x"] = x
         env["new_layers"]["k"].append(torch.stack(ks))
         env["new_layers"]["v"].append(torch.stack(vs))
@@ -834,11 +848,13 @@ def build_dense_decode_template(model, params, batch: int, *,
     """Compile the decode step of a dense GQA model into a ProgramTemplate.
 
     Equivalent to ``Model.decode_step`` but with every projection GEMM
-    declared to the JIT. Per-step inputs (tokens [B, 1], KV cache) are read
-    from the bound program's env, so one template serves every step.
+    declared to the JIT. Supported: arch_type "dense" and the text path of
+    "vlm" (its decode step is a dense stack; the patch prefix lives in the
+    cache from the prompt). Per-step inputs (tokens [B, 1], KV cache) are
+    read from the bound program's env, so one template serves every step.
     ``stacked=True`` (default) emits one layer body per homogeneous
     sub-stack; ``stacked=False`` the per-layer stages."""
-    assert model.cfg.arch_type == "dense", model.cfg.arch_type
+    assert model.cfg.arch_type in ("dense", "vlm"), model.cfg.arch_type
     if stacked:
         return _build_stacked_gqa_decode_template(model, params, batch)
     return _build_gqa_decode_template(model, params, batch)
@@ -994,16 +1010,17 @@ def _build_stacked_ssm_decode_template(model, params, batch: int
              if k not in ("in_proj", "out_proj")} for l in range(L)]
     ln1s = blocks["ln1"]
 
-    def run(env, padded, ex):
+    def run(env, padded, ex, block=None):
         layers = env["cache"]["layers"]
         x = env["x"]
         convs, hs = [], []
         for l in range(L):
             hh = rmsnorm(x, ln1s[l], eps)
-            zxbcdt = _scan_gemm(hh, padded["ssm_in_proj"][l], n_in, ex)
+            zxbcdt = _scan_gemm(hh, padded["ssm_in_proj"][l], n_in, ex,
+                                block)
             y, new_c = _ssm_core(cfg, rest[l], zxbcdt, layers["conv"][l],
                                  layers["h"][l])
-            x = x + _scan_gemm(y, padded["ssm_out_proj"][l], d, ex)
+            x = x + _scan_gemm(y, padded["ssm_out_proj"][l], d, ex, block)
             convs.append(new_c["conv"])
             hs.append(new_c["h"])
         env["x"] = x
@@ -1312,6 +1329,11 @@ class JitStats:
         default_factory=PlanCacheStats)
     block_plans: PlanCacheStats = dataclasses.field(
         default_factory=PlanCacheStats)
+    # live-tuner cache deltas (``VLIWJit.tune_cache``): one access per
+    # planned dispatch when live tuning is on (zeros otherwise), a miss
+    # only on a group signature never seen before
+    tune_cache: PlanCacheStats = dataclasses.field(
+        default_factory=PlanCacheStats)
     # dispatch fast-path deltas (core/dispatch.py)
     dispatch: DispatchStats = dataclasses.field(default_factory=DispatchStats)
     # schedule-certifier counters (``ServingEngine(certify=True)``):
@@ -1376,8 +1398,14 @@ class JitSession:
         if device == 0 and cost is None:
             coalescer = jit.coalescer
         else:
+            # and its own tuner over its own cost model, sharing the jit's
+            # tune cache (the device id is in every key)
+            tuner = None if jit.tuner is None else \
+                LiveTuner(self.cost, jit.tune_cache,
+                          objective=jit.tune_objective, device_id=device)
             coalescer = Coalescer(self.cost, max_group=jit.max_group,
-                                  memo=jit.block_plans, device_id=device)
+                                  memo=jit.block_plans, device_id=device,
+                                  tuner=tuner)
         self.sched = OoOScheduler(self.cost, coalescer, jit.sched_cfg,
                                   device=device)
         # expert-parallel span per stream: a stream whose MoE experts span
@@ -1396,11 +1424,13 @@ class JitSession:
         # counters so this session reports only its own delta
         self._plan_base = jit.plan_cache.stats.copy()
         self._block_base = jit.block_plans.stats.copy()
+        self._tune_base = jit.tune_cache.stats.copy()
         self._dispatch_base = jit.executor.stats.copy()
 
     def _sync_cache_stats(self) -> None:
         self.stats.plan_cache = self.jit.plan_cache.stats - self._plan_base
         self.stats.block_plans = self.jit.block_plans.stats - self._block_base
+        self.stats.tune_cache = self.jit.tune_cache.stats - self._tune_base
         self.stats.dispatch = self.jit.executor.stats - self._dispatch_base
 
     @property
@@ -1532,13 +1562,16 @@ class JitSession:
             env_writes=tuple(writes) if writes is not None else ("*",),
             env_id=id(prog.env), device=op.device)
 
-    def _run_stacked(self, ops, completed: List[KernelProgram]) -> None:
+    def _run_stacked(self, ops, completed: List[KernelProgram],
+                     block: Optional[BlockConfig] = None) -> None:
         """Dispatch a coalesced group of layer-body ops: fetch each op's
         stacked operands from the executor's persistent cache, then run the
         bodies back to back. The operands' cache accesses collapse into ONE
         hit or miss and one dispatch per op (a miss if any operand had to
         be packed), so ``weight_hits + weight_misses == dispatches`` holds
-        across plain and stacked dispatch alike."""
+        across plain and stacked dispatch alike. ``block`` is the plan's
+        live-tuned tile (None: the executor's default); the bodies'
+        launches take its ``bm``."""
         ex = self.jit.executor
         for op in ops:
             prog, st = self.live.pop(op.op_id)
@@ -1560,7 +1593,7 @@ class JitSession:
                 ex.stats.weight_hits += 1
             ex.stats.dispatches += 1
             builds0 = build_count()
-            st.run(prog.env, padded, ex)
+            st.run(prog.env, padded, ex, block)
             ex.stats.retraces += build_count() - builds0
             self._advance(prog, completed)
 
@@ -1604,6 +1637,10 @@ class JitSession:
         # one all-to-all covers the group (a per-layer exchange, not per
         # member): charge the max, as Coalescer.plan does for est_time_s
         coll = max((op.collective_s for op in plan.ops), default=0.0)
+        # live tuning: the plan's block is the tile the tuner chose for
+        # this group's signature, and it flows into the launches; off,
+        # the executor keeps its default
+        tuned_block = plan.block if self.jit.live_tune else None
         if stacked:
             # coalesce_key keeps stacked and plain ops in disjoint buckets;
             # the bodies run after the stats below (_run_stacked)
@@ -1613,7 +1650,8 @@ class JitSession:
         else:
             outs = self.jit.executor.execute(plan.ops,
                                              shared_operand=shared,
-                                             device=self.device)
+                                             device=self.device,
+                                             block=tuned_block)
             serial_shapes = [o.shape for o in plan.ops]
             t = self.cost.coalesced_time(serial_shapes, plan.block,
                                          shared_operand=shared) + coll
@@ -1634,7 +1672,7 @@ class JitSession:
         stats.modeled_serial_time_s += self.cost.time_multiplexed(
             serial_shapes, plan.block) + coll
         if stacked:
-            self._run_stacked(plan.ops, completed)
+            self._run_stacked(plan.ops, completed, block=tuned_block)
         else:
             for op, out in zip(plan.ops, outs):
                 prog, st = self.live.pop(op.op_id)
@@ -1654,7 +1692,9 @@ class VLIWJit:
                  max_group: int = 16, bm: int = 8,
                  plan_capacity: int = 128,
                  weight_capacity: Optional[int] = None,
-                 weight_budget_bytes: Optional[int] = 1 << 30):
+                 weight_budget_bytes: Optional[int] = 1 << 30,
+                 live_tune: bool = False,
+                 tune_objective: str = "collaborative"):
         # the modelled device defaults to the H100 (spec-sheet values;
         # every time the cost model derives is modelled, not measured)
         self.cost = cost or CostModel(H100)
@@ -1663,8 +1703,21 @@ class VLIWJit:
         self.plan_cache = PlanCache(plan_capacity)
         self.block_plans = PlanCache(plan_capacity * 4)
         self.max_group = max_group
+        # live collaborative autotuning (core/autotuner.LiveTuner): when on,
+        # every coalescer consults the tuner per plan and the tuned block
+        # reaches the dispatch (its bm the kernel's launch; bn / bk stay
+        # modelled, see SuperkernelExecutor.execute). Tune results live in
+        # their own device-keyed cache beside the block plans; it exists
+        # with tuning off too, its counters then stay zero.
+        # tune_objective="greedy" is the paper's Table 1 ablation.
+        self.tune_cache = PlanCache(plan_capacity * 4)
+        self.live_tune = live_tune
+        self.tune_objective = tune_objective
+        self.tuner = LiveTuner(self.cost, self.tune_cache,
+                               objective=tune_objective) if live_tune \
+            else None
         self.coalescer = Coalescer(self.cost, max_group=max_group,
-                                   memo=self.block_plans)
+                                   memo=self.block_plans, tuner=self.tuner)
         self.sched_cfg = sched_cfg
         self.bm = bm
         # packed weight operands cached across sessions; entries are full

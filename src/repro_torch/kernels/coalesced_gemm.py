@@ -29,8 +29,9 @@ raises; nothing falls back to the plain version.
 On a CPU tensor the wrapper returns the plain PyTorch version
 (``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
 ``coalesced_gemm.launches`` counts launches, ``coalesced_gemm.max_groups``
-records the largest G launched and ``coalesced_gemm.launches_by_shape``
-counts launches by (M, K, N, G, dtype).
+records the largest G launched, ``coalesced_gemm.launches_by_shape``
+counts launches by (M, K, N, G, dtype) and ``coalesced_gemm.launches_by_bm``
+by m-tile (the live tuner's ``bm`` where it reached the launch).
 
 B is the packed weight operand the executor caches, identity-guarded on
 the ORIGINAL weight tensors (``core/dispatch.py``): callers hand it the
@@ -207,9 +208,12 @@ def coalesced_gemm(a_packed: torch.Tensor, b_stacked: torch.Tensor,
     key = (M, K, N, G, dtype)
     shapes = coalesced_gemm.launches_by_shape
     shapes[key] = shapes.get(key, 0) + 1
+    by_bm = coalesced_gemm.launches_by_bm
+    by_bm[bm] = by_bm.get(bm, 0) + 1
     return out
 
 
 coalesced_gemm.launches = 0
 coalesced_gemm.max_groups = 0
 coalesced_gemm.launches_by_shape = {}
+coalesced_gemm.launches_by_bm = {}

@@ -9,7 +9,7 @@ Conventions, as in the JAX package's ``models/layers.py``:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -107,6 +107,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embeddings [seq, d_model]
+    (fp32), computed as the JAX package computes them."""
+    half = d_model // 2
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(half, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(-math.log(10000.0) * dim / max(half - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,17 @@
 """Model facade: embedding + stack + LM head, with ``init``, ``init_cache``,
 ``prefill`` and ``decode_step``.
 
-The counterpart of the JAX package's ``models/model.py`` for arch_type
-"dense", "moe" and "ssm". The other families (hybrid, vlm, audio), the
-int8 KV cache and the training entry points are not ported yet (ROADMAP
-queue 1, items 12 and 13).
+The counterpart of the JAX package's ``models/model.py`` for every family:
+dense, moe, ssm, hybrid (hymba), vlm (internvl2: patch embeddings ahead of
+the text, decoded as a dense stack) and audio (whisper: an encoder over
+frame embeddings and a decoder with cross attention), and the int8 KV cache
+of any attention family (``kv_quant``). The training entry points are not
+ported yet (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,40 +21,32 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
+from repro_torch.models.kvquant import quantize
 from repro_torch.models.layers import (ROPE_TABLE_POSITIONS, Params,
-                                       dense_init_, embed_init_, rmsnorm)
+                                       dense_init_, embed_init_, rmsnorm,
+                                       sinusoidal_positions)
 
 Cache = Dict[str, Any]
 
 
-# the families this package serves; the rest raise (ROADMAP queue 1)
-PORTED_ARCHS = ("dense", "moe", "ssm")
-
-
 class Model:
-    """Functional model wrapper for one ``ModelConfig`` of a ported family
-    (``PORTED_ARCHS``).
+    """Functional model wrapper for one ``ModelConfig``.
 
     Methods are functions of (params, inputs); the object holds the static
     configuration, the param dtype and the device. ``device`` defaults to
-    the current CUDA device and raises when there is none.
+    the current CUDA device and raises when there is none. ``kv_quant``
+    asks for an int8 KV cache; it is silently off for the families whose
+    decode cache is not a decoder-only attention cache (ssm, audio), as in
+    the JAX package.
     """
 
     def __init__(self, config: ModelConfig,
                  param_dtype: torch.dtype = torch.bfloat16,
                  device: DeviceLike = None, kv_quant: bool = False):
-        if config.arch_type not in PORTED_ARCHS:
-            raise NotImplementedError(
-                f"arch_type {config.arch_type!r} is not ported yet: the "
-                f"port serves {', '.join(PORTED_ARCHS)} (ROADMAP queue 1 "
-                f"item 12)")
-        if kv_quant:
-            raise NotImplementedError(
-                "the int8 KV cache (kv_quant=True) is not ported yet "
-                "(ROADMAP queue 1 item 12)")
         self.cfg = config
         self.dtype = param_dtype
         self.device = resolve_device(device)
+        self.kv_quant = kv_quant and config.arch_type not in ("ssm", "audio")
 
     # ------------------------------------------------------------------
     # init
@@ -72,6 +66,22 @@ class Model:
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
         g = generator
+
+        def attention(n):
+            return {
+                "wq": dense_init_(empty(n, d, cfg.num_heads * hd), g),
+                "wk": dense_init_(empty(n, d, cfg.num_kv_heads * hd), g),
+                "wv": dense_init_(empty(n, d, cfg.num_kv_heads * hd), g),
+                "wo": dense_init_(empty(n, cfg.num_heads * hd, d), g),
+            }
+
+        def gated_mlp(n):
+            return {
+                "w_gate": dense_init_(empty(n, d, cfg.d_ff), g),
+                "w_up": dense_init_(empty(n, d, cfg.d_ff), g),
+                "w_down": dense_init_(empty(n, cfg.d_ff, d), g),
+            }
+
         params: Params = {
             "embed": embed_init_(empty(V, d), g),
             "final_norm": zeros(d),
@@ -79,26 +89,30 @@ class Model:
         if not cfg.tie_embeddings:
             params["unembed"] = embed_init_(empty(d, V), g)
         blocks: Params = {"ln1": zeros(L, d), "ln2": zeros(L, d)}
-        if cfg.arch_type == "ssm":
+        if cfg.arch_type != "ssm":
+            blocks["attn"] = attention(L)
+        if cfg.has_ssm:
             blocks["mamba"] = ssm_lib.init_mamba(L, d, cfg.ssm, self.dtype,
                                                  self.device, g)
-        else:
-            blocks["attn"] = {
-                "wq": dense_init_(empty(L, d, cfg.num_heads * hd), g),
-                "wk": dense_init_(empty(L, d, cfg.num_kv_heads * hd), g),
-                "wv": dense_init_(empty(L, d, cfg.num_kv_heads * hd), g),
-                "wo": dense_init_(empty(L, cfg.num_heads * hd, d), g),
-            }
         if cfg.arch_type == "moe":
             blocks["moe"] = moe_lib.init_moe(L, d, cfg.d_ff, cfg.moe,
                                              self.dtype, self.device, g)
-        elif cfg.arch_type == "dense":
-            blocks["mlp"] = {
-                "w_gate": dense_init_(empty(L, d, cfg.d_ff), g),
-                "w_up": dense_init_(empty(L, d, cfg.d_ff), g),
-                "w_down": dense_init_(empty(L, cfg.d_ff, d), g),
-            }
+        elif cfg.arch_type != "ssm":
+            blocks["mlp"] = gated_mlp(L)
+        if cfg.is_encdec:
+            Le = cfg.num_encoder_layers
+            params["enc_blocks"] = {"ln1": zeros(Le, d), "ln2": zeros(Le, d),
+                                    "attn": attention(Le),
+                                    "mlp": gated_mlp(Le)}
+            params["enc_norm"] = zeros(d)
+            blocks["ln_cross"] = zeros(L, d)
+            blocks["cross"] = attention(L)
         params["blocks"] = blocks
+        if cfg.arch_type == "vlm":
+            # projector stub: patch embeddings arrive pre-projected; a
+            # learned scale keeps the projector path in the params
+            params["patch_scale"] = torch.ones(d, dtype=self.dtype,
+                                               device=self.device)
         return params
 
     # ------------------------------------------------------------------
@@ -115,50 +129,96 @@ class Model:
             return x @ params["embed"].T
         return x @ params["unembed"]
 
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """The whisper encoder over stubbed frame embeddings [B, T, d]."""
+        pos = sinusoidal_positions(frames.shape[1], self.cfg.d_model,
+                                   frames.device)
+        x = frames + pos[None].to(frames.dtype)
+        x = tfm.encoder_stack(params["enc_blocks"], x, self.cfg)
+        return rmsnorm(x, params["enc_norm"], self.cfg.norm_eps)
+
+    def _decoder_input(self, params: Params,
+                       batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The decoder stack's input embedding for this family: the patch
+        prefix ahead of the text for vlm, absolute sinusoidal positions
+        for audio."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        if cfg.arch_type == "vlm":
+            patches = batch["patch_embeds"].to(x.dtype) * params["patch_scale"]
+            x = torch.cat([patches, x], dim=1)
+        if cfg.is_encdec:
+            pos = sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
+            x = x + pos[None].to(x.dtype)
+        return x
+
     # ------------------------------------------------------------------
     # serving: prefill + decode
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, seq_len: int) -> Cache:
+    def init_cache(self, batch: int, seq_len: int,
+                   enc_len: Optional[int] = None) -> Cache:
         """Zeroed decode cache with room for ``seq_len`` positions: k / v
-        [L, B, Hkv, seq_len, hd], or for an SSM the conv window
-        [L, B, d_conv - 1, d_inner + 2N] and the fp32 SSD state
-        [L, B, H, P, N]."""
+        [L, B, Hkv, seq_len, hd] (int8 with ``k_scale`` / ``v_scale``
+        [.., 1] under ``kv_quant``), the SSM's conv window
+        [L, B, d_conv - 1, d_inner + 2N] and fp32 state [L, B, H, P, N]
+        (ssm, hybrid), and whisper's cross k / v of ``enc_len`` positions
+        (default ``encoder_seq_len``)."""
         if seq_len > ROPE_TABLE_POSITIONS:
             raise ValueError(f"cache length {seq_len} exceeds the rope table "
                              f"({ROPE_TABLE_POSITIONS} positions)")
         cfg = self.cfg
         L, hd = cfg.num_layers, cfg.resolved_head_dim
+
+        def zeros(shape, dtype=self.dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
         layers: Dict[str, torch.Tensor] = {}
-        if cfg.arch_type == "ssm":
+        if cfg.arch_type != "ssm":
+            shape = (L, batch, cfg.num_kv_heads, seq_len, hd)
+            kv_dtype = torch.int8 if self.kv_quant else self.dtype
+            layers["k"] = zeros(shape, kv_dtype)
+            layers["v"] = zeros(shape, kv_dtype)
+            if self.kv_quant:
+                layers["k_scale"] = zeros(shape[:-1] + (1,))
+                layers["v_scale"] = zeros(shape[:-1] + (1,))
+        if cfg.has_ssm:
             one = ssm_lib.init_ssm_cache(batch, cfg.d_model, cfg.ssm,
                                          self.dtype, self.device)
             for k, v in one.items():
                 layers[k] = v[None].repeat((L,) + (1,) * v.dim())
-        else:
-            shape = (L, batch, cfg.num_kv_heads, seq_len, hd)
-            for k in ("k", "v"):
-                layers[k] = torch.zeros(shape, dtype=self.dtype,
-                                        device=self.device)
-        return {
-            "pos": torch.zeros((batch,), dtype=torch.int32,
-                               device=self.device),
-            "layers": layers,
-        }
+        if cfg.is_encdec:
+            T = enc_len or cfg.encoder_seq_len
+            shape = (L, batch, cfg.num_kv_heads, T, hd)
+            layers["cross_k"] = zeros(shape)
+            layers["cross_v"] = zeros(shape)
+        return {"pos": zeros((batch,), torch.int32), "layers": layers}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 cache_len: int) -> Tuple[torch.Tensor, Cache]:
-        """Process the prompt; return (last-position logits [B, 1, V], the
-        filled cache: k / v padded to ``cache_len`` positions, or the SSM's
-        conv window and state after the prompt)."""
+        """Process the prompt (``tokens``, and ``patch_embeds`` [B, P, d]
+        for vlm or ``frames`` [B, T, d] for audio); return (last-position
+        logits [B, 1, V], the filled cache: k / v padded to ``cache_len``
+        positions and quantized under ``kv_quant``, the SSM's conv window
+        and state after the prompt, whisper's cross k / v)."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = self._decoder_input(params, batch)
         B, S, _ = x.shape
-        y, layers = tfm.stack_prefill(params["blocks"], x, cfg,
-                                      cfg.global_layer_flags())
+        if cfg.is_encdec:
+            mem = self._encode(params, batch["frames"])
+            y, layers = tfm.encdec_decoder_full(params["blocks"], x, mem, cfg,
+                                                with_cache=True)
+        else:
+            y, layers = tfm.stack_prefill(params["blocks"], x, cfg,
+                                          cfg.global_layer_flags())
         if "k" in layers:                  # the SSM cache has no positions
             pad = (0, 0, 0, cache_len - S)
             layers["k"] = F.pad(layers["k"], pad)
             layers["v"] = F.pad(layers["v"], pad)
+            if self.kv_quant:
+                layers["k"], layers["k_scale"] = quantize(
+                    layers["k"], scale_dtype=self.dtype)
+                layers["v"], layers["v_scale"] = quantize(
+                    layers["v"], scale_dtype=self.dtype)
         logits = self._logits(params, y[:, -1:])
         cache = {"pos": torch.full((B,), S, dtype=torch.int32,
                                    device=x.device),
@@ -171,7 +231,18 @@ class Model:
         cfg = self.cfg
         x = self._embed(params, tokens)
         pos = cache["pos"]
-        y, layers = tfm.stack_decode(params["blocks"], x, cache["layers"],
-                                     pos, cfg, cfg.global_layer_flags())
+        if cfg.is_encdec:
+            # each row's new token at its absolute sinusoidal position (an
+            # index past the table clamps to its end, as a JAX gather does)
+            S = int(cache["layers"]["k"].shape[3])
+            table = sinusoidal_positions(S, cfg.d_model, x.device)
+            posv = torch.broadcast_to(pos, (tokens.shape[0],)).long()
+            x = x + table[posv.clamp(0, S - 1)][:, None].to(x.dtype)
+            y, layers = tfm.encdec_decoder_decode(params["blocks"], x,
+                                                  cache["layers"], pos, cfg)
+        else:
+            y, layers = tfm.stack_decode(params["blocks"], x,
+                                         cache["layers"], pos, cfg,
+                                         cfg.global_layer_flags())
         logits = self._logits(params, y)
         return logits, {"pos": pos + 1, "layers": layers}

@@ -1,11 +1,19 @@
-"""The decoder stacks of the dense, MoE and SSM families: prefill and
-single-token decode over stacked per-layer params (a loop over the leading
-layer axis).
+"""The decoder stacks of every family: prefill and single-token decode over
+stacked per-layer params (a loop over the leading layer axis), and the
+whisper encoder and decoder.
 
 An MoE layer is GQA attention followed by the MoE FFN (``models/moe.py``)
 in place of the gated MLP; an SSM layer is a Mamba-2 block
 (``models/ssm.py``) on the pre-norm input and no FFN, and its cache is the
-conv window and the SSD state (``conv`` / ``h``) instead of k / v.
+conv window and the SSD state (``conv`` / ``h``) instead of k / v. A hybrid
+(hymba) layer runs attention and an SSM head in parallel on the pre-norm
+input and fuses them as ``0.5 * (a + s)``, then the gated MLP; its cache
+holds k / v and conv / h. An int8 KV cache (``k_scale`` / ``v_scale`` in
+the cache) is quantized on write and dequantized on read. Whisper (audio)
+has no rope: its positions are absolute sinusoids added to the input
+(``models/model.py``), its encoder is bidirectional and its decoder layers
+add cross attention over the encoder memory, whose K/V sit in the decode
+cache (``cross_k`` / ``cross_v``).
 
 The JAX package scans over layers and pins activations with
 ``distributed.hints.constrain``; neither has a counterpart needed on one
@@ -40,24 +48,32 @@ def _project_kv(p: Params, h: torch.Tensor, cfg: ModelConfig,
     B, S = h.shape[0], h.shape[1]
     k = (h @ p["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
     v = (h @ p["attn"]["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.arch_type != "audio":
+        k = apply_rope(k, positions, cfg.rope_theta)
     return k.transpose(1, 2), v.transpose(1, 2)             # [B,Hkv,S,hd]
 
 
 def _ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The layer's FFN on the post-norm input [B, S, d]: the MoE FFN over
     the B·S tokens as one group, or the gated MLP."""
-    if cfg.has_moe:
+    if cfg.has_moe and cfg.arch_type != "hybrid":
         B, S, d = h2.shape
         y, _aux = moe_lib.moe_ffn(p["moe"], h2.reshape(B * S, d), cfg.moe)
         return y.reshape(B, S, d)
     return mlp(p["mlp"], h2)
 
 
+def _attn_kw(cfg: ModelConfig, is_global: bool) -> Dict[str, Any]:
+    return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                is_global=is_global, window=cfg.window_size,
+                use_rope=cfg.arch_type != "audio")
+
+
 def stack_prefill(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
                   flags: Sequence[bool]) -> Tuple[torch.Tensor, Cache]:
     """Full forward emitting the per-layer decode cache: [L, B, Hkv, S, hd]
-    k / v, or the SSM's conv window and state."""
+    k / v, and / or the SSM's conv window and state."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     out: Dict[str, list] = {}
@@ -74,11 +90,16 @@ def stack_prefill(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
         k, v = _project_kv(p, h, cfg, positions)
         out.setdefault("k", []).append(k)
         out.setdefault("v", []).append(v)
-        x = x + attn.attention_full(
-            p["attn"], h, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            rope_theta=cfg.rope_theta, is_global=is_global,
-            window=cfg.window_size)
+        a = attn.attention_full(p["attn"], h, causal=True,
+                                **_attn_kw(cfg, is_global))
+        if cfg.arch_type == "hybrid":
+            y, st = ssm_lib.ssd_chunked(p["mamba"], h, cfg.ssm,
+                                        return_state=True)
+            for k in ("conv", "h"):
+                out.setdefault(k, []).append(st[k])
+            # hymba fuses the parallel attention and SSM heads by mean
+            a = 0.5 * (a + y)
+        x = x + a
         h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + _ffn(p, h2, cfg)
     return x, {k: torch.stack(v) for k, v in out.items()}
@@ -93,23 +114,120 @@ def stack_decode(stacked: Params, x: torch.Tensor, cache: Cache,
     out: Dict[str, list] = {k: [] for k in cache}
     for l, is_global in enumerate(flags):
         p = _layer(stacked, l)
+        c = {k: v[l] for k, v in cache.items()}
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        new: Dict[str, torch.Tensor] = {}
         if cfg.arch_type == "ssm":
             y, st = ssm_lib.ssd_decode_step(
-                p["mamba"], h, {"conv": cache["conv"][l],
-                                "h": cache["h"][l]}, cfg.ssm)
-            new = st
+                p["mamba"], h, {"conv": c["conv"], "h": c["h"]}, cfg.ssm)
+            new.update(st)
             x = x + y
         else:
-            a, nk, nv = attn.attention_decode(
-                p["attn"], h, cache["k"][l], cache["v"][l], pos,
-                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-                is_global=is_global, window=cfg.window_size)
-            new = {"k": nk, "v": nv}
+            kw = _attn_kw(cfg, is_global)
+            if "k_scale" in c:         # int8 KV cache
+                a, nk, nv, nks, nvs = attn.attention_decode(
+                    p["attn"], h, c["k"], c["v"], pos,
+                    k_scale=c["k_scale"], v_scale=c["v_scale"], **kw)
+                new["k_scale"], new["v_scale"] = nks, nvs
+            else:
+                a, nk, nv = attn.attention_decode(
+                    p["attn"], h, c["k"], c["v"], pos, **kw)
+            new["k"], new["v"] = nk, nv
+            if cfg.arch_type == "hybrid":
+                y, st = ssm_lib.ssd_decode_step(
+                    p["mamba"], h, {"conv": c["conv"], "h": c["h"]},
+                    cfg.ssm)
+                new.update(st)
+                a = 0.5 * (a + y)
             x = x + a
             h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
             x = x + _ffn(p, h2, cfg)
         for k in out:
             out[k].append(new[k].to(cache[k].dtype))
     return x, {k: torch.stack(v) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# whisper: bidirectional encoder; decoder with self + cross attention
+# ---------------------------------------------------------------------------
+
+def encoder_stack(stacked: Params, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The whisper encoder over frame embeddings [B, T, d] (no cache)."""
+    for l in range(int(stacked["ln1"].shape[0])):
+        p = _layer(stacked, l)
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        x = x + attn.attention_full(
+            p["attn"], h, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta, causal=False, use_rope=False)
+        h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp(p["mlp"], h2)
+    return x
+
+
+def encdec_decoder_full(stacked: Params, x: torch.Tensor, mem: torch.Tensor,
+                        cfg: ModelConfig, with_cache: bool = False):
+    """Whisper decoder full-sequence forward; with ``with_cache`` also the
+    decode cache: self k / v of the prompt and cross k / v of the encoder
+    memory, [L, B, Hkv, S or T, hd]."""
+    hd = cfg.resolved_head_dim
+    B, S = x.shape[0], x.shape[1]
+    out: Dict[str, list] = {}
+    for l in range(cfg.num_layers):
+        p = _layer(stacked, l)
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        if with_cache:
+            k = (h @ p["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+            v = (h @ p["attn"]["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+            out.setdefault("k", []).append(k.transpose(1, 2))
+            out.setdefault("v", []).append(v.transpose(1, 2))
+        x = x + attn.attention_full(
+            p["attn"], h, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=hd,
+            rope_theta=cfg.rope_theta, causal=True, use_rope=False)
+        hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+        km, vm = attn.project_memory_kv(p["cross"], mem,
+                                        num_kv_heads=cfg.num_kv_heads,
+                                        head_dim=hd)
+        if with_cache:
+            out.setdefault("cross_k", []).append(km)
+            out.setdefault("cross_v", []).append(vm)
+        x = x + attn.attention_cross(p["cross"], hc, km, vm,
+                                     num_heads=cfg.num_heads,
+                                     num_kv_heads=cfg.num_kv_heads,
+                                     head_dim=hd)
+        h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp(p["mlp"], h2)
+    if with_cache:
+        return x, {k: torch.stack(v) for k, v in out.items()}
+    return x
+
+
+def encdec_decoder_decode(stacked: Params, x: torch.Tensor, cache: Cache,
+                          pos: torch.Tensor, cfg: ModelConfig
+                          ) -> Tuple[torch.Tensor, Cache]:
+    """One-token whisper decode; the cache holds self k / v (updated) and
+    cross_k / cross_v (fixed, passed through)."""
+    hd = cfg.resolved_head_dim
+    ks, vs = [], []
+    for l in range(cfg.num_layers):
+        p = _layer(stacked, l)
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        a, nk, nv = attn.attention_decode(
+            p["attn"], h, cache["k"][l], cache["v"][l], pos,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=hd, rope_theta=cfg.rope_theta, use_rope=False)
+        ks.append(nk)
+        vs.append(nv)
+        x = x + a
+        hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+        x = x + attn.attention_cross(p["cross"], hc, cache["cross_k"][l],
+                                     cache["cross_v"][l],
+                                     num_heads=cfg.num_heads,
+                                     num_kv_heads=cfg.num_kv_heads,
+                                     head_dim=hd)
+        h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp(p["mlp"], h2)
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs),
+               "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}

@@ -1,8 +1,7 @@
 """Multi-tenant serving engine: event-driven OoO serving with live admission.
 
-The counterpart of the JAX package's ``serving/engine.py`` for dense, MoE
-and SSM tenants. Three execution modes, mirroring the paper's comparison
-end to end:
+The counterpart of the JAX package's ``serving/engine.py``. Three execution
+modes, mirroring the paper's comparison end to end:
 
   * "time"    — each request decodes alone, requests strictly serialized
                 (time-multiplexing, §4.1);
@@ -28,8 +27,7 @@ exception, as in the JAX package: it routes its whole slotted batch as one
 group with a per-expert capacity, so a row's tokens can depend on what
 its batchmates hold when drops occur.
 
-Arch support in vliw mode, as in the JAX package (the other families raise
-``NotImplementedError`` in ``Model``):
+Arch support in vliw mode, as in the JAX package:
 
   ==========  ================================  ==========================
   arch_type   decode step                       prompt prefill
@@ -37,15 +35,26 @@ Arch support in vliw mode, as in the JAX package (the other families raise
   dense       KernelProgram                     declared prefill program
                                                 (>= prefill_declare_min;
                                                 analytic below it)
+  vlm         KernelProgram (the dense          analytic (patch prefix,
+              template: its text path)          ``Model.prefill``)
   moe         KernelProgram (router glue +      analytic (``Model.prefill``)
               per-expert GEMMs)
   ssm         KernelProgram (scan recurrence    analytic (``Model.prefill``)
               glue)
+  hybrid      monolithic batched step           analytic
+  audio       monolithic batched step           analytic (encoder included)
+  int8-KV     monolithic batched step           analytic
+  (any arch)
   ==========  ================================  ==========================
 
 ``JitStats.nondense_programs`` counts the MoE / SSM decode programs
-admitted. The baseline modes ("time", "batched") run ``Model.decode_step``
-for every family.
+admitted. A "monolithic batched step" is ``Model.decode_step`` over the
+tenant's slotted batch, interleaved into the same event loop on its home
+device's clock after each scheduler decision. The baseline modes ("time",
+"batched") run ``Model.decode_step`` for every family. A vlm prompt carries
+its patch embeddings (zeros, ``num_patch_tokens`` of them, ahead of the
+text) and an audio prompt its encoder frames (zeros, ``encoder_seq_len``):
+the front ends are stubs, as in the JAX package.
 
 Continuous batching: each tenant owns a slotted decode cache (``max_batch``
 rows, per-row positions). Admission prefills a request and writes its KV
@@ -100,12 +109,13 @@ modelled request cost (``_request_cost_s``) against the device's
 committed backlog and the arrival forecast. Shed requests never take a
 slot and count as SLO misses.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item
-when asked for; the keywords are accepted with the JAX package's defaults):
-live tuning (``live_tune``, ``tune_objective``). The JAX package's
-monolithic fallback for tenants without a KernelProgram (hybrid, audio,
-int8 KV) has no counterpart: those models are item 12 and refuse to be
-made.
+Live tuning (``live_tune=True``): the collaborative autotuner
+(``core/autotuner.LiveTuner``) tunes each coalesced group's (bm, bn, bk)
+for its co-resident shapes, once per group signature (``JitStats.
+tune_cache``); the tuned ``bm`` reaches the launched ``coalesced_gemm``
+and ``bn`` / ``bk`` stay modelled (``SuperkernelExecutor.execute``).
+``tune_objective="greedy"`` tunes each group for its isolated latency
+instead (the paper's Table 1 ablation). Tuning changes no token.
 """
 from __future__ import annotations
 
@@ -337,11 +347,6 @@ class _LoopState:
     next_hint: Optional[Any] = None      # daemon: door's scheduled lookahead
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 "
-                               f"item {item})")
-
-
 class ServingEngine:
     def __init__(self, tenants: Sequence[Tenant], mode: str = "vliw",
                  cost: Optional[CostModel] = None, max_group: int = 16,
@@ -363,8 +368,6 @@ class ServingEngine:
                  prompt_fn: Optional[PromptFn] = None,
                  device: DeviceLike = None):
         assert mode in ("time", "batched", "vliw")
-        if live_tune or tune_objective != "collaborative":
-            raise _not_ported("live tuning", "14")
         self.tenants = {t.name: t for t in tenants}
         # the device the engine serves on: the current CUDA device unless
         # the caller names one (raises when none is given and CUDA is
@@ -425,15 +428,15 @@ class ServingEngine:
         # per-device clocks and busy times of the last vliw run
         self._last_device_time: Optional[List[float]] = None
         self._last_device_busy: Optional[List[float]] = None
+        # live tuning: see the module docstring
         self.jit = VLIWJit(self.cost, sched_cfg=sched_cfg,
                            max_group=max_group, plan_capacity=plan_capacity,
-                           weight_budget_bytes=weight_budget_bytes)
+                           weight_budget_bytes=weight_budget_bytes,
+                           live_tune=live_tune,
+                           tune_objective=tune_objective)
         self.jit_stats = JitStats()
         self._seed = 0
         for t in tenants:
-            if not self._jit_capable(t):
-                raise _not_ported(f"serving arch_type {t.cfg.arch_type!r}",
-                                  "12")
             t.cache = t.model.init_cache(t.max_batch, t.cache_len)
             t.slot_req = [None] * t.max_batch
             t.slot_tok = torch.zeros((t.max_batch, 1), dtype=torch.long,
@@ -519,8 +522,17 @@ class ServingEngine:
         if needs_slot and not slots:
             return 0.0  # caller retries later
         m = tenant.model
-        logits, pc = m.prefill(tenant.params,
-                               {"tokens": self._make_prompt(tenant, req)},
+        pbatch = {"tokens": self._make_prompt(tenant, req)}
+        # the stubbed front ends: zero patch embeddings / encoder frames
+        if m.cfg.arch_type == "vlm":
+            pbatch["patch_embeds"] = torch.zeros(
+                (1, m.cfg.num_patch_tokens, m.cfg.d_model), dtype=m.dtype,
+                device=self.device)
+        if m.cfg.is_encdec:
+            pbatch["frames"] = torch.zeros(
+                (1, m.cfg.encoder_seq_len, m.cfg.d_model), dtype=m.dtype,
+                device=self.device)
+        logits, pc = m.prefill(tenant.params, pbatch,
                                cache_len=tenant.cache_len)
         tok = int(torch.argmax(logits[0, -1]))
         req.tokens_out = [tok]
@@ -530,6 +542,8 @@ class ServingEngine:
             req.finish_t = now + dt    # done at admission: no decode steps
             return dt
         slot = slots[0]
+        # every cache leaf: k / v and their int8 scales, an SSM's conv /
+        # h, whisper's cross k / v
         new_layers = {}
         for key, arr in tenant.cache["layers"].items():
             arr = arr.clone()
@@ -598,13 +612,18 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _jit_capable(self, t: Tenant) -> bool:
         """Whether the tenant's decode steps compile to KernelPrograms:
-        dense, MoE and SSM (the families ``Model`` ports)."""
-        return t.cfg.arch_type in ("dense", "moe", "ssm")
+        dense / vlm GQA, MoE and SSM over a bf16 / fp32 cache. Hybrid,
+        audio and int8-KV tenants take the monolithic batched step (the
+        arch table in the module docstring)."""
+        return t.cfg.arch_type in ("dense", "vlm", "moe", "ssm") \
+            and not t.model.kv_quant
 
     def _prefill_capable(self, t: Tenant) -> bool:
-        # declared prefill covers dense tenants; MoE / SSM prompts take
-        # Model.prefill and the analytic charge, as in the JAX package
-        return self.declared_prefill and t.cfg.arch_type == "dense"
+        # declared prefill covers pure-dense tenants; vlm / MoE / SSM
+        # prompts take Model.prefill and the analytic charge, as in the
+        # JAX package
+        return self.declared_prefill and t.cfg.arch_type == "dense" \
+            and self._jit_capable(t)
 
     def _declare_prefill(self, t: Tenant, req: ServeRequest, stream_id: int,
                          now: float) -> Optional[KernelProgram]:
@@ -682,11 +701,12 @@ class ServingEngine:
         deadline = min(future) if future else \
             min(finals) if finals else math.inf
         batch = int(t.slot_tok.shape[0])
+        dense = (dense_program_cache_key, build_dense_decode_template)
         key_fn, build = {
+            "dense": dense, "vlm": dense,
             "moe": (moe_program_cache_key, build_moe_decode_template),
             "ssm": (ssm_program_cache_key, build_ssm_decode_template),
-        }.get(t.cfg.arch_type, (dense_program_cache_key,
-                                build_dense_decode_template))
+        }[t.cfg.arch_type]
         stacked = self.stacked_layers
         template = self.jit.plan_cache.get_or_build(
             key_fn(t.model, t.params, batch, t.cache, stacked=stacked),
@@ -847,12 +867,14 @@ class ServingEngine:
                     hint = min(hint, nxt)
         session.set_next_arrival(hint)
 
-        # 2. every tenant homed here with live requests keeps a decode
-        #    program in this device's pool — admitted between dispatches
+        # 2. every JIT-capable tenant homed here with live requests keeps
+        #    a decode program in this device's pool — admitted between
+        #    dispatches
         for name, t in self.tenants.items():
             if st.tenant_dev.get(name) != d:
                 continue
-            if name not in st.inflight and t.active_slots():
+            if self._jit_capable(t) and name not in st.inflight \
+                    and t.active_slots():
                 prog = self._build_program(t, st.stream_ids[name], now[d])
                 if t.cfg.arch_type in ("moe", "ssm"):
                     session.stats.nondense_programs += 1
@@ -891,6 +913,20 @@ class ServingEngine:
             retired = self._retire(t, now[d])
             st.n_done += len(retired)
             self._note_retires(st, retired, d)
+
+        # 4. the other tenants homed here interleave monolithic batched
+        #    steps on this device's clock
+        for name, t in self.tenants.items():
+            if st.tenant_dev.get(name) != d:
+                continue
+            if not self._jit_capable(t) and t.active_slots():
+                dt = self._tenant_batched_step(t, now[d])
+                now[d] += dt
+                busy[d] += dt
+                retired = self._retire(t, now[d])
+                st.n_done += len(retired)
+                self._note_retires(st, retired, d)
+                progressed = True
         return progressed
 
     def _close_loop(self, st: _LoopState,
@@ -928,6 +964,7 @@ class ServingEngine:
             for s in sessions[1:]:
                 s.stats.plan_cache = PlanCacheStats()
                 s.stats.block_plans = PlanCacheStats()
+                s.stats.tune_cache = PlanCacheStats()
                 s.stats.dispatch = DispatchStats()
         for s in sessions:
             self.jit_stats.merge(s.stats)

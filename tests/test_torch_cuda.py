@@ -341,6 +341,75 @@ def test_nondense_engine_tokens_card_equals_cpu(cuda, arch, stacked):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(4096, 256), (300, 128)])
+def test_kernel_rows_invariant_across_tuned_bm(cuda, K, N, dtype):
+    """The live tuner's ``bm`` reaches the launch: problem rows padded to
+    bm = 8, 16, 32 or 64 give bitwise the same real rows (the K split is a
+    function of K alone), and each launch holds to the plain version."""
+    rows = [5, 33, 2]
+    outs = {}
+    for bm in (8, 16, 32, 64):
+        a, b, gid = _ragged(rows, K, N, dtype, cuda, bm=bm, seed=K)
+        got = cg.coalesced_gemm(a, b, gid, bm=bm)
+        torch.cuda.synchronize()
+        rtol, atol = TOL[dtype]
+        torch.testing.assert_close(got.float(),
+                                   coalesced_gemm_ref(a, b, gid, bm).float(),
+                                   rtol=rtol, atol=atol)
+        starts = [sum(-(-m // bm) * bm for m in rows[:i])
+                  for i in range(len(rows))]
+        outs[bm] = [got[s:s + m] for s, m in zip(starts, rows)]
+    for bm in (16, 32, 64):
+        for x, y in zip(outs[bm], outs[8]):
+            assert torch.equal(x, y), bm
+
+
+@pytest.mark.parametrize("arch,kv_quant", [("internvl2-2b", False),
+                                           ("hymba-1.5b", False),
+                                           ("whisper-tiny", False),
+                                           ("gemma3-1b", True)])
+def test_family_step_card_equals_cpu(cuda, arch, kv_quant):
+    """One prefill and one decode step of each family the port added
+    (smoke config, fp32) give the CPU's greedy tokens on the card, and
+    logits within 2e-4; the vlm decode step also through its dense
+    template (every GEMM a kernel launch)."""
+    from repro_torch.core.jit import VLIWJit, build_dense_decode_template
+    cfg = smoke_config(arch)
+    m_cpu = Model(cfg, param_dtype=torch.float32, device="cpu",
+                  kv_quant=kv_quant)
+    m_gpu = Model(cfg, param_dtype=torch.float32, device=cuda,
+                  kv_quant=kv_quant)
+    params = m_cpu.init(torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                     generator=g)}
+    if cfg.arch_type == "vlm":
+        batch["patch_embeds"] = torch.randn(2, cfg.num_patch_tokens,
+                                            cfg.d_model, generator=g)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(2, cfg.encoder_seq_len, cfg.d_model,
+                                      generator=g)
+    out = []
+    for m, p in ((m_cpu, params), (m_gpu, _to(params, cuda))):
+        b = {k: v.to(m.device) for k, v in batch.items()}
+        lp, cache = m.prefill(p, b, cache_len=40)
+        tok = lp[:, -1].argmax(-1)[:, None]
+        ld, _ = m.decode_step(p, tok, cache)
+        got = [lp.cpu(), ld.cpu()]
+        if cfg.arch_type == "vlm":
+            n0 = cg.coalesced_gemm.launches
+            prog = build_dense_decode_template(m, p, 2).bind(
+                stream_id=0, tokens=tok, cache=cache)
+            VLIWJit().run([prog])
+            assert (cg.coalesced_gemm.launches > n0) == (m is m_gpu)
+            got.append(prog.env["logits"][:, None].cpu())
+        out.append(got)
+    for x, y in zip(out[0], out[1]):
+        torch.testing.assert_close(y, x, rtol=2e-4, atol=2e-4)
+        assert torch.equal(x[:, -1].argmax(-1), y[:, -1].argmax(-1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,K,N", [(3, 300, 256), (3, 384, 384),
                                    (2, 2048, 4096), (3, 2049, 256),
                                    (2, 4100, 128)])

@@ -145,26 +145,32 @@ def test_shared_weight_tenants_share_dispatches(pair):
 
 
 def test_unported_options_raise(pair):
-    """Every keyword of the JAX package's engine is accepted; a value
-    other than its default for an option not ported yet (live tuning)
-    raises ``NotImplementedError`` naming the ROADMAP item, never
-    ``TypeError``. The mesh, the certifier and the front door (items 9,
-    10, 11) are ported: tests/test_torch_mesh.py, test_torch_analysis.py
-    and test_torch_frontdoor.py hold them to the JAX package."""
+    """Every keyword and family of the JAX package's engine is ported: the
+    live-tuning keywords (ROADMAP item 14) and the hybrid, vlm and audio
+    families and the int8 KV cache (item 12), which once raised
+    ``NotImplementedError``, now build and serve one decode step. The
+    name is kept from when they raised; tests/test_torch_live_tuner.py and
+    tests/test_torch_families.py hold them to the JAX package."""
     _, port_side = pair
-    for kw, item in ((dict(live_tune=True), "item 14"),
-                     (dict(tune_objective="greedy"), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            _port_engine(port_side, "vliw", **kw)
-    # hybrid, vlm and audio tenants, and the int8 KV cache, are item 12:
-    # their models refuse to be made, so no engine can hold them
-    for arch in ("hymba-1.5b", "internvl2-2b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            Model(smoke_config(arch), param_dtype=torch.float32,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Model(smoke_config("gemma3-1b"), param_dtype=torch.float32,
-              device="cpu", kv_quant=True)
+    trace = [ServeRequest(0, NAMES[0], 0.0, 16, 2, 0.05)]
+    for kw in (dict(live_tune=True), dict(tune_objective="greedy"),
+               dict(live_tune=True, tune_objective="greedy")):
+        eng = _port_engine(port_side, "vliw", **kw)
+        rep = eng.run(trace)
+        assert len(rep.requests[0].tokens_out) == 2
+        assert eng.jit.tune_objective == kw.get("tune_objective",
+                                                "collaborative")
+        assert (eng.jit.tuner is not None) == kw.get("live_tune", False)
+    for arch, kvq in (("hymba-1.5b", False), ("internvl2-2b", False),
+                      ("whisper-tiny", False), ("gemma3-1b", True)):
+        m = Model(smoke_config(arch), param_dtype=torch.float32,
+                  device="cpu", kv_quant=kvq)
+        assert m.kv_quant == kvq
+        eng = ServingEngine(
+            [Tenant("t", m, m.init(torch.Generator().manual_seed(0)),
+                    cache_len=32, max_batch=2)], mode="vliw", device="cpu")
+        rep = eng.run([ServeRequest(0, "t", 0.0, 4, 2, 0.05)])
+        assert len(rep.requests[0].tokens_out) == 2, arch
 
 
 def test_engine_defaults_equal_reference():
