@@ -171,9 +171,35 @@ Phases, each printing its own lines; a failing phase raises:
                    coalescer's decision and host time per tick;
   8. windowed-attention — ``ops.windowed_attention`` at the gemma3-1b local
                    shape on the card against the CPU plain path;
-  9. the kernel table as one JSON line, then the result line.
+  9. train       — the training path: gemma3-1b at full width and depth
+                   (26 layers, d 1152, vocab 262,144 tied), bf16 params,
+                   fp32 AdamW, remat, B = 4, S = 2048 (the chunked
+                   attention and its banded branch, four CE chunks), 12
+                   steps of ``SyntheticLM`` through ``make_train_step``:
+                   each step's loss, lr, grad norm and ms; one more step
+                   under ``torch.profiler`` (device ms, busy share, the
+                   eight costliest kernels by device time); the median ms
+                   a step after 2 warm-up steps, tokens/s, peak GiB, model
+                   TFLOP/s (6·N·D over the step) against the H100's
+                   spec-sheet bf16 peak. Losses finite and falling (mean
+                   of the last 3 below the first 3); the path is plain
+                   torch, as in the reference, so no hand-written kernel
+                   may launch (all three counts 0);
+     train-vs-cpu — one train step of each smoke family (dense, MoE, SSM,
+                   hybrid, vlm, audio), fp32, on the card and on the CPU
+                   from the same params and batch: loss within 2e-4, every
+                   gradient leaf within 1e-3 × its max-abs + 1e-6, the
+                   stepped params within 2e-4;
+     train-ckpt  — two smoke training steps on the card (bf16 params),
+                   checkpointed under ``build/``, restored on the CPU:
+                   every leaf bitwise equal;
+     train-cli   — ``python -m repro_torch.launch.train --steps 20`` (smoke,
+                   the card by default) and ``--production --steps 3``
+                   (gemma3-1b full config, bf16, remat, DTensor params and
+                   optimizer state on the 1×1 ``DeviceMesh``), both rc 0;
+ 10. the kernel table as one JSON line, then the result line.
 
-Launch counts are set to 0 just before each path phase (4-8), and in
+Launch counts are set to 0 just before each path phase (4-9), and in
 phases 4-6 before each run (a regime, a tuning setting, a mode), and
 read just after it; the comparisons of phases 3 and 4c are not counted
 there. A ``phase`` line gives each
@@ -2417,6 +2443,242 @@ def phase_windowed_attention(torch, fa):
 
 
 # ---------------------------------------------------------------------------
+# 9. training: plain torch autograd, no hand-written kernel on the path
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILIES = ("gemma3-1b", "grok-1-314b", "mamba2-2.7b", "hymba-1.5b",
+                  "internvl2-2b", "whisper-tiny")
+
+
+def _zero_launches(cg, gv, fa):
+    cg.coalesced_gemm.launches = 0
+    gv.coalesced_gemv.launches = 0
+    fa.flash_attention.launches = 0
+
+
+def _kernel_launches(cg, gv, fa):
+    return {"coalesced_gemm": cg.coalesced_gemm.launches,
+            "coalesced_gemv": gv.coalesced_gemv.launches,
+            "flash_attention": fa.flash_attention.launches}
+
+
+def phase_train(torch, cg, gv, fa, steps=12, warmup=2):
+    """gemma3-1b at full width and depth (26 layers, d 1152, vocab 262,144
+    tied), bf16 params with fp32 AdamW state and remat, B = 4, S = 2048:
+    every step reaches the chunked attention (its banded branch on the
+    local layers: 512 + 1024 < 2048) and four CE chunks of 512."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.hlo_analysis import PEAK_FLOPS, model_flops_for
+    from repro_torch.models import Model
+    from repro_torch.training import (DataConfig, OptimizerConfig,
+                                      SyntheticLM, batch_to_device,
+                                      init_opt_state, make_train_step)
+    from repro_torch.tree import leaves
+    cfg = get_config("gemma3-1b")
+    B, S = 4, 2048
+    model = Model(cfg, param_dtype=torch.bfloat16, device="cuda", remat=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt_state = init_opt_state(params)
+    n_params = sum(p.numel() for p in leaves(params))
+    step_fn = make_train_step(model, OptimizerConfig(
+        lr=1e-3, warmup_steps=2, total_steps=steps))
+    data = iter(SyntheticLM(cfg, DataConfig(batch_size=B, seq_len=S,
+                                            seed=0)))
+    say("train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        vocab=cfg.padded_vocab, params=n_params, dtype="bfloat16",
+        opt_state="float32", remat=True, B=B, S=S,
+        state_GiB=f"{torch.cuda.memory_allocated() / GIB:.3f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches(cg, gv, fa)
+    losses, ms = [], []
+    for s in range(1, steps + 1):
+        batch = batch_to_device(next(data), model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        say("train", step=s, loss=f"{loss:.6f}", lr=f"{float(m['lr']):.4e}",
+            grad_norm=f"{float(m['grad_norm']):.6f}", ms=f"{ms[-1]:.3f}")
+    # one more step under torch.profiler: where the device time goes
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = batch_to_device(next(data), model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+    prof_wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name, n_kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+            n_kernels += 1
+    device_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    say("train", profile="one step under torch.profiler",
+        device_ms=f"{device_us / 1e3:.3f}",
+        wall_ms_profiled=f"{prof_wall_us / 1e3:.3f}",
+        busy_share=f"{device_us / prof_wall_us:.3f}",
+        device_events=n_kernels)
+    for name, us in top:
+        say("train", kernel=repr(name[:90]), device_ms=f"{us / 1e3:.3f}",
+            share_of_device=f"{us / max(device_us, 1e-9):.3f}")
+    launches = _kernel_launches(cg, gv, fa)
+    peak = torch.cuda.max_memory_allocated() / GIB
+    step_ms = statistics.median(ms[warmup:])
+    flops = model_flops_for(cfg, InputShape("train", S, B, "train"))
+    tflops = flops / (step_ms / 1e3) / 1e12
+    say("train", steps=steps, warmup_steps=warmup,
+        median_ms_per_step=f"{step_ms:.3f}",
+        tokens_per_s=f"{B * S / (step_ms / 1e3):.1f}",
+        peak_GiB=f"{peak:.3f}", model_TFLOPs=f"{tflops:.2f}",
+        model_flops_per_step=f"{flops:.4e}",
+        spec_peak_TFLOPs=f"{PEAK_FLOPS / 1e12:.0f}(bf16 dense, H100 spec "
+                         f"sheet)",
+        share_of_spec_peak=f"{tflops * 1e12 / PEAK_FLOPS:.4f}",
+        kernel_launches=launches)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert sum(losses[-3:]) / 3 < sum(losses[:3]) / 3, losses
+    assert not any(launches.values()), launches
+    del params, opt_state, step_fn, batch
+    _free(torch)
+    return dict(losses=losses, ms_per_step=step_ms, peak_GiB=peak,
+                model_tflops=tflops, launches=launches)
+
+
+def _loss_and_grads(torch, model, params, batch):
+    from repro_torch.tree import leaves
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    for p in flat:
+        p.requires_grad_(False)
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(flat, grads)]
+
+
+def phase_train_vs_cpu(torch, cg, gv, fa):
+    """One train step of each smoke family, fp32, on the card and on the
+    CPU from the same params and batch: loss within 2e-4, every gradient
+    leaf within 1e-3 x its max-abs + 1e-6, the stepped params within 2e-4
+    (lr 1e-4: a first AdamW step moves a param by at most lr)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.training import (DataConfig, OptimizerConfig,
+                                      SyntheticLM, batch_to_device,
+                                      init_opt_state, make_train_step)
+    from repro_torch.tree import leaves, tree_map
+    out = {}
+    _zero_launches(cg, gv, fa)
+    for arch in TRAIN_FAMILIES:
+        cfg = smoke_config(arch)
+        cpu_m = Model(cfg, param_dtype=torch.float32, device="cpu")
+        gpu_m = Model(cfg, param_dtype=torch.float32, device="cuda")
+        cpu_p = cpu_m.init(torch.Generator().manual_seed(1))
+        gpu_p = tree_map(lambda t: t.to("cuda"), cpu_p)
+        raw = next(iter(SyntheticLM(cfg, DataConfig(batch_size=2, seq_len=24,
+                                                    seed=3))))
+        cpu_b, gpu_b = (batch_to_device(raw, m) for m in (cpu_m, gpu_m))
+        l_cpu, g_cpu = _loss_and_grads(torch, cpu_m, cpu_p, cpu_b)
+        l_gpu, g_gpu = _loss_and_grads(torch, gpu_m, gpu_p, gpu_b)
+        assert abs(l_cpu - l_gpu) <= 2e-4, (arch, l_cpu, l_gpu)
+        worst = 0.0
+        for a, b in zip(g_cpu, g_gpu):
+            err = float((a - b.cpu()).abs().max())
+            tol = 1e-3 * float(a.abs().max()) + 1e-6
+            assert err <= tol, (arch, err, tol)
+            worst = max(worst, err / tol)
+        opt = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=4)
+        p1, _, m1 = make_train_step(cpu_m, opt)(cpu_p, init_opt_state(cpu_p),
+                                                cpu_b)
+        p2, _, m2 = make_train_step(gpu_m, opt)(gpu_p, init_opt_state(gpu_p),
+                                                gpu_b)
+        step_err = max(float((a - b.cpu()).abs().max())
+                       for a, b in zip(leaves(p1), leaves(p2)))
+        assert step_err <= 2e-4, (arch, step_err)
+        say("train-vs-cpu", arch=cfg.name, loss_cpu=f"{l_cpu:.6f}",
+            loss_card=f"{l_gpu:.6f}", loss_abs_err=f"{abs(l_cpu - l_gpu):.3e}",
+            worst_grad_err_over_tol=f"{worst:.4f}",
+            step_param_max_abs_err=f"{step_err:.3e}")
+        out[arch] = dict(loss_err=abs(l_cpu - l_gpu), grad=worst,
+                         step=step_err)
+    launches = _kernel_launches(cg, gv, fa)
+    assert not any(launches.values()), launches
+    _free(torch)
+    return out
+
+
+def phase_train_ckpt(torch, outdir):
+    """Save on the card, restore on the CPU, bitwise: smoke gemma3-1b with
+    bf16 params (written widened to fp32) and fp32 AdamW state after two
+    steps."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.training import (DataConfig, OptimizerConfig,
+                                      SyntheticLM, checkpoint_step,
+                                      restore_checkpoint, train)
+    from repro_torch.tree import flatten_with_path, tree_map
+    cfg = smoke_config("gemma3-1b")
+    model = Model(cfg, param_dtype=torch.bfloat16, device="cuda")
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, "train_ckpt.npz")
+    res = train(model, SyntheticLM(cfg, DataConfig(batch_size=2, seq_len=64)),
+                steps=2, log_every=0, checkpoint_path=path,
+                checkpoint_every=2,
+                opt_cfg=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                        total_steps=2))
+    tree = {"params": res["params"], "opt": res["opt_state"]}
+    ref = tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+    back = restore_checkpoint(path, ref, device="cpu")
+    n = 0
+    for (p, a), (_, b) in zip(flatten_with_path(tree),
+                              flatten_with_path(back)):
+        assert b.device.type == "cpu" and a.dtype == b.dtype, p
+        assert torch.equal(a.cpu(), b), p
+        n += 1
+    assert checkpoint_step(path) == 2
+    say("train-ckpt", arch=cfg.name, leaves=n,
+        bytes=os.path.getsize(path), card_to_cpu="bitwise_equal")
+    return dict(leaves=n)
+
+
+def phase_train_cli(torch):
+    """The training launcher as a user runs it, on the card: smoke (fp32,
+    20 steps) and --production (gemma3-1b full config, bf16, remat, 3 steps
+    on the 1x1 DeviceMesh)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = {}
+    for label, extra in (("smoke", ["--steps", "20"]),
+                         ("production", ["--production", "--steps", "3"])):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[:1] + lines[-3:]:
+            print(f"    {line}", flush=True)
+        say("train-cli", mode=label, command=" ".join(cmd[1:]),
+            rc=proc.returncode, seconds=f"{secs:.1f}")
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        assert "device=cuda" in lines[0], lines[0]
+        if label == "production":
+            assert "mesh={'data': 1, 'model': 1}" in lines[0], lines[0]
+        out[label] = dict(rc=proc.returncode, seconds=secs)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     import argparse
@@ -2516,6 +2778,10 @@ def main(argv=None) -> int:
     rnn = timed_phase("rnn-matvec", phase_rnn_matvec, torch, cg, gv)
     attn = timed_phase("windowed-attention", phase_windowed_attention,
                        torch, fa)
+    timed_phase("train", phase_train, torch, cg, gv, fa)
+    timed_phase("train-vs-cpu", phase_train_vs_cpu, torch, cg, gv, fa)
+    timed_phase("train-ckpt", phase_train_ckpt, torch, ROOT / "build")
+    timed_phase("train-cli", phase_train_cli, torch)
     bad = [k for k in ("jax", "repro") if k in sys.modules]
     assert not bad, f"imported {bad}"
 

@@ -10,15 +10,25 @@ never change afterwards; each device runs its own scheduler and coalescer
 over its own op pool, ops never coalesce across devices
 (``clustering.coalesce_key`` leads with the device id), and the schedule
 certifier rejects a group that mixes devices or runs off its assignment
-(``PlacementHazard``). The JAX package's ``sharding.py`` and ``hints.py``
-(one model SPMD over a mesh) are not ported yet (ROADMAP queue 1 item 13).
+(``PlacementHazard``).
+
+The other half runs ONE model SPMD over a mesh: ``sharding.py`` (the
+reference's sharding rules as per-dimension specs, turned into DTensor
+placements on a ``DeviceMesh``) and ``hints.py`` (activation hints,
+``constrain``), used by ``launch/train.py --production`` and the
+dry-run.
 """
 from repro_torch.distributed.placement import (DeviceSet, PlacementPolicy,
                                                TenantPlacement,
                                                expert_collective_s,
                                                steady_state_load)
+from repro_torch.distributed.sharding import (batch_shardings,
+                                              cache_shardings, fsdp_axes,
+                                              opt_state_shardings,
+                                              param_shardings)
 
 __all__ = [
-    "DeviceSet", "PlacementPolicy", "TenantPlacement", "expert_collective_s",
-    "steady_state_load",
+    "DeviceSet", "PlacementPolicy", "TenantPlacement", "batch_shardings",
+    "cache_shardings", "expert_collective_s", "fsdp_axes",
+    "opt_state_shardings", "param_shardings", "steady_state_load",
 ]

@@ -1,0 +1,277 @@
+"""Logical-axis sharding rules: the counterpart of the JAX package's
+``distributed/sharding.py``, with the same rules and divisibility
+fallbacks.
+
+Mesh: (data, model) on one pod, (pod, data, model) across pods
+(``launch/mesh.py``). A mesh here is either a described one (anything with
+``shape``, a dict of axis sizes by name, and ``axis_names``: the production
+meshes, which touch no device) or a ``torch.distributed`` ``DeviceMesh``
+with ``mesh_dim_names``; the rules read only axis sizes.
+
+Baseline scheme (uniform across all ten architectures, as the reference):
+
+  * FFN + vocab: tensor-parallel over "model" (w_gate / w_up shard d_ff,
+    w_down shards it back; the embedding and unembedding shard the vocab);
+  * attention + SSM mixers: data-parallel compute, weights replicated over
+    "model" and FSDP-sharded over the data / pod axes;
+  * MoE experts: the expert dim over the data / pod axes when divisible,
+    else FSDP over d_model; d_ff over "model" within each expert;
+  * decode KV caches: sequence-sharded over "model", batch over data when
+    divisible (else the sequence over data × model).
+
+A spec is a tuple with one entry per tensor dimension: ``None``
+(replicated), a mesh-axis name, or a tuple of names (sharded over their
+product, major to minor) — the reference's ``PartitionSpec`` entries.
+``to_placements`` turns a spec into DTensor placements on a
+``DeviceMesh``: ``Shard(d)`` on every mesh dimension that shards tensor
+dimension ``d``, ``Replicate()`` on the others.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import InputShape
+from repro_torch.tree import map_with_path, path_key, tree_map
+
+Spec = Tuple[Any, ...]
+
+
+def axis_sizes(mesh: Any) -> Dict[str, int]:
+    """Axis name -> size of a described mesh or a ``DeviceMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return dict(mesh.shape)
+
+
+def fsdp_axes(mesh: Any) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in axis_sizes(mesh) else ("data",)
+
+
+def _axis_size(mesh: Any, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def _fits(mesh: Any, dim: int, axes) -> bool:
+    return dim % _axis_size(mesh, axes) == 0
+
+
+def _p(n_lead: int, *spec) -> Spec:
+    return tuple([None] * n_lead + list(spec))
+
+
+# replicated-over-model, FSDP-over-data weights (attention + SSM mixers)
+_DP_IN = {"wq", "wk", "wv", "in_proj"}    # [d_in, n]: FSDP d_in
+_DP_OUT = {"wo", "out_proj"}              # [n, d_out]: FSDP d_out
+# Megatron TP pair (dense FFN)
+_TP_COL = {"w_gate", "w_up"}              # [d, ff]: FSDP d, TP ff
+_TP_ROW = {"w_down"}                      # [ff, d]: TP ff, FSDP d
+
+
+def _normalize(spec) -> Spec:
+    """A spec as ``PartitionSpec`` stores it: a one-axis tuple is the
+    axis name."""
+    return tuple(ax[0] if isinstance(ax, tuple) and len(ax) == 1 else ax
+                 for ax in spec)
+
+
+def _spec_for(path: str, shape, mesh: Any) -> Spec:
+    return _normalize(_rule(path, shape, mesh))
+
+
+def _rule(path: str, shape, mesh: Any) -> Spec:
+    fsdp = fsdp_axes(mesh)
+    stacked = ("blocks" in path)
+    n_lead = 1 if stacked else 0
+    name = path.split("/")[-1]
+    nd = len(shape)
+
+    def fit(dim, axes):
+        return axes if _fits(mesh, shape[dim], axes) else None
+
+    if name == "embed":
+        return (fit(0, "model"), None)
+    if name == "unembed":
+        return (fit(0, fsdp), fit(1, "model"))
+    if name == "router":
+        return _p(n_lead, None, None) if nd == n_lead + 2 else (None,) * nd
+    if name in ("w_gate", "w_up", "w_down") and nd == n_lead + 3:
+        # MoE expert weights [L, E, a, b]: gate/up are [.., E, d, ff]
+        # (TP the ff output), down is [.., E, ff, d] (TP the ff input).
+        tp_dim = n_lead + (2 if name != "w_down" else 1)
+        other = n_lead + (1 if name != "w_down" else 2)
+        spec: List[Any] = [None] * nd
+        spec[tp_dim] = fit(tp_dim, "model")
+        if _fits(mesh, shape[n_lead], fsdp):
+            spec[n_lead] = fsdp           # expert parallelism
+        elif spec[other] is None:
+            spec[other] = fit(other, fsdp)  # grok: FSDP d_model instead
+        return tuple(spec)
+    if nd == n_lead + 2:
+        i, o = n_lead, n_lead + 1
+        if name in _DP_IN:
+            return _p(n_lead, fit(i, fsdp), None)
+        if name in _DP_OUT:
+            return _p(n_lead, None, fit(o, fsdp))
+        if name in _TP_COL:
+            return _p(n_lead, fit(i, fsdp), fit(o, "model"))
+        if name in _TP_ROW:
+            return _p(n_lead, fit(i, "model"), fit(o, fsdp))
+    # conv kernels, norms, biases, 1D per-layer params: replicate
+    return (None,) * nd
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: the counterpart of ``jax.sharding.NamedSharding``.
+    ``placements`` needs a ``DeviceMesh``; a described mesh gives only
+    ``shard_shape``."""
+    mesh: Any
+    spec: Spec
+
+    def __post_init__(self):
+        object.__setattr__(self, "spec", _normalize(self.spec))
+
+    @property
+    def placements(self) -> list:
+        return to_placements(self.spec, self.mesh)
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        """One device's block of a tensor of ``shape`` (every sharded dim
+        divides evenly: the rules shard nothing else)."""
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        return tuple(int(n) // _axis_size(self.mesh, ax)
+                     for n, ax in zip(shape, spec))
+
+
+def to_placements(spec: Spec, mesh: Any) -> list:
+    """DTensor placements of ``spec`` on ``mesh``, one per mesh dimension:
+    ``Shard(d)`` where the mesh axis shards tensor dimension ``d``."""
+    from torch.distributed.tensor import Replicate, Shard
+    by_axis: Dict[str, int] = {}
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        for a in ((ax,) if isinstance(ax, str) else ax):
+            by_axis[a] = d
+    return [Shard(by_axis[a]) if a in by_axis else Replicate()
+            for a in axis_sizes(mesh)]
+
+
+def param_shardings(model, mesh: Any) -> Any:
+    """``NamedSharding`` tree matching ``model.init``'s output (shapes from
+    the meta device: no allocation)."""
+    shapes = model.abstract_params()
+    return map_with_path(
+        lambda path, leaf: NamedSharding(
+            mesh, _spec_for(path_key(path), tuple(leaf.shape), mesh)),
+        shapes)
+
+
+def opt_state_shardings(param_sh: Any, mesh: Any) -> Any:
+    """OptState(step, mu, nu): moments follow the params; step replicated."""
+    from repro_torch.training.optimizer import OptState
+    return OptState(step=NamedSharding(mesh, ()),
+                    mu=tree_map(lambda s: s, param_sh),
+                    nu=tree_map(lambda s: s, param_sh))
+
+
+def batch_shardings(model, shape: InputShape, mesh: Any) -> Dict[str, Any]:
+    """Shardings for the input batch of the step selected by shape.kind."""
+    dp = fsdp_axes(mesh)
+    B = shape.global_batch
+    bspec = dp if _fits(mesh, B, dp) else (
+        "data" if _fits(mesh, B, "data") else None)
+    out: Dict[str, Any] = {}
+    for key, val in model.input_specs(shape).items():
+        if key == "cache":
+            out[key] = cache_shardings(model, val, mesh, shape)
+        elif key in ("tokens", "labels"):
+            out[key] = NamedSharding(mesh, (bspec, None))
+        else:  # patch_embeds / frames: [B, T, d]
+            out[key] = NamedSharding(mesh, (bspec, None, None))
+    return out
+
+
+def cache_shardings(model, cache_shapes: Any, mesh: Any,
+                    shape: InputShape) -> Any:
+    """Decode-cache shardings: sequence over "model" (plus data when the
+    batch can't use it), batch over data when divisible."""
+    dp = fsdp_axes(mesh)
+    B = shape.global_batch
+    batch_ok = _fits(mesh, B, dp)
+    bspec = dp if batch_ok else None
+    seq_axes = ("model",) if batch_ok else tuple(list(dp) + ["model"])
+
+    def seq_spec(dim: int):
+        if _fits(mesh, dim, seq_axes):
+            return seq_axes
+        return "model" if _fits(mesh, dim, "model") else None
+
+    def spec_leaf(path, leaf):
+        name = path[-1] if path else ""
+        nd = len(leaf.shape)
+        if name in ("k", "v", "cross_k", "cross_v", "k_scale", "v_scale"):
+            # [L, B, Hkv, S, hd]
+            return NamedSharding(mesh, (None, bspec, None,
+                                        seq_spec(leaf.shape[3]), None))
+        if name == "h":      # [L, B, H, P, N] — small recurrent state
+            return NamedSharding(mesh, (None, bspec, None, None, None))
+        if name == "conv":   # [L, B, K-1, convdim]
+            return NamedSharding(mesh, (None, bspec, None, None))
+        if name == "pos":
+            return NamedSharding(mesh, (bspec,) if nd == 1 else ())
+        return NamedSharding(mesh, (None,) * nd)
+
+    return map_with_path(spec_leaf, cache_shapes)
+
+
+# ---------------------------------------------------------------------------
+# placing tensors on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def distribute(tree: Any, shardings: Any) -> Any:
+    """Each tensor of ``tree`` as a DTensor placed by the matching
+    ``NamedSharding`` (on a ``DeviceMesh``)."""
+    from torch.distributed.tensor import distribute_tensor
+    return tree_map(lambda t, s: distribute_tensor(t, s.mesh, s.placements),
+                    tree, shardings)
+
+
+def gather_at_use(tree: Any) -> Any:
+    """Every DTensor leaf gathered to a full local tensor, differentiably
+    (ZeRO-3's gather of the weights at use; the gradient flows back to the
+    DTensor in its own placements). Other leaves pass through."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered (not differentiably); a plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+__all__ = [
+    "NamedSharding", "axis_sizes", "batch_shardings", "cache_shardings",
+    "distribute", "fsdp_axes", "full", "gather_at_use", "local",
+    "opt_state_shardings", "param_shardings", "to_placements",
+]

@@ -12,9 +12,13 @@ Three execution modes, as in the JAX package's ``models/attention.py``:
   * cross  — encoder-decoder cross attention (whisper), bidirectional over
     a fixed memory whose K/V ``project_memory_kv`` makes once.
 
-A local (windowed) layer attends to ``pos - window < col <= pos``. The JAX
-package reads only that band on long sequences; here the same set is
-selected by a mask over the whole row, which gives the same softmax.
+A local (windowed) layer attends to ``pos - window < col <= pos``. At
+``S >= CHUNKED_THRESHOLD`` (a multiple of ``Q_CHUNK``) full attention takes
+the JAX package's chunked path, ``_attention_chunked``: one ``Q_CHUNK`` of
+queries at a time, a local layer reading only its ``[Q_CHUNK + window]``
+K/V band, each chunk recomputed in the backward pass. Shorter sequences
+build the whole ``[S, S]`` scores and select the band by a mask, which
+gives the same softmax. Decode selects the band by a mask too.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.kvquant import dequantize, quantize
 from repro_torch.models.layers import Params, apply_rope
@@ -47,6 +52,76 @@ def locality_mask(rows: torch.Tensor, cols: torch.Tensor, is_global: bool,
     return ok
 
 
+# sequences at or above this length (and a multiple of Q_CHUNK) take the
+# chunked path: never materialize [B, H, S, S]
+CHUNKED_THRESHOLD = 2048
+Q_CHUNK = 512
+
+
+def _scores_to_out(s: torch.Tensor, ok: torch.Tensor, v: torch.Tensor,
+                   head_dim: int) -> torch.Tensor:
+    """Masked fp32 softmax of one chunk's scores [B, Hkv, G, bq, T] against
+    v [B, T, Hkv, hd] -> [B, bq, Hkv, G, hd] (fp32)."""
+    s = s / math.sqrt(head_dim)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgst,bthd->bshgd", p, v.float())
+
+
+def _attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       is_global: bool, window: int, causal: bool,
+                       head_dim: int) -> torch.Tensor:
+    """Flash-style chunked attention, the JAX package's
+    ``_attention_chunked``: a loop over ``Q_CHUNK`` query chunks, each with
+    full-row scores [B, Hkv, G, bq, S] that live only for the chunk.
+    q: [B, S, Hkv, G, hd]; k, v: [B, S, Hkv, hd] -> [B, S, Hkv·G·hd].
+
+    Three branches, as in the reference. With a window that fits well under
+    S (``bq + window < S``, causal), a global layer takes ``full_branch``
+    and a local layer ``banded_branch``, which slices only the
+    ``[bq + window]`` K/V band starting at ``clip(idx·bq − window, 0,
+    S − Wlen)``; otherwise ``masked_fallback`` masks full-row scores. The
+    reference selects the first two with ``lax.cond`` on a traced flag;
+    here the flag is a Python bool. With grad enabled each chunk runs under
+    ``torch.utils.checkpoint`` (``jax.checkpoint(chunk)``), so the backward
+    recomputes its scores and training memory stays O(S·bq); the band's
+    start is a Python int, fixed before the recompute.
+    """
+    B, S, Hkv, G, hd = q.shape
+    bq = Q_CHUNK
+    assert S % bq == 0, (S, bq)
+    dev = q.device
+    cols = torch.arange(S, device=dev)
+    Wlen = bq + window                      # band length per q chunk
+    banded = window > 0 and causal and Wlen < S
+
+    def chunk(qi: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              idx: int) -> torch.Tensor:
+        rows = idx * bq + torch.arange(bq, device=dev)
+        if banded and not is_global:                    # banded_branch
+            start = min(max(idx * bq - window, 0), S - Wlen)
+            kb, vb = k[:, start:start + Wlen], v[:, start:start + Wlen]
+            bcols = start + torch.arange(Wlen, device=dev)
+            ok = (bcols[None, :] <= rows[:, None]) \
+                & (bcols[None, :] > rows[:, None] - window)
+        else:                               # full_branch / masked_fallback
+            kb, vb = k, v
+            ok = locality_mask(rows, cols, is_global or banded, window,
+                               causal)
+        s = torch.einsum("bshgd,bthd->bhgst", qi.float(), kb.float())
+        return _scores_to_out(s, ok, vb, head_dim).to(q.dtype)
+
+    outs = []
+    for idx in range(S // bq):
+        qi = q[:, idx * bq:(idx + 1) * bq]
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(chunk, qi, k, v, idx,
+                                   use_reentrant=False))
+        else:
+            outs.append(chunk(qi, k, v, idx))
+    return torch.cat(outs, dim=1).reshape(B, S, Hkv * G * hd)
+
+
 def attention_full(params: Params, x: torch.Tensor, *, num_heads: int,
                    num_kv_heads: int, head_dim: int, rope_theta: float,
                    is_global: bool = True, window: int = 0,
@@ -65,13 +140,15 @@ def attention_full(params: Params, x: torch.Tensor, *, num_heads: int,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     q = q.reshape(B, S, num_kv_heads, G, head_dim)
+    if S >= CHUNKED_THRESHOLD and S % Q_CHUNK == 0:
+        out = _attention_chunked(q, k, v, is_global=is_global,
+                                 window=window, causal=causal,
+                                 head_dim=head_dim)
+        return out.to(x.dtype) @ params["wo"]
     scores = torch.einsum("bshgd,bthd->bhgst", q.float(), k.float())
-    scores = scores / math.sqrt(head_dim)
     idx = torch.arange(S, device=x.device)
     mask = locality_mask(idx, idx, is_global, window, causal)
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", p, v.float())
+    out = _scores_to_out(scores, mask, v, head_dim)
     out = out.reshape(B, S, num_heads * head_dim).to(x.dtype)
     return out @ params["wo"]
 

@@ -28,6 +28,8 @@ def dense_init_(out: torch.Tensor, generator: torch.Generator,
     sqrt(fan_in), cut at ±2 stddev), drawn in fp32 one [k, n] matrix at a
     time so a stacked [L, ...] (or [L, E, ...]) weight never needs an fp32
     copy of itself."""
+    if out.is_meta:                  # shapes only: nothing to draw
+        return out
     fan_in = out.shape[-2] if out.dim() >= 2 else out.shape[-1]
     std = scale / math.sqrt(fan_in)
     slices = out.view(-1, *out.shape[-2:]) if out.dim() >= 3 else out[None]
@@ -41,6 +43,8 @@ def dense_init_(out: torch.Tensor, generator: torch.Generator,
 
 def embed_init_(out: torch.Tensor, generator: torch.Generator
                 ) -> torch.Tensor:
+    if out.is_meta:
+        return out
     tmp = torch.randn(out.shape, dtype=torch.float32, device=out.device,
                       generator=generator)
     return out.copy_(tmp * 0.02)

@@ -1,12 +1,15 @@
-"""Model facade: embedding + stack + LM head, with ``init``, ``init_cache``,
-``prefill`` and ``decode_step``.
+"""Model facade: embedding + stack + LM head, with ``init``, the training
+entry points (``forward``, ``loss`` with the chunked cross-entropy), the
+serving ones (``init_cache``, ``prefill``, ``decode_step``) and
+``input_specs`` (meta-device stand-ins for the dry-run).
 
 The counterpart of the JAX package's ``models/model.py`` for every family:
 dense, moe, ssm, hybrid (hymba), vlm (internvl2: patch embeddings ahead of
 the text, decoded as a dense stack) and audio (whisper: an encoder over
 frame embeddings and a decoder with cross attention), and the int8 KV cache
-of any attention family (``kv_quant``). The training entry points are not
-ported yet (ROADMAP queue 1, item 13).
+of any attention family (``kv_quant``). Training is plain torch autograd
+through plain torch ops, as the reference's is ``jax.value_and_grad``
+through plain ``jnp``: no hand-written kernel is on that path.
 """
 from __future__ import annotations
 
@@ -15,9 +18,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.distributed.hints import constrain
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
@@ -37,15 +42,18 @@ class Model:
     the current CUDA device and raises when there is none. ``kv_quant``
     asks for an int8 KV cache; it is silently off for the families whose
     decode cache is not a decoder-only attention cache (ssm, audio), as in
-    the JAX package.
+    the JAX package. ``remat`` recomputes each layer (and each encoder
+    layer) in the backward pass of ``loss``.
     """
 
     def __init__(self, config: ModelConfig,
                  param_dtype: torch.dtype = torch.bfloat16,
-                 device: DeviceLike = None, kv_quant: bool = False):
+                 device: DeviceLike = None, remat: bool = False,
+                 kv_quant: bool = False):
         self.cfg = config
         self.dtype = param_dtype
         self.device = resolve_device(device)
+        self.remat = remat
         self.kv_quant = kv_quant and config.arch_type not in ("ssm", "audio")
 
     # ------------------------------------------------------------------
@@ -115,11 +123,22 @@ class Model:
                                                device=self.device)
         return params
 
+    def abstract_params(self) -> Params:
+        """``init``'s tree on the meta device: shapes and dtypes, no
+        storage (the reference's ``jax.eval_shape(model.init, rng)``)."""
+        device, self.device = self.device, torch.device("meta")
+        try:
+            return self.init(torch.Generator())
+        finally:
+            self.device = device
+
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        x = params["embed"][tokens]
+        # F.embedding, not indexing: its backward adds repeated tokens' rows
+        # in a fixed order (indexing's accumulate is atomic on the CPU)
+        x = F.embedding(tokens.long(), params["embed"])
         return x * torch.tensor(math.sqrt(self.cfg.d_model),
                                 dtype=torch.float32).to(x.dtype)
 
@@ -134,7 +153,8 @@ class Model:
         pos = sinusoidal_positions(frames.shape[1], self.cfg.d_model,
                                    frames.device)
         x = frames + pos[None].to(frames.dtype)
-        x = tfm.encoder_stack(params["enc_blocks"], x, self.cfg)
+        x = tfm.encoder_stack(params["enc_blocks"], x, self.cfg,
+                              remat=self.remat)
         return rmsnorm(x, params["enc_norm"], self.cfg.norm_eps)
 
     def _decoder_input(self, params: Params,
@@ -150,7 +170,91 @@ class Model:
         if cfg.is_encdec:
             pos = sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
             x = x + pos[None].to(x.dtype)
-        return x
+        return constrain(x, "btd")
+
+    # ------------------------------------------------------------------
+    # training forward / loss
+    # ------------------------------------------------------------------
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward. Returns (logits [B, S, V], moe_aux_loss)."""
+        y, aux = self._hidden(params, batch)
+        return self._logits(params, y), aux
+
+    # sequence-chunk size for the CE loss: never materialize [B, S, V]
+    LOSS_CHUNK = 512
+
+    def _hidden(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward up to the final hidden states."""
+        cfg = self.cfg
+        x = self._decoder_input(params, batch)
+        if cfg.is_encdec:
+            mem = self._encode(params, batch["frames"])
+            y = tfm.encdec_decoder_full(params["blocks"], x, mem, cfg,
+                                        remat=self.remat)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            y, aux = tfm.stack_full(params["blocks"], x, cfg,
+                                    cfg.global_layer_flags(),
+                                    remat=self.remat)
+        return y, aux
+
+    def _chunked_ce(self, params: Params, y: torch.Tensor,
+                    labels: torch.Tensor, mask: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+        """Mean next-token CE over sequence chunks of ``LOSS_CHUNK``: the
+        logits live one [B, c, V] fp32 slab at a time, recomputed in the
+        backward pass (a 262k vocabulary at B·c = 2048 is 2.15 GB a
+        slab). ``logsumexp`` minus the gold logit, masked, summed, over the
+        mask's count."""
+        B, S, _ = y.shape
+        c = min(self.LOSS_CHUNK, S)
+        if S % c:
+            c = S  # irregular smoke shapes: single chunk
+        if mask is None:
+            mask = torch.ones((B, S), dtype=torch.float32, device=y.device)
+
+        def body(ych, lch, mch):
+            logits = self._logits(params, constrain(ych, "btd")).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lch[..., None].long())[..., 0]
+            nll = (logz - gold) * mch
+            return torch.sum(nll), torch.sum(mch)
+
+        tot = torch.zeros((), dtype=torch.float32, device=y.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=y.device)
+        for i in range(0, S, c):
+            args = (y[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c])
+            if torch.is_grad_enabled():
+                t, n = checkpoint(body, *args, use_reentrant=False)
+            else:
+                t, n = body(*args)
+            tot, cnt = tot + t, cnt + n
+        return tot / torch.clamp(cnt, min=1.0)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """Mean next-token CE (fp32 scalar); image-patch positions carry no
+        target (vlm); MoE adds ``aux_loss_weight`` times the aux loss."""
+        cfg = self.cfg
+        y, aux = self._hidden(params, batch)
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if cfg.arch_type == "vlm":
+            P = cfg.num_patch_tokens
+            B = labels.shape[0]
+            labels = torch.cat([labels.new_zeros((B, P)), labels], dim=1)
+            m = torch.cat([torch.zeros((B, P), dtype=torch.float32,
+                                       device=labels.device),
+                           torch.ones(batch["labels"].shape,
+                                      dtype=torch.float32,
+                                      device=labels.device)], dim=1)
+            mask = m if mask is None else mask * m
+        ce = self._chunked_ce(params, y, labels, mask)
+        if cfg.has_moe:
+            ce = ce + cfg.moe.aux_loss_weight * aux
+        return ce
 
     # ------------------------------------------------------------------
     # serving: prefill + decode
@@ -166,11 +270,15 @@ class Model:
         if seq_len > ROPE_TABLE_POSITIONS:
             raise ValueError(f"cache length {seq_len} exceeds the rope table "
                              f"({ROPE_TABLE_POSITIONS} positions)")
+        return self._zero_cache(batch, seq_len, enc_len, self.device)
+
+    def _zero_cache(self, batch: int, seq_len: int, enc_len: Optional[int],
+                    device: torch.device) -> Cache:
         cfg = self.cfg
         L, hd = cfg.num_layers, cfg.resolved_head_dim
 
         def zeros(shape, dtype=self.dtype):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+            return torch.zeros(shape, dtype=dtype, device=device)
 
         layers: Dict[str, torch.Tensor] = {}
         if cfg.arch_type != "ssm":
@@ -183,7 +291,7 @@ class Model:
                 layers["v_scale"] = zeros(shape[:-1] + (1,))
         if cfg.has_ssm:
             one = ssm_lib.init_ssm_cache(batch, cfg.d_model, cfg.ssm,
-                                         self.dtype, self.device)
+                                         self.dtype, device)
             for k, v in one.items():
                 layers[k] = v[None].repeat((L,) + (1,) * v.dim())
         if cfg.is_encdec:
@@ -246,3 +354,36 @@ class Model:
                                          cfg.global_layer_flags())
         logits = self._logits(params, y)
         return logits, {"pos": pos + 1, "layers": layers}
+
+    # ------------------------------------------------------------------
+    # dry-run input specs (meta-device stand-ins; no allocation)
+    # ------------------------------------------------------------------
+    def input_specs(self, shape: InputShape) -> Dict[str, Any]:
+        """Abstract inputs for the step selected by ``shape.kind``: tensors
+        on the meta device with the reference's shapes and dtypes (its
+        ``ShapeDtypeStruct`` stand-ins)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def meta(*dims, dtype=self.dtype):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        def tok(b, s):
+            return meta(b, s, dtype=torch.int32)
+
+        if shape.kind in ("train", "prefill"):
+            specs: Dict[str, Any] = {}
+            s_text = S - cfg.num_patch_tokens if cfg.arch_type == "vlm" else S
+            specs["tokens"] = tok(B, s_text)
+            if shape.kind == "train":
+                specs["labels"] = tok(B, s_text)
+            if cfg.arch_type == "vlm":
+                specs["patch_embeds"] = meta(B, cfg.num_patch_tokens,
+                                             cfg.d_model)
+            if cfg.is_encdec:
+                specs["frames"] = meta(B, cfg.encoder_seq_len, cfg.d_model)
+            return specs
+        # decode: one token against a cache holding ``seq_len`` positions
+        cache = self._zero_cache(B, S, cfg.encoder_seq_len or None,
+                                 torch.device("meta"))
+        return {"tokens": tok(B, 1), "cache": cache}

@@ -97,7 +97,10 @@ def dispatch_tokens(x: torch.Tensor, weights: torch.Tensor,
     # with mode="drop"; here they are masked out of the write instead
     slot = torch.where(keep, rank, torch.full_like(rank, C))
     buf = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
-    buf.index_put_((sorted_e[keep], slot[keep]), x[sorted_tok[keep]])
+    # index_select, not x[...]: a token's k rows then add their gradients
+    # in a fixed order (indexing's accumulate is atomic on the CPU)
+    buf.index_put_((sorted_e[keep], slot[keep]),
+                   x.index_select(0, sorted_tok[keep]))
     return buf, (order, sorted_e, sorted_tok, keep, slot)
 
 
@@ -143,13 +146,14 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
     """MoE FFN of one layer. x: [T, d] -> (y [T, d], aux_loss scalar).
 
     ``groups`` splits the tokens into independently routed groups
-    (GShard-style), each with its own capacity. One device has no
-    data-parallel axis to align them with, so the default is 1 (the JAX
-    package reads a launcher hint that is 1 there too); a group count that
-    does not divide T falls back to 1."""
+    (GShard-style), each with its own capacity. The default is the
+    launcher's ``moe_groups`` hint (``distributed/hints.py``; the product
+    of the mesh's data axes, 1 on one device), else 1, as in the JAX
+    package; a group count that does not divide T falls back to 1."""
+    from repro_torch.distributed.hints import static_hint
     T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
-    G = groups if groups is not None else 1
+    G = groups if groups is not None else int(static_hint("moe_groups", 1))
     if T % G:
         G = 1
     Tg = T // G

@@ -15,18 +15,23 @@ has no rope: its positions are absolute sinusoids added to the input
 add cross attention over the encoder memory, whose K/V sit in the decode
 cache (``cross_k`` / ``cross_v``).
 
-The JAX package scans over layers and pins activations with
-``distributed.hints.constrain``; neither has a counterpart needed on one
-device, so the loop is plain Python and the stacked [L, ...] layout of the
-params and of the cache is kept.
+The JAX package scans over layers; here the loop is plain Python and the
+stacked [L, ...] layout of the params and of the cache is kept. The
+training stack (``stack_full``, ``block_full``) pins its activations with
+``distributed.hints.constrain`` where the reference does (a no-op outside
+an ``activation_sharding`` context). ``remat=True`` runs each layer body
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+scan body): the backward recomputes the layer from its input.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.hints import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -39,6 +44,20 @@ def _layer(stacked: Params, l: int) -> Params:
     """Layer ``l``'s params as views into the stacked tree."""
     return {k: (_layer(v, l) if isinstance(v, dict) else v[l])
             for k, v in stacked.items()}
+
+
+def _unstack(stacked: Params) -> list:
+    """Every layer's params as views into the stacked tree, from one
+    ``unbind`` a leaf. Under autograd the stacked gradient is then one
+    stack of the layers' gradients, as the reference's scan writes each
+    layer's into its slot; a separate ``v[l]`` a layer would zero-fill
+    the whole [L, ...] gradient and add it once a layer (O(L²) bytes)."""
+    n = None
+    flat = {}
+    for k, v in stacked.items():
+        flat[k] = _unstack(v) if isinstance(v, dict) else v.unbind(0)
+        n = len(flat[k])
+    return [{k: v[l] for k, v in flat.items()} for l in range(n)]
 
 
 def _project_kv(p: Params, h: torch.Tensor, cfg: ModelConfig,
@@ -68,6 +87,74 @@ def _attn_kw(cfg: ModelConfig, is_global: bool) -> Dict[str, Any]:
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                 is_global=is_global, window=cfg.window_size,
                 use_rope=cfg.arch_type != "audio")
+
+
+def _maybe_remat(fn: Callable, remat: bool) -> Callable:
+    """``fn`` itself, or ``fn`` recomputed in the backward pass when
+    ``remat`` and grad are on (non-reentrant checkpoint)."""
+    if not remat:
+        return fn
+
+    def body(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return body
+
+
+# ---------------------------------------------------------------------------
+# full-sequence (training) forward
+# ---------------------------------------------------------------------------
+
+def _mixer_full(p: Params, h: torch.Tensor, cfg: ModelConfig,
+                is_global: bool) -> torch.Tensor:
+    """Token mixer (attention and / or SSM) on the normed input, full
+    sequence."""
+    if cfg.arch_type == "ssm":
+        return ssm_lib.ssd_chunked(p["mamba"], h, cfg.ssm)
+    a = attn.attention_full(p["attn"], h, causal=True,
+                            **_attn_kw(cfg, is_global))
+    if cfg.arch_type == "hybrid":
+        s = ssm_lib.ssd_chunked(p["mamba"], h, cfg.ssm)
+        # hymba fuses the parallel attention and SSM heads by mean
+        return 0.5 * (a + s)
+    return a
+
+
+def block_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               is_global: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One full-sequence layer: returns (y, moe_aux_loss fp32 scalar)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + _mixer_full(p, h, cfg, is_global)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.arch_type == "ssm":
+        return x, aux
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.has_moe and cfg.arch_type != "hybrid":
+        B, S, d = h2.shape
+        y, aux = moe_lib.moe_ffn(p["moe"], h2.reshape(B * S, d), cfg.moe)
+        y = y.reshape(B, S, d)
+    else:
+        y = mlp(p["mlp"], h2)
+    return x + y, aux
+
+
+def stack_full(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
+               flags: Sequence[bool], remat: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run all layers over the full sequence. flags: one is_global bool a
+    layer. Returns (y, the layers' summed MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = _unstack(stacked)
+    for l, is_global in enumerate(flags):
+        def body(x, p=layers[l], is_global=is_global):
+            y, a = block_full(p, constrain(x, "btd"), cfg, is_global)
+            return constrain(y, "btd"), a
+
+        x, a = _maybe_remat(body, remat)(x)
+        aux = aux + a
+    return x, aux
 
 
 def stack_prefill(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -151,31 +238,36 @@ def stack_decode(stacked: Params, x: torch.Tensor, cache: Cache,
 # whisper: bidirectional encoder; decoder with self + cross attention
 # ---------------------------------------------------------------------------
 
-def encoder_stack(stacked: Params, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def encoder_stack(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
+                  remat: bool = False) -> torch.Tensor:
     """The whisper encoder over frame embeddings [B, T, d] (no cache)."""
-    for l in range(int(stacked["ln1"].shape[0])):
-        p = _layer(stacked, l)
+    def body(x, p):
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         x = x + attn.attention_full(
             p["attn"], h, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta, causal=False, use_rope=False)
         h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp(p["mlp"], h2)
+        return x + mlp(p["mlp"], h2)
+
+    body = _maybe_remat(body, remat)
+    for p in _unstack(stacked):
+        x = body(x, p)
     return x
 
 
 def encdec_decoder_full(stacked: Params, x: torch.Tensor, mem: torch.Tensor,
-                        cfg: ModelConfig, with_cache: bool = False):
+                        cfg: ModelConfig, with_cache: bool = False,
+                        remat: bool = False):
     """Whisper decoder full-sequence forward; with ``with_cache`` also the
     decode cache: self k / v of the prompt and cross k / v of the encoder
-    memory, [L, B, Hkv, S or T, hd]."""
+    memory, [L, B, Hkv, S or T, hd]. ``remat`` applies without the cache
+    only, as in the reference."""
     hd = cfg.resolved_head_dim
     B, S = x.shape[0], x.shape[1]
     out: Dict[str, list] = {}
-    for l in range(cfg.num_layers):
-        p = _layer(stacked, l)
+
+    def body(x, mem, p):
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         if with_cache:
             k = (h @ p["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
@@ -198,7 +290,11 @@ def encdec_decoder_full(stacked: Params, x: torch.Tensor, mem: torch.Tensor,
                                      num_kv_heads=cfg.num_kv_heads,
                                      head_dim=hd)
         h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp(p["mlp"], h2)
+        return x + mlp(p["mlp"], h2)
+
+    body = _maybe_remat(body, remat and not with_cache)
+    for p in _unstack(stacked):
+        x = body(x, mem, p)
     if with_cache:
         return x, {k: torch.stack(v) for k, v in out.items()}
     return x

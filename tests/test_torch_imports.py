@@ -26,8 +26,10 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
+import torch.distributed as dist
 print(len(names))
 print(",".join(bad))
+print(dist.is_initialized())
 """
 
 
@@ -37,16 +39,26 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
                               "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split("\n")[:2]
+    n, bad, pg = out.stdout.split("\n")[:3]
     expected = {m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")}
-    assert int(n) == len(expected) and len(expected) >= 30
-    # the certifier, the mesh and the front door are among them
+    assert int(n) == len(expected) and len(expected) >= 45
+    # the certifier, the mesh, the front door, training, the simulator and
+    # the SPMD layer are among them
     assert {"repro_torch.analysis.certify", "repro_torch.analysis.depgraph",
             "repro_torch.analysis.lint", "repro_torch.distributed.placement",
             "repro_torch.serving.admission",
-            "repro_torch.serving.frontdoor"} <= expected
+            "repro_torch.serving.frontdoor", "repro_torch.core.simulator",
+            "repro_torch.training", "repro_torch.training.optimizer",
+            "repro_torch.training.data", "repro_torch.training.checkpoint",
+            "repro_torch.training.train_loop", "repro_torch.tree",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.hints", "repro_torch.launch.mesh",
+            "repro_torch.launch.train", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo_analysis"} <= expected
     assert bad == "", f"loaded: {bad}"
+    # importing launch/mesh.py (or anything else) starts no process group
+    assert pg == "False"
 
 
 def test_sources_name_no_jax_import():
@@ -76,3 +88,14 @@ def test_launcher_raises_without_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         serve.main(["--requests", "1", "--mode", "vliw"])
+
+
+def test_train_launcher_raises_without_a_device(monkeypatch):
+    from repro_torch.launch import mesh, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1", "--production"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.make_host_mesh()
