@@ -52,22 +52,30 @@ Phases, each printing its own lines; a failing phase raises:
                    tenants sharing one full-width yi-9b weight set (bf16,
                    48 layers unless the card's free memory forces a cut,
                    which is printed), 4 requests each, prompts of 32
-                   tokens, 8 new tokens, served twice: layer-stacked
-                   templates (the default; each body GEMM a solo launch)
-                   and then ``stacked_layers=False`` (per-layer stages
-                   coalesced across the tenants), each engine freed before
-                   the next. Per regime: wall s, tokens/s, scheduler
-                   dispatches, kernel launches (checked against the
-                   dispatches), launches per program, weight hit rate,
+                   tokens, 8 new tokens, served five times, each engine
+                   freed before the next: layer-stacked templates with
+                   each decode body a CUDA graph replay (the default,
+                   ``stacked-graphed``; each body GEMM a solo launch
+                   inside the graph), the same bodies eager
+                   (``cuda_graphs=False``, ``stacked``), ``stacked``,
+                   ``stacked-graphed`` in turns, then
+                   ``stacked_layers=False`` (per-layer stages coalesced
+                   across the tenants). Per run: wall s, tokens/s,
+                   scheduler dispatches, kernel launches (checked against
+                   the dispatches; a replay counts its capture's
+                   launches), launches per program, weight hit rate,
+                   graph captures and replays (> 0 graphed, 0 otherwise),
                    peak GiB, then the gemm's launches by (M, K, N, G,
                    dtype), each marked by whether phase 3 times that shape
-                   (also in phase 5). The tokens of the two regimes must
-                   be identical. While the stacked engine lives: one more
-                   decode step through a stacked and a per-layer template
-                   (logits bitwise equal), and ``profile`` lines: host and
-                   wall ms of one steady decode step in each regime, the
-                   device time of ``coalesced_gemm`` and of the other
-                   kernels (``torch.profiler``), and the device busy share;
+                   (also in phase 5). The tokens of every run must be
+                   identical. While the first graphed engine lives: one
+                   more decode step as a replay of its graph, eager, and
+                   through a per-layer template (logits and cache bitwise
+                   equal across the three), and ``profile`` lines: host
+                   and wall ms of one steady decode step in each regime
+                   (the two stacked ones in turns), the device time of
+                   ``coalesced_gemm`` and of the other kernels
+                   (``torch.profiler``), and the device busy share;
   4b. serve-tuned — phase 4's tenants at 12 layers (the script's time),
                    stacked, served untuned and live-tuned
                    (``live_tune=True``) with each objective, collaborative
@@ -83,11 +91,11 @@ Phases, each printing its own lines; a failing phase raises:
                    timed as in phase 3; the real rows must be BITWISE equal
                    to the bm = 8 launch on the same inputs;
   5. serve-grouped — two full-width yi-9b tenants with distinct weights
-                   (bf16, 12 layers), both regimes as in phase 4: per-layer
-                   the kernel runs with G >= 2 weight matrices;
+                   (bf16, 12 layers), graphed stacked and per-layer:
+                   per-layer the kernel runs with G >= 2 weight matrices;
   5b. serve-moe  — two tenants sharing one full-width grok-1 weight set
                    (bf16, 8 experts top-2, 2 layers: one layer's experts
-                   are 9.66 GB), both regimes as in phase 4, the bytes
+                   are 9.66 GB), the five runs of phase 4, the bytes
                    reckoned beside ``torch.cuda.mem_get_info``; per regime
                    also ``expert_coalesced`` and ``nondense_programs``
                    (launches: 4 + 3E a layer of a stacked body plus one a
@@ -138,10 +146,14 @@ Phases, each printing its own lines; a failing phase raises:
                    layers, cache 4096); the params reckoned beside
                    ``mem_get_info``; served in vliw (stacked: the vlm
                    tenants' decode steps are KernelPrograms, the others the
-                   monolithic step), then in batched. Per tenant: programs
+                   monolithic step) graphed and eager in turns (four
+                   runs, a weight budget of 16 GiB that holds the vlm
+                   packs), then in batched. Per tenant: programs
                    or monolithic steps, tokens, the smallest top-2 logit
                    margin; per mode: wall s, tokens/s, launches (checked in
-                   vliw, 0 in batched), peak GiB; the int8 cache's bytes
+                   vliw, 0 in batched), graph captures and replays, peak
+                   GiB; graphed and eager vliw tokens identical; the int8
+                   cache's bytes
                    against a bf16 cache of its shape. The monolithic
                    tenants' tokens must be identical in both modes; the vlm
                    tenants' agreement is printed (bf16 kernel against bf16
@@ -178,7 +190,13 @@ Phases, each printing its own lines; a failing phase raises:
                    steps of ``SyntheticLM`` through ``make_train_step``:
                    each step's loss, lr, grad norm and ms; one more step
                    under ``torch.profiler`` (device ms, busy share, the
-                   eight costliest kernels by device time); the median ms
+                   eight costliest kernels by device time, the device ms
+                   of the GEMMs of fp32 inputs: p·v and the backward
+                   products); before the steps, one local-layer q·kᵀ of
+                   the step in bf16 under the profiler (no GEMM of fp32
+                   inputs among its kernels: the tensor cores with an
+                   fp32 result) and timed beside the widened fp32 einsum
+                   it replaced; the median ms
                    a step after 2 warm-up steps, tokens/s, peak GiB, model
                    TFLOP/s (6·N·D over the step) against the H100's
                    spec-sheet bf16 peak. Losses finite and falling (mean
@@ -767,6 +785,10 @@ def _decode_builder(cfg):
 
 
 REGIMES = ((True, "stacked"), (False, "per-layer"))
+# a serving phase's runs, in turns: the default (each stacked decode body a
+# CUDA graph replay), the same bodies eager, then the per-layer oracle
+SERVE_TURNS = ("stacked-graphed", "stacked", "stacked", "stacked-graphed",
+               "per-layer")
 
 
 def _serve(torch, cfg, tenants_params, *, n_req, prompt_len, new_tokens,
@@ -838,7 +860,7 @@ def _check_launches(cfg, rep, launches, stacked):
 def _report_serve(torch, phase, cfg, rep, wall, launches, max_groups,
                   regime):
     j = rep.jit
-    programs = _programs(cfg, rep, regime == "stacked")
+    programs = _programs(cfg, rep, regime != "per-layer")
     toks = rep.tokens_out
     g = _gemms_a_layer(cfg)
     say(phase, regime=regime, wall_s=f"{wall:.3f}", tokens=toks,
@@ -854,8 +876,22 @@ def _report_serve(torch, phase, cfg, rep, wall, launches, max_groups,
         weight_hit_rate=f"{j.dispatch.weight_hit_rate:.4f}",
         weight_invalidations=j.dispatch.weight_invalidations,
         kernel_builds=j.dispatch.retraces, max_G=max_groups,
+        graph_captures=j.dispatch.graph_captures,
+        graph_replays=j.dispatch.graph_replays,
         peak_alloc_GiB=f"{torch.cuda.max_memory_allocated() / GIB:.2f}",
         modeled_ms=f"{rep.modeled_time_s * 1e3:.3f}(H100 cost model)")
+
+
+def _check_graphs(rep, regime):
+    """A graphed run captured its decode bodies and replayed them; an eager
+    or per-layer run has no graph."""
+    d = rep.jit.dispatch
+    if regime.endswith("graphed"):
+        assert d.graph_captures > 0 and d.graph_replays > 0, \
+            (d.graph_captures, d.graph_replays)
+    else:
+        assert d.graph_captures == d.graph_replays == 0, \
+            (d.graph_captures, d.graph_replays)
 
 
 def _reset_counts(cg):
@@ -894,45 +930,65 @@ def _free(torch):
 
 
 def _serve_regimes(torch, cg, timed, phase, cfg, tenants_params, *, seed,
-                   budget, check, after=None):
-    """Serve one trace in both regimes, stacked first, each engine freed
-    before the next; the tokens must be identical. ``check(rep, launches,
-    max_G, regime)`` holds each run to its phase's assertions; ``after(eng,
-    rep)`` runs while the stacked engine is alive."""
+                   budget, check, after=None, turns=SERVE_TURNS):
+    """Serve one trace in each of ``turns`` (a regime may come twice, in
+    turns with another, so their walls can be read against the spread of
+    one setting), each engine freed before the next; the tokens of every
+    run must be identical. ``check(rep, launches, max_G, regime)`` holds
+    each run to its phase's assertions; ``after(eng, rep)`` runs while the
+    first graphed engine is alive. Returns per regime its first run's
+    numbers, with ``wall_s_turns`` the walls of all its runs."""
     out, tokens = {}, {}
-    for stacked, regime in REGIMES:
+    for regime in turns:
+        stacked = regime != "per-layer"
         torch.cuda.reset_peak_memory_stats()
         _reset_counts(cg)
         eng, rep, wall = _serve(torch, cfg, tenants_params, n_req=4,
                                 prompt_len=32, new_tokens=8,
                                 budget=budget, seed=seed,
-                                stacked=stacked)
+                                stacked=stacked,
+                                cuda_graphs=regime == "stacked-graphed")
         launches = cg.coalesced_gemm.launches
         max_g = cg.coalesced_gemm.max_groups
         _check_served(rep, cfg, 8, 8)
         _check_launches(cfg, rep, launches, stacked)
+        _check_graphs(rep, regime)
         check(rep, launches, max_g, regime)
         _report_serve(torch, phase, cfg, rep, wall, launches, max_g, regime)
         by_shape = _report_shapes(f"{phase} ({regime})", cg, timed)
-        tokens[regime] = {r.req_id: r.tokens_out for r in rep.requests}
-        programs = _programs(cfg, rep, stacked)
-        out[regime] = dict(
-            launches=launches, max_groups=max_g, wall_s=wall,
-            tokens=rep.tokens_out, tokens_per_s=rep.tokens_out / wall,
-            scheduler_dispatches=rep.jit.superkernels,
-            launches_per_program=launches / programs,
-            weight_hit_rate=rep.jit.dispatch.weight_hit_rate,
-            peak_alloc_GiB=torch.cuda.max_memory_allocated() / GIB,
-            expert_coalesced=rep.jit.expert_coalesced,
-            nondense_programs=rep.jit.nondense_programs,
-            launches_by_shape=by_shape)
-        if after is not None and stacked:
+        toks = {r.req_id: r.tokens_out for r in rep.requests}
+        assert all(toks == t for t in tokens.values()), regime
+        tokens[regime] = toks
+        if regime in out:
+            assert launches == out[regime]["launches"], regime
+            out[regime]["wall_s_turns"].append(wall)
+        else:
+            programs = _programs(cfg, rep, stacked)
+            out[regime] = dict(
+                launches=launches, max_groups=max_g, wall_s=wall,
+                wall_s_turns=[wall],
+                tokens=rep.tokens_out, tokens_per_s=rep.tokens_out / wall,
+                scheduler_dispatches=rep.jit.superkernels,
+                launches_per_program=launches / programs,
+                weight_hit_rate=rep.jit.dispatch.weight_hit_rate,
+                peak_alloc_GiB=torch.cuda.max_memory_allocated() / GIB,
+                graph_captures=rep.jit.dispatch.graph_captures,
+                graph_replays=rep.jit.dispatch.graph_replays,
+                expert_coalesced=rep.jit.expert_coalesced,
+                nondense_programs=rep.jit.nondense_programs,
+                launches_by_shape=by_shape)
+        if after is not None and regime == "stacked-graphed" \
+                and "extra_step" not in out:
             out.update(after(eng, rep))
         del eng, rep
         _free(torch)
-    assert tokens["stacked"] == tokens["per-layer"], tokens
     say(phase, tokens_stacked_vs_per_layer="identical",
-        requests=len(tokens["stacked"]))
+        tokens_graphed_vs_eager="identical" if "stacked" in tokens
+        else "not_run", regimes="/".join(turns),
+        requests=len(tokens[turns[0]]))
+    for regime in dict.fromkeys(turns):
+        say(phase, regime=regime, wall_s_turns="/".join(
+            f"{w:.3f}" for w in out[regime]["wall_s_turns"]))
     return out
 
 
@@ -982,27 +1038,50 @@ def phase_serve_shared(torch, cg, timed):
     return out
 
 
+# the extra step's and the profile's regimes: (label, stacked, graphed)
+STEP_REGIMES = (("stacked-graphed", True, True), ("stacked", True, False),
+                ("per-layer", False, False))
+
+
 def _extra_step(torch, eng, m, params, cfg, phase):
-    """One more decode step of tenant 0 through a stacked and a per-layer
-    template: finite logits of the expected shape, bitwise equal between
-    the two, beside the plain Model.decode_step."""
+    """One more decode step of tenant 0 through a stacked template as a
+    replay of the serving run's graph, the same template eager, and a
+    per-layer template: finite logits of the expected shape, logits and
+    every cache leaf bitwise equal across the three, beside the plain
+    Model.decode_step."""
     build = _decode_builder(cfg)
     t = eng.tenants["t0"]
-    logits = {}
-    for stacked, regime in REGIMES:
+    st = eng.jit.executor.stats
+    logits, caches = {}, {}
+    for regime, stacked, graphed in STEP_REGIMES:
+        eng.jit.cuda_graphs = graphed
+        r0, c0 = st.graph_replays, st.graph_captures
         prog = build(m, params, t.max_batch, stacked=stacked).bind(
             stream_id=0, tokens=t.slot_tok, cache=t.cache)
         eng.jit.run([prog])
-        logits[regime] = prog.env["logits"]
-    got = logits["stacked"].float()
+        if graphed:
+            # the serving run's graphs, replayed: no new capture
+            assert st.graph_replays > r0 and st.graph_captures == c0, \
+                (st.graph_replays, r0, st.graph_captures, c0)
+        logits[regime], caches[regime] = prog.env["logits"], \
+            prog.env["cache"]
+    eng.jit.cuda_graphs = True
+    got = logits["stacked-graphed"].float()
     assert tuple(got.shape) == (t.max_batch, cfg.padded_vocab)
     assert bool(torch.isfinite(got).all())
-    assert torch.equal(logits["stacked"], logits["per-layer"])
+    for regime in ("stacked", "per-layer"):
+        assert torch.equal(logits["stacked-graphed"], logits[regime]), regime
+        want = caches[regime]
+        assert torch.equal(caches["stacked-graphed"]["pos"], want["pos"])
+        for leaf, tt in want["layers"].items():
+            assert torch.equal(caches["stacked-graphed"]["layers"][leaf],
+                               tt), (regime, leaf)
     want, _ = m.decode_step(params, t.slot_tok, t.cache)
     diff = float((got - want[:, 0].float()).abs().max())
     agree = float((got.argmax(-1) == want[:, 0].argmax(-1)).float().mean())
     say(phase, extra_step_logits="finite",
-        stacked_vs_per_layer="bitwise_equal",
+        graphed_vs_eager="bitwise_equal(logits,cache)",
+        stacked_vs_per_layer="bitwise_equal(logits,cache)",
         max_abs_diff_vs_Model_decode_step_bf16=f"{diff:.4f}",
         argmax_agreement=f"{agree:.2f}")
     return dict(max_abs_diff_vs_decode_step=diff, argmax_agreement=agree)
@@ -1044,74 +1123,101 @@ def _host_split(prof, steps):
                      for k, (ms, n) in costly))
 
 
+def _profile_regime(torch, phase, regime, step, steps, *, host_ms, wall_ms,
+                    batch, layers):
+    """``steps`` calls of ``step`` under ``torch.profiler``: the device time
+    of ``coalesced_gemm`` and of the other kernels, the busy share against
+    ``wall_ms``, and the host events (CUDA events if the profiler records
+    no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    source = "torch.profiler"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    gemm_us, other_us = _device_split(prof)
+    n_host, host_ops_ms, costly = _host_split(prof, steps)
+    say("profile", path=phase, regime=regime,
+        host_events_per_step=f"{n_host:.0f}",
+        host_ms_in_them_per_step=f"{host_ops_ms:.3f}(profiled)",
+        costliest=costly)
+    if gemm_us + other_us == 0.0:
+        source = "cuda_events(no device time from the profiler)"
+        s_ev = torch.cuda.Event(enable_timing=True)
+        e_ev = torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        for _ in range(steps):
+            step()
+        e_ev.record()
+        torch.cuda.synchronize()
+        other_us = 1e3 * s_ev.elapsed_time(e_ev)
+    gemm_ms, glue_ms = gemm_us / 1e3 / steps, other_us / 1e3 / steps
+    busy = (gemm_ms + glue_ms) / wall_ms
+    say("profile", path=phase, regime=regime, batch=batch, layers=layers,
+        steps=steps, host_ms_per_step=f"{host_ms:.3f}",
+        wall_ms_per_step=f"{wall_ms:.3f}",
+        coalesced_gemm_device_ms_per_step=f"{gemm_ms:.3f}",
+        other_kernels_device_ms_per_step=f"{glue_ms:.3f}",
+        device_busy_share=f"{busy:.3f}", source=source)
+    return dict(host_ms=host_ms, wall_ms=wall_ms, gemm_device_ms=gemm_ms,
+                glue_device_ms=glue_ms, device_busy_share=busy,
+                source=source)
+
+
 def phase_profile(torch, eng, m, params, phase, steps=3):
     """Host and device time of one decode step of tenant 0 at the serving
-    phase's shape, through a stacked and a per-layer template, in a steady
-    state
-    (packs built, warmed). Host ms: until ``VLIWJit.run`` returns; wall ms:
-    until the card has finished (synchronize). Then the same steps under
-    ``torch.profiler`` (CPU and CUDA activities) for the device time of
-    ``coalesced_gemm`` and of every other kernel (the glue); device busy
-    share = device time / wall. If the profiler records no device time,
-    CUDA events give the device span of a step instead (idle gaps
-    included), and the line says so."""
-    from torch.profiler import ProfilerActivity, profile
+    phase's shape, in a steady state (packs built, graphs captured,
+    warmed), in three regimes (``STEP_REGIMES``): the stacked template as
+    replays of its bodies' CUDA graphs (``stacked-graphed``), the same
+    template eager (``stacked``), and the per-layer template. Host ms:
+    until ``VLIWJit.run`` returns; wall ms: until the card has finished
+    (synchronize); the two stacked regimes' steps are timed in turns (they
+    share their packs), the per-layer steps after them (serve-moe's weight
+    budget holds one regime's packs, so turns with it would repack), each
+    group from an empty weight cache. Then each regime's steps under
+    ``torch.profiler`` (``_profile_regime``)."""
     build = _decode_builder(m.cfg)
     t = eng.tenants["t0"]
+    tmpls = {regime: (build(m, params, t.max_batch, stacked=stacked), graphed)
+             for regime, stacked, graphed in STEP_REGIMES}
+
+    def step(regime):
+        tmpl, graphed = tmpls[regime]
+        eng.jit.cuda_graphs = graphed
+        eng.jit.run([tmpl.bind(stream_id=0, tokens=t.slot_tok,
+                               cache=t.cache)])
+
     out = {}
-    for stacked, regime in REGIMES:
-        tmpl = build(m, params, t.max_batch, stacked=stacked)
-
-        def step():
-            eng.jit.run([tmpl.bind(stream_id=0, tokens=t.slot_tok,
-                                   cache=t.cache)])
-
-        step()
+    for turns in (("stacked-graphed", "stacked"), ("per-layer",)):
+        # each group starts from an empty weight cache (its graphs go with
+        # it): serve-moe's budget holds one regime's packs, and the other
+        # regime's small packs left in 8 GiB segments fragment the pool
+        say("profile", path=phase, regimes="/".join(turns),
+            allocated_GiB=f"{torch.cuda.memory_allocated() / GIB:.2f}",
+            reserved_GiB=f"{torch.cuda.memory_reserved() / GIB:.2f}")
+        eng.jit.weight_cache.clear()
+        _free(torch)
+        host = {regime: [] for regime in turns}
+        wall = {regime: [] for regime in turns}
+        for regime in turns:
+            step(regime)
         torch.cuda.synchronize()
-        host, wall = [], []
         for _ in range(steps):
-            t0 = time.perf_counter()
-            step()
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            host.append(t1 - t0)
-            wall.append(time.perf_counter() - t0)
-        host_ms = 1e3 * statistics.median(host)
-        wall_ms = 1e3 * statistics.median(wall)
-        source = "torch.profiler"
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-        gemm_us, other_us = _device_split(prof)
-        n_host, host_ops_ms, costly = _host_split(prof, steps)
-        say("profile", path=phase, regime=regime,
-            host_events_per_step=f"{n_host:.0f}",
-            host_ms_in_them_per_step=f"{host_ops_ms:.3f}(profiled)",
-            costliest=costly)
-        if gemm_us + other_us == 0.0:
-            source = "cuda_events(no device time from the profiler)"
-            s_ev = torch.cuda.Event(enable_timing=True)
-            e_ev = torch.cuda.Event(enable_timing=True)
-            s_ev.record()
-            for _ in range(steps):
-                step()
-            e_ev.record()
-            torch.cuda.synchronize()
-            other_us = 1e3 * s_ev.elapsed_time(e_ev)
-        gemm_ms, glue_ms = gemm_us / 1e3 / steps, other_us / 1e3 / steps
-        busy = (gemm_ms + glue_ms) / wall_ms
-        say("profile", path=phase, regime=regime, batch=t.max_batch,
-            layers=m.cfg.num_layers, steps=steps,
-            host_ms_per_step=f"{host_ms:.3f}",
-            wall_ms_per_step=f"{wall_ms:.3f}",
-            coalesced_gemm_device_ms_per_step=f"{gemm_ms:.3f}",
-            other_kernels_device_ms_per_step=f"{glue_ms:.3f}",
-            device_busy_share=f"{busy:.3f}", source=source)
-        out[regime] = dict(host_ms=host_ms, wall_ms=wall_ms,
-                           gemm_device_ms=gemm_ms, glue_device_ms=glue_ms,
-                           device_busy_share=busy, source=source)
+            for regime in turns:
+                t0 = time.perf_counter()
+                step(regime)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host[regime].append(t1 - t0)
+                wall[regime].append(time.perf_counter() - t0)
+        for regime in turns:
+            out[regime] = _profile_regime(
+                torch, phase, regime, lambda: step(regime), steps,
+                host_ms=1e3 * statistics.median(host[regime]),
+                wall_ms=1e3 * statistics.median(wall[regime]),
+                batch=t.max_batch, layers=m.cfg.num_layers)
+    eng.jit.cuda_graphs = True
     return out
 
 
@@ -1140,7 +1246,8 @@ def phase_serve_grouped(torch, cg, timed):
             assert max_g >= 2, (launches, max_g)
 
     out = _serve_regimes(torch, cg, timed, "serve-grouped", cfg, tp, seed=1,
-                         budget=budget, check=check)
+                         budget=budget, check=check,
+                         turns=("stacked-graphed", "per-layer"))
     del tp
     _free(torch)
     return out
@@ -1181,8 +1288,14 @@ def phase_card_vs_cpu(torch, cg):
                 if not stacked:
                     assert max_g >= 2, (launches, max_g)
                 result[regime] = dict(launches=launches, max_groups=max_g)
+                # the card serves its stacked bodies as graph replays
+                assert (rep.jit.dispatch.graph_replays > 0) == stacked
+            else:
+                assert rep.jit.dispatch.graph_captures == 0
             say("card-vs-cpu", regime=regime, device=m.device.type,
                 wall_s=f"{wall:.3f}", launches=launches, max_G=max_g,
+                graph_captures=rep.jit.dispatch.graph_captures,
+                graph_replays=rep.jit.dispatch.graph_replays,
                 scheduler_dispatches=rep.jit.superkernels,
                 mean_group=f"{rep.jit.mean_group:.3f}",
                 shared=rep.jit.shared_dispatches)
@@ -1540,7 +1653,7 @@ def _family_models(torch, cfgs, dtype, device=None):
 
 
 def _serve_fleet(torch, models, mode, *, n_req, prompt_len, new_tokens,
-                 seed, cache_lens=None):
+                 seed, cache_lens=None, cuda_graphs=True):
     """Serve the family fleet in ``mode`` on one engine, counting each
     tenant's decode programs (``_build_program``) and monolithic steps
     (``_tenant_batched_step``) and the smallest top-2 logit margin of its
@@ -1550,8 +1663,13 @@ def _serve_fleet(torch, models, mode, *, n_req, prompt_len, new_tokens,
                       cache_len=(cache_lens or {}).get(name, cl),
                       max_batch=4)
                for name, arch, _, cl in FAMILY_FLEET]
+    # a weight budget that holds the vlm tenants' packs: under the
+    # engine's default 1 GiB every full-width pack passes through the
+    # cache, is rebuilt each dispatch, and its body cannot be graphed
     eng = ServingEngine(tenants, mode=mode, plan_capacity=1024,
-                        device=tenants[0].model.device)
+                        device=tenants[0].model.device,
+                        weight_budget_bytes=16 * GIB,
+                        cuda_graphs=cuda_graphs)
     counts = {t.name: dict(programs=0, steps=0, margin=math.inf)
               for t in tenants}
     build, step, consume = (eng._build_program, eng._tenant_batched_step,
@@ -1617,21 +1735,28 @@ def phase_serve_families(torch, cg):
         total_GiB=f"{total / GIB:.2f}")
     vlm_cfg = cfgs["internvl2-2b"]
     out, toks = {}, {}
-    for mode in ("vliw", "batched"):
+    # vliw graphed and eager in turns, then batched
+    for mode in ("vliw-graphed", "vliw", "vliw", "vliw-graphed", "batched"):
         torch.cuda.reset_peak_memory_stats()
         _reset_counts(cg)
-        eng, rep, wall, counts = _serve_fleet(torch, models, mode, n_req=4,
-                                              prompt_len=32, new_tokens=8,
-                                              seed=5)
+        eng, rep, wall, counts = _serve_fleet(
+            torch, models, mode.removesuffix("-graphed"), n_req=4,
+            prompt_len=32, new_tokens=8, seed=5,
+            cuda_graphs=mode == "vliw-graphed")
         launches = cg.coalesced_gemm.launches
         assert rep.unfinished == 0, rep.unfinished
         for r in rep.requests:
             assert len(r.tokens_out) == 8, (r.req_id, r.tokens_out)
-        toks[mode] = {r.req_id: (r.tenant, r.tokens_out)
-                      for r in rep.requests}
+        got = {r.req_id: (r.tenant, r.tokens_out) for r in rep.requests}
+        if mode.startswith("vliw"):
+            # graphed and eager vliw: the same tokens, tenant by tenant
+            assert all(got == t for m_, t in toks.items()
+                       if m_.startswith("vliw")), mode
+        toks[mode] = got
         peak = torch.cuda.max_memory_allocated() / GIB
-        if mode == "vliw":
+        if mode.startswith("vliw"):
             _check_launches(vlm_cfg, rep, launches, True)
+            _check_graphs(rep, mode)
             assert launches > 0
             assert counts["vlm0"]["programs"] > 0
             for name in ("vlm0", "vlm1"):
@@ -1643,10 +1768,11 @@ def phase_serve_families(torch, cg):
             q8 = sum(int8[k].nbytes for k in ("k", "v"))
             scales = sum(int8[k].nbytes for k in ("k_scale", "v_scale"))
             bf16 = 2 * q8
-            say("serve-families", int8_cache_bytes=q8 + scales,
-                int8_values=q8, scales=scales, bf16_cache_bytes=bf16,
-                ratio=f"{(q8 + scales) / bf16:.4f}",
-                shape=tuple(int8["k"].shape))
+            if mode not in out:
+                say("serve-families", int8_cache_bytes=q8 + scales,
+                    int8_values=q8, scales=scales, bf16_cache_bytes=bf16,
+                    ratio=f"{(q8 + scales) / bf16:.4f}",
+                    shape=tuple(int8["k"].shape))
         else:
             assert launches == 0, launches
         served = {}
@@ -1666,16 +1792,26 @@ def phase_serve_families(torch, cg):
             nondense_programs=(rep.jit.nondense_programs
                                if rep.jit else 0),
             scheduler_dispatches=rep.jit.superkernels if rep.jit else 0,
+            graph_captures=rep.jit.dispatch.graph_captures if rep.jit else 0,
+            graph_replays=rep.jit.dispatch.graph_replays if rep.jit else 0,
             peak_alloc_GiB=f"{peak:.2f}")
-        out[mode] = dict(wall_s=wall, launches=launches,
-                         tokens=rep.tokens_out, peak_alloc_GiB=peak,
-                         counts={k: dict(programs=v["programs"],
-                                         steps=v["steps"])
-                                 for k, v in counts.items()})
+        if mode in out:
+            assert launches == out[mode]["launches"], mode
+            out[mode]["wall_s_turns"].append(wall)
+        else:
+            out[mode] = dict(wall_s=wall, wall_s_turns=[wall],
+                             launches=launches, tokens=rep.tokens_out,
+                             peak_alloc_GiB=peak,
+                             counts={k: dict(programs=v["programs"],
+                                             steps=v["steps"])
+                                     for k, v in counts.items()})
         del eng, rep
         _free(torch)
+    for mode, o in out.items():
+        say("serve-families", mode=mode, wall_s_turns="/".join(
+            f"{w:.3f}" for w in o["wall_s_turns"]))
     agree, first = {}, {}
-    for rid, (name, a) in toks["vliw"].items():
+    for rid, (name, a) in toks["vliw-graphed"].items():
         b = toks["batched"][rid][1]
         if name.startswith("vlm"):
             agree[name] = agree.get(name, 0) + int(a == b)
@@ -1684,7 +1820,8 @@ def phase_serve_families(torch, cg):
                 first[name] = min(first.get(name, i), i)
         else:
             assert a == b, (name, rid, a, b)
-    say("serve-families", monolithic_tokens_vliw_vs_batched="identical",
+    say("serve-families", tokens_vliw_graphed_vs_eager="identical",
+        monolithic_tokens_vliw_vs_batched="identical",
         vlm_requests_agreeing=agree,
         vlm_first_differing_step=first or "none")
     out["vlm_agreeing"] = agree
@@ -1760,7 +1897,10 @@ class _RouteLog:
     experts and the smallest top-k margin (the k-th largest router
     probability minus the next) over the call's tokens. It wraps
     ``models.moe.route``, which the templates' glue and ``moe_ffn`` call
-    through the module, and computes nothing the path uses."""
+    through the module, and computes nothing the path uses. A stacked
+    body's routing on the card runs inside its CUDA graph after the first
+    step: the log sees the eager first call, and skips the capture (a
+    read-back cannot be captured) and the replays (no Python runs)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -1773,6 +1913,8 @@ class _RouteLog:
 
         def route(router, x, cfg):
             out = self.orig(router, x, cfg)
+            if x.is_cuda and torch.cuda.is_current_stream_capturing():
+                return out
             probs = torch.softmax(x.float() @ router, dim=-1)
             top = torch.sort(probs, dim=-1, descending=True).values
             k = cfg.top_k
@@ -2029,6 +2171,7 @@ def phase_serve_mesh(torch, cg):
             (j.hazard_checks, j.hazard_violations)
         assert (j.collective_time_s > 0) == (n > 1), j.collective_time_s
         assert rep.num_devices == n
+        _check_graphs(rep, "stacked-graphed")
         programs = _check_fleet_launches(eng, rep, cfgs, launches)
         disp, coal = _per_device(eng, n)
         cert_ms, _ = _certify_ms_per_dispatch(eng)
@@ -2050,6 +2193,8 @@ def phase_serve_mesh(torch, cg):
             hazard_violations=j.hazard_violations,
             certify_host_ms_per_dispatch=f"{cert_ms:.4f}",
             weight_hit_rate=f"{j.dispatch.weight_hit_rate:.4f}",
+            graph_captures=j.dispatch.graph_captures,
+            graph_replays=j.dispatch.graph_replays,
             modeled_ms=f"{rep.modeled_time_s * 1e3:.3f}(H100 cost model)",
             peak_alloc_GiB=f"{torch.cuda.max_memory_allocated() / GIB:.2f}")
         out[n] = dict(wall_s=wall, tokens=toks, tokens_per_s=toks / wall,
@@ -2208,6 +2353,8 @@ def serve_daemon(torch, cg, eng, *, rate_hz, n_req, prompt_len, new_tokens,
     j = rep.jit
     assert j.hazard_checks > 0 and j.hazard_violations == 0, \
         (j.hazard_checks, j.hazard_violations)
+    # the real-clock daemon serves its decode bodies as graph replays
+    assert j.dispatch.graph_replays > 0, j.dispatch.graph_replays
     by_id = {r.req_id: r for r in rep.requests}
     # real TTFT from the submission; beside it the wait for the loop's
     # poll, and TTFT from the poll-stamped arrival (host instant, engine
@@ -2236,6 +2383,8 @@ def serve_daemon(torch, cg, eng, *, rate_hz, n_req, prompt_len, new_tokens,
         tier_attainment=",".join(f"{k}:{v:.3f}" for k, v in tiers.items()),
         goodput_rps=f"{rep.goodput_rps:.3f}", wall_s=f"{rep.wall_time_s:.3f}",
         tokens_streamed=streamed, launches=launches,
+        graph_captures=j.dispatch.graph_captures,
+        graph_replays=j.dispatch.graph_replays,
         hazard_checks=j.hazard_checks, hazard_violations=j.hazard_violations)
     say("serve-daemon", real_ttft_p50_s=f"{q_ttft[0]:.4f}",
         real_ttft_p99_s=f"{q_ttft[1]:.4f}",
@@ -2489,6 +2638,9 @@ def phase_train(torch, cg, gv, fa, steps=12, warmup=2):
         vocab=cfg.padded_vocab, params=n_params, dtype="bfloat16",
         opt_state="float32", remat=True, B=B, S=S,
         state_GiB=f"{torch.cuda.memory_allocated() / GIB:.3f}")
+    # the step's q·kᵀ route, profiled alone before the steps (after the
+    # step's long profile below the profiler recorded no device event)
+    attention_route = _attention_route(torch, cfg, B)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches(cg, gv, fa)
@@ -2531,6 +2683,10 @@ def phase_train(torch, cg, gv, fa, steps=12, warmup=2):
     for name, us in top:
         say("train", kernel=repr(name[:90]), device_ms=f"{us / 1e3:.3f}",
             share_of_device=f"{us / max(device_us, 1e-9):.3f}")
+    simt = {n: us for n, us in by_name.items() if _fp32_gemm(n)}
+    say("train", fp32_simt_gemm_device_ms=f"{sum(simt.values()) / 1e3:.3f}",
+        kinds=len(simt), what="p·v and the backward products, fp32 as in "
+                               "the reference (q·kᵀ forward: above)")
     launches = _kernel_launches(cg, gv, fa)
     peak = torch.cuda.max_memory_allocated() / GIB
     step_ms = statistics.median(ms[warmup:])
@@ -2551,7 +2707,73 @@ def phase_train(torch, cg, gv, fa, steps=12, warmup=2):
     del params, opt_state, step_fn, batch
     _free(torch)
     return dict(losses=losses, ms_per_step=step_ms, peak_GiB=peak,
-                model_tflops=tflops, launches=launches)
+                model_tflops=tflops, launches=launches,
+                fp32_simt_gemm_device_ms=sum(simt.values()) / 1e3,
+                attention_route=attention_route)
+
+
+def _fp32_gemm(name):
+    """A cuBLAS GEMM of fp32 inputs (``sm80_xmma_gemm_f32f32_...``, without
+    tensor cores: ``ffma``)."""
+    return "gemm_f32f32" in name or "ffma" in name
+
+
+def _attention_route(torch, cfg, B, reps=10):
+    """The train step's q·kᵀ of one 512-query chunk against a local layer's
+    band (bq + window keys), bf16, through ``qk_scores``: its forward
+    kernels under ``torch.profiler`` over ``reps`` calls (none may be a
+    GEMM of fp32 inputs, ``_fp32_gemm``: the product runs on the tensor
+    cores in bf16 with an fp32 result; in this long process the profiler
+    has recorded no device event for so short a window, so an empty list
+    is printed as such, and tests/test_torch_cuda.py checks the kernels in
+    a process of its own),
+    and its time beside the widened fp32 einsum it replaced (CUDA events,
+    median of ``reps``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.attention import Q_CHUNK, qk_scores
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    T = Q_CHUNK + cfg.window_size
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(B, Q_CHUNK, Hkv, H // Hkv, hd, device="cuda",
+                    generator=g).bfloat16()
+    k = torch.randn(B, T, Hkv, hd, device="cuda", generator=g).bfloat16()
+    qk_scores(q, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            got = qk_scores(q, k)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA})
+    assert not any(_fp32_gemm(n) for n in names), names
+    want = torch.einsum("bshgd,bthd->bhgst", q.float(), k.float())
+    err = float((got - want).abs().max())
+    assert err <= 1e-3 * float(want.abs().max()), err
+
+    def ms(fn):
+        ts = []
+        for _ in range(reps):
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            fn()
+            e_ev.record()
+            torch.cuda.synchronize()
+            ts.append(s_ev.elapsed_time(e_ev))
+        return statistics.median(ts)
+
+    route_ms = ms(lambda: qk_scores(q, k))
+    widened_ms = ms(lambda: torch.einsum("bshgd,bthd->bhgst", q.float(),
+                                         k.float()))
+    say("train", attention_qk=f"q [{B},{Q_CHUNK},{Hkv},{H // Hkv},{hd}] "
+        f"k [{B},{T},{Hkv},{hd}] bf16", kernels=";".join(
+            n[:60] for n in names) or "none_recorded_by_the_profiler",
+        max_abs_err_vs_widened=f"{err:.3e}",
+        ms=f"{route_ms:.4f}", widened_fp32_einsum_ms=f"{widened_ms:.4f}")
+    return dict(kernels=names, ms=route_ms, widened_ms=widened_ms,
+                max_abs_err=err)
 
 
 def _loss_and_grads(torch, model, params, batch):
@@ -2803,18 +3025,20 @@ def main(argv=None) -> int:
                   and r["shape"] == "lstm G=4")
     a_head = next(r for r in attn_shapes if r["dtype"] == "float32"
                   and r["shape"].startswith("gemma3-1b local"))
+    runs = ("stacked-graphed", "stacked", "per-layer")
     by_phase = {f"{phase} ({regime})": out[regime]["launches"]
                 for phase, out in (("serve-shared", shared),
                                    ("serve-grouped", grouped),
                                    ("serve-moe", moe), ("serve-ssm", ssm),
                                    ("card-vs-cpu", cpu))
-                for _, regime in REGIMES}
+                for regime in runs if regime in out}
     by_phase.update({f"card-vs-cpu {k}": n for k, n in cpu_nondense.items()})
     by_phase["card-vs-cpu families (stacked)"] = cpu_families["launches"]
     by_phase.update({f"serve-tuned ({label}, stacked)": run["launches"]
                      for label, run in tuned.items()})
-    by_phase["serve-families (vliw, stacked)"] = \
-        families["vliw"]["launches"]
+    by_phase.update({f"serve-families ({mode}, stacked)":
+                     families[mode]["launches"]
+                     for mode in ("vliw-graphed", "vliw")})
     by_phase.update({f"serve-mesh (stacked, {n} device{'s' * (n > 1)})":
                      mesh[n]["launches"] for n in (1, 2)})
     by_phase.update({
@@ -2824,7 +3048,7 @@ def main(argv=None) -> int:
     by_phase["rnn-matvec (shared)"] = rnn["shared"]["gemm"]
     kernels = [
         entry("coalesced_gemm", "src/repro/kernels/coalesced_gemm.py:43",
-              shared["stacked"]["launches"], by_phase,
+              shared["stacked-graphed"]["launches"], by_phase,
               shapes, head,
               f"A [{head['M']},{head['K']}], "
               f"B [{head['G']},{head['K']},{head['N']}]"),
@@ -2850,7 +3074,7 @@ def main(argv=None) -> int:
         for phase, out in (("serve-shared", shared),
                            ("serve-grouped", grouped),
                            ("serve-moe", moe), ("serve-ssm", ssm))
-        for _, regime in REGIMES}
+        for regime in runs if regime in out}
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -88,6 +88,10 @@ class DispatchStats:
     weight_invalidations: int = 0  # identity-guard trips (weight hot-swap)
     retraces: int = 0              # kernel library builds (see docstring)
     bytes_not_copied: int = 0      # packed-weight bytes NOT re-staged (hits)
+    # CUDA graphs of stacked decode bodies (core/graphs.py): captures (one
+    # a body key) and replays
+    graph_captures: int = 0
+    graph_replays: int = 0
 
     @property
     def weight_hit_rate(self) -> float:

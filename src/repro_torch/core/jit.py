@@ -46,7 +46,10 @@ flags) instead of ~6 stages a layer: the whole sub-stack is one schedulable
 op whose operands are the params tree's stacked ``[L, k, n]`` blocks, padded
 once into the executor's persistent cache (``stacked_operand``). Where the
 JAX package runs a jitted ``lax.scan`` over the layer axis, the body here is
-a Python loop over the sub-stack's layers. Each of its GEMMs is one solo
+a Python loop over the sub-stack's layers; on the card a decode body is
+captured once per key into a CUDA graph and replayed (``VLIWJit.graphs``,
+core/graphs.py, the counterpart of the JAX package's per-body jits; the
+CPU runs it eagerly). Each of its GEMMs is one solo
 ``coalesced_gemm`` launch (``_scan_gemm``, G = 1) that replicates the
 executor's dispatch of a lone op exactly: the same m-tile bucket, the same
 padded envelope, the same glue functions. So a stacked program is bitwise
@@ -97,6 +100,7 @@ from repro_torch.core.costmodel import (BlockConfig, CostModel, GemmShape,
                                         H100)
 from repro_torch.core.dispatch import (DispatchStats, SuperkernelExecutor,
                                        _pad_rows_cols, _tile_bucket)
+from repro_torch.core.graphs import BodyIO, GraphCache
 from repro_torch.core.kernelspec import KernelOp, make_op, op_aspect
 from repro_torch.core.plancache import PlanCache, PlanCacheStats
 from repro_torch.core.schedtrace import (DispatchRecord, OpRecord,
@@ -106,6 +110,7 @@ from repro_torch.kernels.build import build_count
 from repro_torch.kernels.coalesced_gemm import coalesced_gemm
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.attention import qk_scores
 from repro_torch.models.layers import apply_rope, rmsnorm, silu_mul
 
 NEG_INF = -2.0e38
@@ -196,6 +201,10 @@ class StackedGemmStage:
                    SuperkernelExecutor, Optional[BlockConfig]], None]
     reads: Optional[Tuple] = None
     writes: Optional[Tuple] = None
+    # the body as a function of tensors (``run`` is its eager call), for a
+    # decode body the form its CUDA graph holds (core/graphs.py); None for
+    # a body that is never captured
+    graph: Optional[BodyIO] = None
 
 
 Stage = Any  # GemmStage | GlueStage | StackedGemmStage
@@ -590,7 +599,7 @@ def _gqa_decode_attend(cfg: ModelConfig, B: int, q_flat, k_flat, v_flat,
     vc[rows, :, wpos] = v[:, 0].to(vc.dtype)
     G = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(B, 1, cfg.num_kv_heads, G, hd)
-    scores = torch.einsum("bshgd,bhtd->bhgst", qg.float(), kc.float())
+    scores = qk_scores(qg, kc, k_heads_first=True)
     scores = scores / math.sqrt(hd)
     idx = torch.arange(S, device=kc.device)
     ok = idx[None, :] <= pos[:, None]
@@ -654,19 +663,24 @@ def _ssm_core(cfg: ModelConfig, mamba_p, zxbcdt: torch.Tensor,
 
 
 def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
-                        m_rows: int, attend_for, reads: Tuple,
-                        moe: bool = False) -> StackedGemmStage:
+                        m_rows: int, read, attend_for, reads: Tuple,
+                        moe: bool = False,
+                        graph_key: Optional[Tuple] = None
+                        ) -> StackedGemmStage:
     """ONE layer body covering layers [lo, hi) of a GQA model (dense or,
     with ``moe``, MoE), in place of their per-layer stages; shared by the
     decode and prefill templates, as ``_emit_dense_body`` is. Its loop
     replays the per-layer math exactly: ``_scan_gemm`` for every projection
     and the same ``rmsnorm``, ``silu_mul`` and MoE glue (``_moe_route``,
-    ``_moe_combine``) the per-layer glue calls. ``attend_for(env,
-    is_global)`` returns the phase's attention, ``attend(l, q, k, v, dtype)
-    -> (attn_out, k_new, v_new)`` for layer l, the same function its
-    per-layer glue calls. The layers' k/v are stacked into one [Lsub, ...]
-    chunk for the epilogue to concatenate. An MoE body's expert packs hold
-    ``Lsub·E`` matrices, layer i's expert e at ``i·E + e``."""
+    ``_moe_combine``) the per-layer glue calls. The body is a function of
+    tensors (``BodyIO``): ``read(env, lo, hi)`` gives its inputs (``x`` and
+    the phase's own), ``attend_for(inputs, is_global)`` the phase's
+    attention, ``attend(i, q, k, v, dtype) -> (attn_out, k_new, v_new)``
+    for the body's layer i, the same function its per-layer glue calls.
+    The layers' k/v are stacked into one [Lsub, ...] chunk for the epilogue
+    to concatenate. An MoE body's expert packs hold ``Lsub·E`` matrices,
+    layer i's expert e at ``i·E + e``. ``graph_key`` (decode) lets the
+    session replay the body as a CUDA graph (core/graphs.py)."""
     hd = cfg.resolved_head_dim
     d = cfg.d_model
     eps = cfg.norm_eps
@@ -683,18 +697,18 @@ def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
         C = moe_lib.capacity(m_rows, cfg.moe)
         routers = _stack_slice(blocks["moe"]["router"], lo, hi)
 
-    def run(env, padded, ex, block=None):
-        attend = attend_for(env, is_global)
+    def body(inp, padded, ex, block=None):
+        attend = attend_for(inp, is_global)
 
         def gemm(a, tag, j, n):
             return _scan_gemm(a, padded[tag][j], n, ex, block)
 
-        x = env["x"]
+        x = inp["x"]
         ks, vs = [], []
         for i in range(Lsub):
             h = rmsnorm(x, ln1s[i], eps)
             attn_out, k_new, v_new = attend(
-                lo + i, gemm(h, "attn_wq", i, nq), gemm(h, "attn_wk", i, nkv),
+                i, gemm(h, "attn_wq", i, nq), gemm(h, "attn_wk", i, nkv),
                 gemm(h, "attn_wv", i, nkv), h.dtype)
             ks.append(k_new)
             vs.append(v_new)
@@ -713,15 +727,15 @@ def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
             act = silu_mul(gemm(h2, "ffn_gate", i, dff),
                            gemm(h2, "ffn_up", i, dff))
             x = x + gemm(act, "ffn_down", i, d)
-        env["x"] = x
-        env["new_layers"]["k"].append(torch.stack(ks))
-        env["new_layers"]["v"].append(torch.stack(vs))
+        return {"x": x, "k": torch.stack(ks), "v": torch.stack(vs)}
 
+    io = BodyIO(graph_key, lambda env: read(env, lo, hi), body)
     return StackedGemmStage(
         tag=f"body_{lo}_{hi}",
         weight_key=weight_key(cfg.name, pid, "body", stack=(lo, hi)),
-        operands=operands, layers=Lsub, run=run,
-        reads=reads, writes=("x", "new_layers"))
+        operands=operands, layers=Lsub, run=io.run,
+        reads=reads, writes=("x", "new_layers"),
+        graph=io if graph_key is not None else None)
 
 
 def _stacked_operands(cfg: ModelConfig, blocks, pid: int, lo: int, hi: int,
@@ -802,14 +816,20 @@ def _build_stacked_gqa_decode_template(model, params, batch: int, *,
     cfg: ModelConfig = model.cfg
     B = batch
 
-    def attend_for(env, is_global):
-        # one new token per row against the slotted cache
+    def read(env, lo, hi):
+        # the body's inputs: the residual stream, the rows' positions and
+        # the body's slices of the slotted cache
         cache = env["cache"]
-        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
-        pos = torch.broadcast_to(cache["pos"], (B,))
+        return {"x": env["x"], "pos": torch.broadcast_to(cache["pos"], (B,)),
+                "kc": _stack_slice(cache["layers"]["k"], lo, hi),
+                "vc": _stack_slice(cache["layers"]["v"], lo, hi)}
 
-        def attend(l, q, k, v, dtype):
-            return _gqa_decode_attend(cfg, B, q, k, v, kc[l], vc[l], pos,
+    def attend_for(inp, is_global):
+        # one new token per row against the slotted cache
+        kc, vc, pos = inp["kc"], inp["vc"], inp["pos"]
+
+        def attend(i, q, k, v, dtype):
+            return _gqa_decode_attend(cfg, B, q, k, v, kc[i], vc[i], pos,
                                       is_global, dtype)
 
         return attend
@@ -818,8 +838,8 @@ def _build_stacked_gqa_decode_template(model, params, batch: int, *,
     _emit_decode_embed(cfg, params, stages)
     for lo, hi in partition_layers(cfg.global_layer_flags()):
         stages.append(_stacked_body_stage(
-            cfg, params, lo, hi, m_rows=B, attend_for=attend_for,
-            reads=("x", "cache"), moe=moe))
+            cfg, params, lo, hi, m_rows=B, read=read, attend_for=attend_for,
+            reads=("x", "cache"), moe=moe, graph_key=("decode", cfg, B)))
     _emit_final_logits(cfg, params, stages, m_rows=B)
     stages.append(_decode_finish(_join_chunks))
     return ProgramTemplate(stages=stages, batch=B, model_name=cfg.name)
@@ -1010,22 +1030,26 @@ def _build_stacked_ssm_decode_template(model, params, batch: int
              if k not in ("in_proj", "out_proj")} for l in range(L)]
     ln1s = blocks["ln1"]
 
-    def run(env, padded, ex, block=None):
+    def read(env):
+        # the body's inputs: the residual stream and the recurrent cache
         layers = env["cache"]["layers"]
-        x = env["x"]
+        return {"x": env["x"], "conv": layers["conv"], "h": layers["h"]}
+
+    def body(inp, padded, ex, block=None):
+        x = inp["x"]
         convs, hs = [], []
         for l in range(L):
             hh = rmsnorm(x, ln1s[l], eps)
             zxbcdt = _scan_gemm(hh, padded["ssm_in_proj"][l], n_in, ex,
                                 block)
-            y, new_c = _ssm_core(cfg, rest[l], zxbcdt, layers["conv"][l],
-                                 layers["h"][l])
+            y, new_c = _ssm_core(cfg, rest[l], zxbcdt, inp["conv"][l],
+                                 inp["h"][l])
             x = x + _scan_gemm(y, padded["ssm_out_proj"][l], d, ex, block)
             convs.append(new_c["conv"])
             hs.append(new_c["h"])
-        env["x"] = x
-        env["new_layers"]["conv"].append(torch.stack(convs))
-        env["new_layers"]["h"].append(torch.stack(hs))
+        return {"x": x, "conv": torch.stack(convs), "h": torch.stack(hs)}
+
+    io = BodyIO(("decode", cfg, B), read, body)
 
     stages: List[Stage] = []
     _emit_decode_embed(cfg, params, stages)
@@ -1034,8 +1058,8 @@ def _build_stacked_ssm_decode_template(model, params, batch: int
     stages.append(StackedGemmStage(
         tag=f"body_0_{L}",
         weight_key=weight_key(cfg.name, pid, "body", stack=(0, L)),
-        operands=operands, layers=L, run=run,
-        reads=("x", "cache"), writes=("x", "new_layers")))
+        operands=operands, layers=L, run=io.run,
+        reads=("x", "cache"), writes=("x", "new_layers"), graph=io))
     _emit_final_logits(cfg, params, stages, m_rows=B)
     stages.append(_decode_finish(_join_chunks,
                                  keys=("conv", "h")))
@@ -1134,7 +1158,7 @@ def _causal_prefill_attend(cfg: ModelConfig, Sp: int, q_flat, k_flat,
     k = apply_rope(k, positions, cfg.rope_theta)
     G = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(1, Sp, cfg.num_kv_heads, G, hd)
-    scores = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
+    scores = qk_scores(qg, k)
     scores = scores / math.sqrt(hd)
     idx = torch.arange(Sp, device=q.device)
     ok = idx[None, :] <= idx[:, None]
@@ -1188,11 +1212,14 @@ def build_dense_prefill_template(model, params, seq_len: int, *,
     glue(embed, reads=("tokens",), writes=("x", "positions"))
 
     if stacked:
-        def stacked_attend_for(env, is_global):
-            # causal self-attention over the whole (padded) prompt
-            positions = env["positions"]
+        def read(env, lo, hi):
+            return {"x": env["x"], "positions": env["positions"]}
 
-            def attend(l, q, k, v, dtype):
+        def stacked_attend_for(inp, is_global):
+            # causal self-attention over the whole (padded) prompt
+            positions = inp["positions"]
+
+            def attend(i, q, k, v, dtype):
                 attn_out, k_t, v_t = _causal_prefill_attend(
                     cfg, Sp, q, k, v, positions, is_global, dtype)
                 return attn_out, k_t[0], v_t[0]
@@ -1201,7 +1228,7 @@ def build_dense_prefill_template(model, params, seq_len: int, *,
 
         for lo, hi in partition_layers(cfg.global_layer_flags()):
             stages.append(_stacked_body_stage(
-                cfg, params, lo, hi, m_rows=Sp,
+                cfg, params, lo, hi, m_rows=Sp, read=read,
                 attend_for=stacked_attend_for, reads=("x", "positions")))
     else:
         def attend_for(l, lp, is_global):
@@ -1593,7 +1620,12 @@ class JitSession:
                 ex.stats.weight_hits += 1
             ex.stats.dispatches += 1
             builds0 = build_count()
-            st.run(prog.env, padded, ex, block)
+            if self.jit.cuda_graphs and st.graph is not None:
+                # a decode body: a replay of its CUDA graph (a capture at
+                # its key's first call); eager on the CPU
+                self.jit.graphs.run(st, prog.env, padded, ex, block)
+            else:
+                st.run(prog.env, padded, ex, block)
             ex.stats.retraces += build_count() - builds0
             self._advance(prog, completed)
 
@@ -1694,7 +1726,8 @@ class VLIWJit:
                  weight_capacity: Optional[int] = None,
                  weight_budget_bytes: Optional[int] = 1 << 30,
                  live_tune: bool = False,
-                 tune_objective: str = "collaborative"):
+                 tune_objective: str = "collaborative",
+                 cuda_graphs: bool = True):
         # the modelled device defaults to the H100 (spec-sheet values;
         # every time the cost model derives is modelled, not measured)
         self.cost = cost or CostModel(H100)
@@ -1728,6 +1761,15 @@ class VLIWJit:
         self.weight_cache = PlanCache(wcap,
                                       byte_capacity=weight_budget_bytes)
         self.executor = SuperkernelExecutor(self.weight_cache, bm=bm)
+        # the stacked decode bodies' CUDA graphs (core/graphs.py), the
+        # counterpart of the JAX package's jitted layer scans, which it
+        # always compiles: on by default; False runs every body eagerly
+        # (the eager-vs-graphed comparison). The CPU never captures. A
+        # graph reads packed weights by raw pointer, so every pack the
+        # weight cache drops takes the graphs that read it along.
+        self.cuda_graphs = cuda_graphs
+        self.graphs = GraphCache(resident=self.weight_cache.holds)
+        self.weight_cache.on_drop.append(self.graphs.drop_operand)
 
     def session(self, record_trace: bool = False, *, device: int = 0,
                 cost: Optional[CostModel] = None,

@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Hashable, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -126,6 +126,14 @@ class PlanCache:
         self._entries: "OrderedDict[Hashable, _Entry]" = OrderedDict()
         self._group_key: Dict[Hashable, Hashable] = {}
         self.stats = PlanCacheStats()
+        # called with each value the cache drops (evicted, invalidated or
+        # cleared): the graphs of core/graphs.py that read a dropped packed
+        # weight go with it
+        self.on_drop: List[Callable[[Any], None]] = []
+
+    def _dropped(self, entry: _Entry) -> None:
+        for fn in self.on_drop:
+            fn(entry.value)
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -145,6 +153,7 @@ class PlanCache:
         if entry is not None:
             self.bytes -= self._nbytes(entry)
             self._forget_groups(key)
+            self._dropped(entry)
         return entry
 
     def _forget_groups(self, key: Hashable) -> None:
@@ -222,6 +231,7 @@ class PlanCache:
                 k, dropped = self._entries.popitem(last=False)
                 self.bytes -= self._nbytes(dropped)
                 self._forget_groups(k)
+                self._dropped(dropped)
                 self.stats.evictions += 1
         return value, False
 
@@ -234,6 +244,11 @@ class PlanCache:
         entry = self._entries.get(key)
         return entry.value if entry is not None else None
 
+    def holds(self, value: Any) -> bool:
+        """Whether ``value`` is one of the cached values (by identity),
+        without touching stats or LRU order."""
+        return any(e.value is value for e in self._entries.values())
+
     def invalidate(self, key: Hashable) -> bool:
         """Explicitly drop one entry; returns whether it existed."""
         if self._pop(key) is not None:
@@ -244,6 +259,9 @@ class PlanCache:
     def clear(self) -> None:
         """Drop everything (counted as invalidations)."""
         self.stats.invalidations += len(self._entries)
+        entries = list(self._entries.values())
         self._entries.clear()
         self._group_key.clear()
         self.bytes = 0
+        for entry in entries:
+            self._dropped(entry)

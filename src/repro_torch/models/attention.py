@@ -38,6 +38,61 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
+class _ScoresF32(torch.autograd.Function):
+    """``qb @ kbᵀ`` of [N, m, hd] by [N, T, hd] with an fp32 result and the
+    operands left in their dtype: on the card one cuBLAS batched product
+    on the tensor cores (``bmm`` with ``out_dtype``, which has no
+    derivative of its own). The backward is the JAX package's transpose
+    rule for ``preferred_element_type=float32``: the fp32 cotangent times
+    the other operand widened to fp32, rounded to the operand's dtype. On
+    the CPU (tests of this plumbing) the forward widens both operands."""
+
+    @staticmethod
+    def forward(ctx, qb: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(qb, kb)
+        if qb.is_cuda:
+            return torch.bmm(qb, kb.transpose(1, 2), out_dtype=torch.float32)
+        return torch.bmm(qb.float(), kb.float().transpose(1, 2))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        qb, kb = ctx.saved_tensors
+        gq = gk = None
+        if ctx.needs_input_grad[0]:
+            gq = torch.bmm(g, kb.float()).to(qb.dtype)
+        if ctx.needs_input_grad[1]:
+            gk = torch.bmm(g.transpose(1, 2), qb.float()).to(kb.dtype)
+        return gq, gk
+
+
+def _bmm_scores(q: torch.Tensor, k: torch.Tensor,
+                k_heads_first: bool) -> torch.Tensor:
+    """``qk_scores`` as one batched product over (batch, kv head)."""
+    B, s, H, G, hd = q.shape
+    kh = k if k_heads_first else k.transpose(1, 2)      # [B, H, T, hd]
+    T = int(kh.shape[2])
+    qb = q.permute(0, 2, 3, 1, 4).reshape(B * H, G * s, hd)
+    kb = kh.reshape(B * H, T, hd)
+    return _ScoresF32.apply(qb, kb).reshape(B, H, G, s, T)
+
+
+def qk_scores(q: torch.Tensor, k: torch.Tensor, *,
+              k_heads_first: bool = False) -> torch.Tensor:
+    """GQA scores q·kᵀ with an fp32 result, the JAX package's
+    ``einsum(..., preferred_element_type=float32)``: q [B, s, Hkv, G, hd]
+    against k [B, T, Hkv, hd] (or [B, Hkv, T, hd] with ``k_heads_first``)
+    -> [B, Hkv, G, s, T] fp32.
+
+    A bf16 product on the card runs on the tensor cores in bf16 with an
+    fp32 sum (``_ScoresF32``): widening the operands first would send it to
+    an fp32 GEMM without tensor cores. fp32 operands, and every product on
+    the CPU, widen as before: an fp32 einsum."""
+    if q.is_cuda and q.dtype == torch.bfloat16 and k.dtype == q.dtype:
+        return _bmm_scores(q, k, k_heads_first)
+    eq = "bshgd,bhtd->bhgst" if k_heads_first else "bshgd,bthd->bhgst"
+    return torch.einsum(eq, q.float(), k.float())
+
+
 def locality_mask(rows: torch.Tensor, cols: torch.Tensor, is_global: bool,
                   window: int, causal: bool = True) -> torch.Tensor:
     """Boolean mask [S, T] (True = attendable): causal or bidirectional,
@@ -108,7 +163,7 @@ def _attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kb, vb = k, v
             ok = locality_mask(rows, cols, is_global or banded, window,
                                causal)
-        s = torch.einsum("bshgd,bthd->bhgst", qi.float(), kb.float())
+        s = qk_scores(qi, kb)
         return _scores_to_out(s, ok, vb, head_dim).to(q.dtype)
 
     outs = []
@@ -145,7 +200,7 @@ def attention_full(params: Params, x: torch.Tensor, *, num_heads: int,
                                  window=window, causal=causal,
                                  head_dim=head_dim)
         return out.to(x.dtype) @ params["wo"]
-    scores = torch.einsum("bshgd,bthd->bhgst", q.float(), k.float())
+    scores = qk_scores(q, k)
     idx = torch.arange(S, device=x.device)
     mask = locality_mask(idx, idx, is_global, window, causal)
     out = _scores_to_out(scores, mask, v, head_dim)
@@ -232,7 +287,7 @@ def attention_cross(params: Params, x: torch.Tensor, k_mem: torch.Tensor,
     G = num_heads // num_kv_heads
     q = _split_heads(x @ params["wq"], num_heads, head_dim)
     q = q.reshape(B, S, num_kv_heads, G, head_dim)
-    scores = torch.einsum("bshgd,bhtd->bhgst", q.float(), k_mem.float())
+    scores = qk_scores(q, k_mem, k_heads_first=True)
     scores = scores / math.sqrt(head_dim)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgst,bhtd->bshgd", p, v_mem.float())

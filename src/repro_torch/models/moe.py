@@ -88,20 +88,25 @@ def dispatch_tokens(x: torch.Tensor, weights: torch.Tensor,
     order = torch.argsort(e_flat, stable=True)          # [T*k]
     sorted_e = e_flat[order]
     sorted_tok = tok_of[order]
-    # rank of each assignment within its expert
-    counts = torch.bincount(sorted_e, minlength=E)
+    # rank of each assignment within its expert. Every shape here is fixed
+    # by (T, k, E, C), never by the routing, so nothing waits on the card
+    # and a CUDA graph can hold the step: counts by an integer scatter-add
+    # (exact in any order), not ``bincount``, whose output size is read
+    # back from the data
+    counts = torch.zeros(E, dtype=sorted_e.dtype, device=dev).scatter_add_(
+        0, sorted_e, torch.ones_like(sorted_e))
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
     rank = torch.arange(T * k, device=dev) - offsets[sorted_e]
     keep = rank < C
     # the JAX package writes dropped assignments to slot C, out of bounds,
-    # with mode="drop"; here they are masked out of the write instead
+    # with mode="drop"; here they land in an overflow row C of an
+    # [E, C + 1, d] buffer that is sliced off
     slot = torch.where(keep, rank, torch.full_like(rank, C))
-    buf = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=dev)
     # index_select, not x[...]: a token's k rows then add their gradients
     # in a fixed order (indexing's accumulate is atomic on the CPU)
-    buf.index_put_((sorted_e[keep], slot[keep]),
-                   x.index_select(0, sorted_tok[keep]))
-    return buf, (order, sorted_e, sorted_tok, keep, slot)
+    buf.index_put_((sorted_e, slot), x.index_select(0, sorted_tok))
+    return buf[:, :C], (order, sorted_e, sorted_tok, keep, slot)
 
 
 def combine_tokens(out_buf: torch.Tensor, w_flat: torch.Tensor, meta,

@@ -69,7 +69,11 @@ Prompts: the JAX package draws them with ``jax.random``; here a CPU
 Tenants compile to layer-stacked templates by default
 (``stacked_layers=True``, one body per homogeneous sub-stack of layers, as
 in the JAX package); ``stacked_layers=False`` serves the per-layer
-emission, the bitwise oracle. Both give the same tokens.
+emission, the bitwise oracle. Both give the same tokens. On the card each
+stacked decode body replays as a CUDA graph (``cuda_graphs=True``, the
+default, as the JAX package always compiles its layer scans;
+``core/graphs.py``); ``cuda_graphs=False`` runs the bodies eagerly, for
+the eager-vs-graphed comparison. Graphs change no token.
 
 The modelled mesh (``num_devices`` or an explicit ``DeviceSet``): each
 tenant binds to a home device at its FIRST admission
@@ -366,7 +370,8 @@ class ServingEngine:
                  admission: Optional[Any] = None,
                  token_sink: Optional[Any] = None,
                  prompt_fn: Optional[PromptFn] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 cuda_graphs: bool = True):
         assert mode in ("time", "batched", "vliw")
         self.tenants = {t.name: t for t in tenants}
         # the device the engine serves on: the current CUDA device unless
@@ -433,7 +438,8 @@ class ServingEngine:
                            max_group=max_group, plan_capacity=plan_capacity,
                            weight_budget_bytes=weight_budget_bytes,
                            live_tune=live_tune,
-                           tune_objective=tune_objective)
+                           tune_objective=tune_objective,
+                           cuda_graphs=cuda_graphs)
         self.jit_stats = JitStats()
         self._seed = 0
         for t in tenants:

@@ -578,3 +578,232 @@ def test_certified_mesh_stacked_tokens_card_equals_cpu(cuda):
         assert (cg.coalesced_gemm.launches > n0) == (dev is cuda)
         out.append({r.req_id: r.tokens_out for r in rep.requests})
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the stacked decode bodies (core/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _graph_model(arch, dtype, device):
+    cfg = _gemma8() if arch == "gemma3-1b" else _nondense(arch)
+    m = Model(cfg, param_dtype=dtype, device=device)
+    return m, m.init(torch.Generator(device=device).manual_seed(4))
+
+
+def _graph_builder(cfg, stacked=True):
+    from repro_torch.core import jit
+    build = {"moe": jit.build_moe_decode_template,
+             "ssm": jit.build_ssm_decode_template}.get(
+        cfg.arch_type, jit.build_dense_decode_template)
+    return lambda m, p, B: build(m, p, B, stacked=stacked)
+
+
+def _graph_decode(vj, tmpl, cache, tok, steps=3):
+    logits = []
+    for _ in range(steps):
+        prog = tmpl.bind(stream_id=0, tokens=tok, cache=cache)
+        vj.run([prog])
+        logits.append(prog.env["logits"])
+        cache = prog.env["cache"]
+        tok = torch.argmax(prog.env["logits"], dim=-1)[:, None]
+    return logits, cache
+
+
+def _counts():
+    return (cg.coalesced_gemm.launches,
+            dict(cg.coalesced_gemm.launches_by_shape),
+            dict(cg.coalesced_gemm.launches_by_bm))
+
+
+def _count_delta(before, after):
+    return (after[0] - before[0],
+            {k: n - before[1].get(k, 0) for k, n in after[1].items()
+             if n != before[1].get(k, 0)},
+            {k: n - before[2].get(k, 0) for k, n in after[2].items()
+             if n != before[2].get(k, 0)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b",
+                                  "mamba2-2.7b"])
+def test_graph_replay_bitwise_equal_to_eager(cuda, arch, dtype):
+    """A dense, an MoE and an SSM template over 3 decode steps: replays of
+    the bodies' graphs give the eager bodies' logits and cache leaves bit
+    for bit, and the per-layer template's; one capture a body, replays
+    after; the launch counters move as the eager run's do."""
+    from repro_torch.core.jit import VLIWJit
+    m, p = _graph_model(arch, dtype, cuda)
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, m.cfg.vocab_size, (4, 12), generator=g)
+    _, cache0 = m.prefill(p, {"tokens": prompt.to(cuda)}, cache_len=32)
+    tok0 = torch.randint(0, m.cfg.vocab_size, (4, 1), generator=g).to(cuda)
+    out, counts = {}, {}
+    for regime in ("eager", "graphed", "per-layer"):
+        tmpl = _graph_builder(m.cfg, regime != "per-layer")(m, p, 4)
+        vj = VLIWJit(max_group=8, cuda_graphs=regime == "graphed")
+        c0 = _counts()
+        out[regime] = _graph_decode(vj, tmpl, cache0, tok0)
+        torch.cuda.synchronize()
+        counts[regime] = _count_delta(c0, _counts())
+        st = vj.executor.stats
+        if regime == "graphed":
+            bodies = len(vj.graphs)
+            assert bodies >= 1
+            assert (st.graph_captures, st.graph_replays) == (bodies,
+                                                            2 * bodies)
+        else:
+            assert st.graph_captures == st.graph_replays == 0
+    assert counts["graphed"] == counts["eager"]
+    for regime in ("graphed", "per-layer"):
+        for a, b in zip(out[regime][0], out["eager"][0]):
+            assert bool(torch.isfinite(a.float()).all())
+            assert torch.equal(a, b), regime
+        for leaf, t in out["eager"][1]["layers"].items():
+            assert torch.equal(out[regime][1]["layers"][leaf], t), \
+                (regime, leaf)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b",
+                                  "mamba2-2.7b"])
+def test_tenants_sharing_a_graph_keep_each_others_caches(cuda, arch):
+    """Two tenants of one template replay one graph in turns: the cache a
+    replay handed to one is not overwritten by the other's replay (the
+    outputs are copied out), and each step equals the eager step."""
+    from repro_torch.core.jit import VLIWJit
+    m, p = _graph_model(arch, torch.bfloat16, cuda)
+    tmpl = _graph_builder(m.cfg)(m, p, 4)
+    g = torch.Generator().manual_seed(6)
+    caches, toks = [], []
+    for _ in range(2):
+        prompt = torch.randint(0, m.cfg.vocab_size, (4, 12), generator=g)
+        caches.append(m.prefill(p, {"tokens": prompt.to(cuda)},
+                                cache_len=32)[1])
+        toks.append(torch.randint(0, m.cfg.vocab_size, (4, 1),
+                                  generator=g).to(cuda))
+    vj, eager = VLIWJit(max_group=8), VLIWJit(max_group=8, cuda_graphs=False)
+    held = []
+    for step in range(3):
+        for i in range(2):
+            prog = tmpl.bind(stream_id=i, tokens=toks[i], cache=caches[i])
+            want = tmpl.bind(stream_id=i, tokens=toks[i], cache=caches[i])
+            vj.run([prog])
+            eager.run([want])
+            assert torch.equal(prog.env["logits"], want.env["logits"])
+            caches[i] = prog.env["cache"]
+            held.append((caches[i], {k: v.clone() for k, v in
+                                     caches[i]["layers"].items()}))
+            toks[i] = torch.argmax(prog.env["logits"], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    assert vj.executor.stats.graph_replays > 0
+    for cache, snap in held:
+        for leaf, t in snap.items():
+            assert torch.equal(cache["layers"][leaf], t), leaf
+
+
+def test_hot_swap_replays_the_new_weights(cuda):
+    """A weight hot-swap on a graphed engine drops the graphs that read the
+    old packs and serves the new weights: tokens equal a fresh eager
+    engine's on them."""
+    m, p_old = _graph_model("gemma3-1b", torch.bfloat16, cuda)
+    p_new = m.init(torch.Generator(device=cuda).manual_seed(9))
+    trace = make_trace(["a"], rate_hz=1e4, n_per_tenant=2, prompt_len=16,
+                       max_new_tokens=4, slo_s=1.0)
+    eng = ServingEngine([Tenant("a", m, p_old, cache_len=32)], mode="vliw",
+                        device=cuda)
+    eng.run(trace)
+    n = len(eng.jit.graphs)
+    assert n > 0 and eng.jit.executor.stats.graph_replays > 0
+    eng.tenants["a"].params = p_new
+    swapped = eng.run(trace)
+    assert eng.jit.graphs.dropped >= n
+    assert eng.jit.executor.stats.weight_invalidations >= 1
+    fresh = ServingEngine([Tenant("a", m, p_new, cache_len=32)],
+                          mode="vliw", device=cuda,
+                          cuda_graphs=False).run(trace)
+    assert {r.req_id: r.tokens_out for r in swapped.requests} == \
+        {r.req_id: r.tokens_out for r in fresh.requests}
+
+
+@pytest.mark.parametrize("live_tune", [False, True])
+def test_launch_counters_equal_under_replay(cuda, live_tune):
+    """One trace served graphed and eager: the same tokens and the same
+    launches, by shape and by bm (live-tuned too: each tuned bm is a key
+    of its own)."""
+    m, p = _graph_model("gemma3-1b", torch.bfloat16, cuda)
+    trace = make_trace(["a", "b"], rate_hz=1e4, n_per_tenant=3,
+                       prompt_len=16, max_new_tokens=6, slo_s=1.0)
+    out = {}
+    for graphs in (True, False):
+        tenants = [Tenant(n, m, p, cache_len=32) for n in ("a", "b")]
+        c0 = _counts()
+        cg.coalesced_gemm.max_groups = 0
+        rep = ServingEngine(tenants, mode="vliw", device=cuda,
+                            cuda_graphs=graphs,
+                            live_tune=live_tune).run(trace)
+        out[graphs] = ({r.req_id: r.tokens_out for r in rep.requests},
+                       _count_delta(c0, _counts()),
+                       cg.coalesced_gemm.max_groups)
+        assert (rep.jit.dispatch.graph_replays > 0) == graphs
+    assert out[True] == out[False]
+
+
+def test_capture_failure_raises(cuda):
+    """A body that waits on the card cannot be captured: the capture
+    raises, and nothing falls back to the eager body."""
+    from repro_torch.core.graphs import BodyIO, GraphCache
+    from repro_torch.core.jit import StackedGemmStage, VLIWJit
+
+    def body(inp, padded, ex, block=None):
+        return {"x": inp["x"] * float(inp["x"].sum().item() > 0)}
+
+    st = StackedGemmStage(
+        tag="body", weight_key=("m", 0, "body"), operands=[], layers=1,
+        run=None, graph=BodyIO(("decode", "m", 2),
+                               lambda env: {"x": env["x"]}, body))
+    ex = VLIWJit().executor
+    with pytest.raises(RuntimeError):
+        GraphCache().run(st, {"x": torch.ones(2, 4, device=cuda)}, {}, ex)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k_heads_first", [False, True])
+def test_bf16_scores_on_the_tensor_cores(cuda, k_heads_first):
+    """The card's q·kᵀ route (``bmm`` with an fp32 result) against the
+    widened fp32 einsum: forward within fp32 summation noise (bf16 products
+    are exact in fp32), backward within one bf16 ulp; fp32 operands keep
+    the einsum bit for bit. Its forward launches no GEMM of fp32 inputs
+    (cuBLAS's ``gemm_f32f32 ... ffma``, without tensor cores)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.attention import qk_scores
+    g = torch.Generator().manual_seed(1)
+    B, s, H, G, hd, T = 2, 16, 2, 4, 128, 48
+    q = torch.randn(B, s, H, G, hd, generator=g)
+    k = torch.randn(*((B, H, T, hd) if k_heads_first else (B, T, H, hd)),
+                    generator=g)
+    eq = "bshgd,bhtd->bhgst" if k_heads_first else "bshgd,bthd->bhgst"
+    qb, kb = (t.to(cuda, torch.bfloat16).requires_grad_() for t in (q, k))
+    with torch.no_grad():
+        qk_scores(qb, kb, k_heads_first=k_heads_first)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            qk_scores(qb, kb, k_heads_first=k_heads_first)
+            torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA}
+    assert names and not any("gemm_f32f32" in n or "ffma" in n
+                             for n in names), names
+    got = qk_scores(qb, kb, k_heads_first=k_heads_first)
+    want = torch.einsum(eq, qb.float(), kb.float())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    ct = torch.randn(got.shape, generator=g).to(cuda)
+    for a, b in zip(torch.autograd.grad(got, (qb, kb), ct),
+                    torch.autograd.grad(want, (qb, kb), ct)):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7,
+                                   atol=1e-4)
+    qf, kf = q.to(cuda), k.to(cuda)
+    assert torch.equal(qk_scores(qf, kf, k_heads_first=k_heads_first),
+                       torch.einsum(eq, qf, kf))
