@@ -54,9 +54,9 @@ Phases, each printing its own lines; a failing phase raises:
                    which is printed), 4 requests each, prompts of 32
                    tokens, 8 new tokens, served five times, each engine
                    freed before the next: layer-stacked templates with
-                   each decode body a CUDA graph replay (the default,
-                   ``stacked-graphed``; each body GEMM a solo launch
-                   inside the graph), the same bodies eager
+                   each decode and prompt body a CUDA graph replay (the
+                   default, ``stacked-graphed``; each body GEMM a solo
+                   launch inside the graph), the same bodies eager
                    (``cuda_graphs=False``, ``stacked``), ``stacked``,
                    ``stacked-graphed`` in turns, then
                    ``stacked_layers=False`` (per-layer stages coalesced
@@ -64,17 +64,23 @@ Phases, each printing its own lines; a failing phase raises:
                    scheduler dispatches, kernel launches (checked against
                    the dispatches; a replay counts its capture's
                    launches), launches per program, weight hit rate,
-                   graph captures and replays (> 0 graphed, 0 otherwise),
-                   peak GiB, then the gemm's launches by (M, K, N, G,
+                   graph captures and replays by kind (decode body,
+                   prefill body, per-layer glue, monolithic model call),
+                   each held to ``_vliw_graphs``: one capture a key, the
+                   other calls replays (serve-shared: decode 1 / 13,
+                   prefill 1 / 7; 0 in an eager run), each kind's capture
+                   ms, peak GiB, then the gemm's launches by (M, K, N, G,
                    dtype), each marked by whether phase 3 times that shape
                    (also in phase 5). The tokens of every run must be
                    identical. While the first graphed engine lives: one
                    more decode step as a replay of its graph, eager, and
                    through a per-layer template (logits and cache bitwise
                    equal across the three), and ``profile`` lines: host
-                   and wall ms of one steady decode step in each regime
-                   (the two stacked ones in turns), the device time of
-                   ``coalesced_gemm`` and of the other kernels
+                   and wall ms of one 32-token prompt pass, its bodies
+                   graphed and eager in turns (``path=serve-shared:
+                   prefill``), and of one steady decode step in each
+                   regime (the two stacked ones in turns), the device time
+                   of ``coalesced_gemm`` and of the other kernels
                    (``torch.profiler``), and the device busy share;
   4b. serve-tuned — phase 4's tenants at 12 layers (the script's time),
                    stacked, served untuned and live-tuned
@@ -91,8 +97,12 @@ Phases, each printing its own lines; a failing phase raises:
                    timed as in phase 3; the real rows must be BITWISE equal
                    to the bm = 8 launch on the same inputs;
   5. serve-grouped — two full-width yi-9b tenants with distinct weights
-                   (bf16, 12 layers), graphed stacked and per-layer:
+                   (bf16, 12 layers), graphed stacked, then per-layer with
+                   its attention glue graphed (``per-layer-graphed``, the
+                   JAX package's ``_GLUE_JITS``) and eager in turns:
                    per-layer the kernel runs with G >= 2 weight matrices;
+                   ``profile`` lines of one per-layer decode step, glue
+                   graphed and eager in turns;
   5b. serve-moe  — two tenants sharing one full-width grok-1 weight set
                    (bf16, 8 experts top-2, 2 layers: one layer's experts
                    are 9.66 GB), the five runs of phase 4, the bytes
@@ -146,14 +156,20 @@ Phases, each printing its own lines; a failing phase raises:
                    layers, cache 4096); the params reckoned beside
                    ``mem_get_info``; served in vliw (stacked: the vlm
                    tenants' decode steps are KernelPrograms, the others the
-                   monolithic step) graphed and eager in turns (four
-                   runs, a weight budget of 16 GiB that holds the vlm
-                   packs), then in batched. Per tenant: programs
-                   or monolithic steps, tokens, the smallest top-2 logit
-                   margin; per mode: wall s, tokens/s, launches (checked in
-                   vliw, 0 in batched), graph captures and replays, peak
-                   GiB; graphed and eager vliw tokens identical; the int8
-                   cache's bytes
+                   monolithic step) and in batched (every step monolithic),
+                   each graphed (every ``Model.prefill`` and
+                   ``Model.decode_step`` a CUDA graph replay) and eager, in
+                   turns, each graphed run twice (six runs, a weight
+                   budget of 16 GiB that holds the vlm packs). Per tenant:
+                   programs or monolithic steps, tokens, the smallest
+                   top-2 logit margin; per
+                   mode: wall s, tokens/s, launches (checked in vliw, 0 in
+                   batched), graphs by kind (held to
+                   ``_families_graphs``), peak GiB; a mode's graphed and
+                   eager tokens identical; ``profile`` lines of one
+                   monolithic decode step of the hybrid, audio and int8-KV
+                   tenants, graphed and eager in turns; vliw's wall over
+                   batched's, graphs on and off; the int8 cache's bytes
                    against a bf16 cache of its shape. The monolithic
                    tenants' tokens must be identical in both modes; the vlm
                    tenants' agreement is printed (bf16 kernel against bf16
@@ -860,7 +876,7 @@ def _check_launches(cfg, rep, launches, stacked):
 def _report_serve(torch, phase, cfg, rep, wall, launches, max_groups,
                   regime):
     j = rep.jit
-    programs = _programs(cfg, rep, regime != "per-layer")
+    programs = _programs(cfg, rep, not regime.startswith("per-layer"))
     toks = rep.tokens_out
     g = _gemms_a_layer(cfg)
     say(phase, regime=regime, wall_s=f"{wall:.3f}", tokens=toks,
@@ -882,16 +898,61 @@ def _report_serve(torch, phase, cfg, rep, wall, launches, max_groups,
         modeled_ms=f"{rep.modeled_time_s * 1e3:.3f}(H100 cost model)")
 
 
-def _check_graphs(rep, regime):
-    """A graphed run captured its decode bodies and replayed them; an eager
-    or per-layer run has no graph."""
-    d = rep.jit.dispatch
+GRAPH_KINDS = ("decode", "prefill", "glue", "monolithic")
+
+
+def _check_graphs(phase, regime, stats, graphs, want):
+    """A run's CUDA graphs by kind (``DispatchStats.graphs_by_kind``: decode
+    bodies, prefill bodies, per-layer glue, monolithic model calls) against
+    ``want`` {kind: (captures, replays)}: a graphed run captures one graph
+    a key and replays it on every other call of that key; an eager run
+    (``cuda_graphs=False``) and the eager per-layer run have none. Prints
+    the counts and each kind's capture cost (the host seconds of its keys'
+    first calls: the eager call and the capture)."""
+    got = stats.graphs_by_kind()
+    if not regime.endswith("graphed"):
+        want = {k: (0, 0) for k in GRAPH_KINDS}
+    say(phase, regime=regime, graphs_by_kind=",".join(
+        f"{k}:{got[k][0]}/{got[k][1]}" for k in GRAPH_KINDS),
+        expected=",".join(f"{k}:{want[k][0]}/{want[k][1]}"
+                          for k in GRAPH_KINDS),
+        graphs_dropped=graphs.dropped)
     if regime.endswith("graphed"):
-        assert d.graph_captures > 0 and d.graph_replays > 0, \
-            (d.graph_captures, d.graph_replays)
-    else:
-        assert d.graph_captures == d.graph_replays == 0, \
-            (d.graph_captures, d.graph_replays)
+        say(phase, regime=regime, capture_ms_by_kind=",".join(
+            f"{k}:{1e3 * graphs.capture_s[k]:.1f}" for k in GRAPH_KINDS
+            if got[k][0]))
+    assert got == want, (phase, regime, got, want)
+
+
+def _vliw_graphs(cfg, rep, regime, *, weight_sets, n_req):
+    """{kind: (captures, replays)} a vliw run of ``n_req`` 32-token prompts
+    of one model on ``weight_sets`` weight sets must show. Every program
+    runs each sub-stack's body once (stacked) or each layer's glue once
+    (per-layer); dense prompts are prefill programs (one bucket), MoE / SSM
+    prompts ``Model.prefill`` calls (one shape). A key is one (weight set,
+    sub-stack) for a body, one (weight set, shape) for a model call, one
+    ``_GLUE_JITS`` key for glue, whatever the weights: captures are the
+    keys, replays the other calls."""
+    dense = cfg.arch_type == "dense"
+    want = {k: (0, 0) for k in GRAPH_KINDS}
+    if regime == "stacked-graphed":
+        S = len(_spans(cfg))
+        programs = round(_programs(cfg, rep, True))
+        prompts = n_req if dense else 0
+        keys = weight_sets * S
+        want["decode"] = (keys, (programs - prompts) * S - keys)
+        if dense:
+            want["prefill"] = (keys, prompts * S - keys)
+        else:
+            want["monolithic"] = (weight_sets, n_req - weight_sets)
+    elif regime == "per-layer-graphed":
+        assert dense, cfg.arch_type
+        flags = {bool(cfg.layer_is_global(l))
+                 for l in range(cfg.num_layers)}
+        keys = 2 * len(flags)        # decode-attend and prefill-attend
+        programs = round(_programs(cfg, rep, False))
+        want["glue"] = (keys, programs * cfg.num_layers - keys)
+    return want
 
 
 def _reset_counts(cg):
@@ -935,24 +996,29 @@ def _serve_regimes(torch, cg, timed, phase, cfg, tenants_params, *, seed,
     turns with another, so their walls can be read against the spread of
     one setting), each engine freed before the next; the tokens of every
     run must be identical. ``check(rep, launches, max_G, regime)`` holds
-    each run to its phase's assertions; ``after(eng, rep)`` runs while the
-    first graphed engine is alive. Returns per regime its first run's
-    numbers, with ``wall_s_turns`` the walls of all its runs."""
+    each run to its phase's assertions; ``after(eng, rep, regime)`` runs
+    while each regime's first engine is alive. Returns per regime its
+    first run's numbers, with ``wall_s_turns`` the walls of all its runs.
+    A regime ending in ``graphed`` runs with ``cuda_graphs``, one starting
+    with ``per-layer`` with ``stacked_layers=False``."""
     out, tokens = {}, {}
+    weight_sets = len({id(p) for _, p in tenants_params})
     for regime in turns:
-        stacked = regime != "per-layer"
+        stacked = not regime.startswith("per-layer")
         torch.cuda.reset_peak_memory_stats()
         _reset_counts(cg)
         eng, rep, wall = _serve(torch, cfg, tenants_params, n_req=4,
                                 prompt_len=32, new_tokens=8,
                                 budget=budget, seed=seed,
                                 stacked=stacked,
-                                cuda_graphs=regime == "stacked-graphed")
+                                cuda_graphs=regime.endswith("graphed"))
         launches = cg.coalesced_gemm.launches
         max_g = cg.coalesced_gemm.max_groups
         _check_served(rep, cfg, 8, 8)
         _check_launches(cfg, rep, launches, stacked)
-        _check_graphs(rep, regime)
+        _check_graphs(phase, regime, rep.jit.dispatch, eng.jit.graphs,
+                      _vliw_graphs(cfg, rep, regime,
+                                   weight_sets=weight_sets, n_req=8))
         check(rep, launches, max_g, regime)
         _report_serve(torch, phase, cfg, rep, wall, launches, max_g, regime)
         by_shape = _report_shapes(f"{phase} ({regime})", cg, timed)
@@ -974,16 +1040,18 @@ def _serve_regimes(torch, cg, timed, phase, cfg, tenants_params, *, seed,
                 peak_alloc_GiB=torch.cuda.max_memory_allocated() / GIB,
                 graph_captures=rep.jit.dispatch.graph_captures,
                 graph_replays=rep.jit.dispatch.graph_replays,
+                graphs_by_kind=rep.jit.dispatch.graphs_by_kind(),
+                capture_s_by_kind=dict(eng.jit.graphs.capture_s),
                 expert_coalesced=rep.jit.expert_coalesced,
                 nondense_programs=rep.jit.nondense_programs,
                 launches_by_shape=by_shape)
-        if after is not None and regime == "stacked-graphed" \
-                and "extra_step" not in out:
-            out.update(after(eng, rep))
+        if after is not None and len(out[regime]["wall_s_turns"]) == 1:
+            out.update(after(eng, rep, regime))
         del eng, rep
         _free(torch)
+    graphed = {r.endswith("graphed") for r in tokens}
     say(phase, tokens_stacked_vs_per_layer="identical",
-        tokens_graphed_vs_eager="identical" if "stacked" in tokens
+        tokens_graphed_vs_eager="identical" if len(graphed) == 2
         else "not_run", regimes="/".join(turns),
         requests=len(tokens[turns[0]]))
     for regime in dict.fromkeys(turns):
@@ -1023,10 +1091,16 @@ def phase_serve_shared(torch, cg, timed):
         assert launches > 0
         assert rep.jit.shared_dispatches > 0 and rep.jit.mean_group > 1.0
 
-    def after(eng, rep):
+    def after(eng, rep, regime):
+        if regime != "stacked-graphed":
+            return {}
+        # the prompt pass first: the profile empties the weight cache, and
+        # the prompt graphs with it
         return dict(
             extra_step=_extra_step(torch, eng, m, params, cfg,
                                    "serve-shared"),
+            profile_prefill=phase_profile_prefill(torch, eng, m, params,
+                                                  "serve-shared"),
             profile=phase_profile(torch, eng, m, params, "serve-shared"))
 
     out = _serve_regimes(torch, cg, timed, "serve-shared", cfg,
@@ -1165,18 +1239,44 @@ def _profile_regime(torch, phase, regime, step, steps, *, host_ms, wall_ms,
                 source=source)
 
 
+def _profile_turns(torch, phase, steps_by_regime, *, batch, layers,
+                   steps=3):
+    """Host and wall ms of one call of each ``steps_by_regime`` {regime:
+    step} in a steady state, the regimes timed in turns (each warmed by
+    one call first): host ms until the step returns, wall ms until the card
+    has finished (synchronize); then each regime's steps under
+    ``torch.profiler`` (``_profile_regime``)."""
+    host = {regime: [] for regime in steps_by_regime}
+    wall = {regime: [] for regime in steps_by_regime}
+    for step in steps_by_regime.values():
+        step()
+    torch.cuda.synchronize()
+    for _ in range(steps):
+        for regime, step in steps_by_regime.items():
+            t0 = time.perf_counter()
+            step()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host[regime].append(t1 - t0)
+            wall[regime].append(time.perf_counter() - t0)
+    return {regime: _profile_regime(
+        torch, phase, regime, step, steps,
+        host_ms=1e3 * statistics.median(host[regime]),
+        wall_ms=1e3 * statistics.median(wall[regime]),
+        batch=batch, layers=layers)
+        for regime, step in steps_by_regime.items()}
+
+
 def phase_profile(torch, eng, m, params, phase, steps=3):
     """Host and device time of one decode step of tenant 0 at the serving
     phase's shape, in a steady state (packs built, graphs captured,
     warmed), in three regimes (``STEP_REGIMES``): the stacked template as
     replays of its bodies' CUDA graphs (``stacked-graphed``), the same
-    template eager (``stacked``), and the per-layer template. Host ms:
-    until ``VLIWJit.run`` returns; wall ms: until the card has finished
-    (synchronize); the two stacked regimes' steps are timed in turns (they
-    share their packs), the per-layer steps after them (serve-moe's weight
-    budget holds one regime's packs, so turns with it would repack), each
-    group from an empty weight cache. Then each regime's steps under
-    ``torch.profiler`` (``_profile_regime``)."""
+    template eager (``stacked``), and the per-layer template. The two
+    stacked regimes' steps are timed in turns (they share their packs), the
+    per-layer steps after them (serve-moe's weight budget holds one
+    regime's packs, so turns with it would repack), each group from an
+    empty weight cache (``_profile_turns``)."""
     build = _decode_builder(m.cfg)
     t = eng.tenants["t0"]
     tmpls = {regime: (build(m, params, t.max_batch, stacked=stacked), graphed)
@@ -1198,25 +1298,41 @@ def phase_profile(torch, eng, m, params, phase, steps=3):
             reserved_GiB=f"{torch.cuda.memory_reserved() / GIB:.2f}")
         eng.jit.weight_cache.clear()
         _free(torch)
-        host = {regime: [] for regime in turns}
-        wall = {regime: [] for regime in turns}
-        for regime in turns:
-            step(regime)
-        torch.cuda.synchronize()
-        for _ in range(steps):
-            for regime in turns:
-                t0 = time.perf_counter()
-                step(regime)
-                t1 = time.perf_counter()
-                torch.cuda.synchronize()
-                host[regime].append(t1 - t0)
-                wall[regime].append(time.perf_counter() - t0)
-        for regime in turns:
-            out[regime] = _profile_regime(
-                torch, phase, regime, lambda: step(regime), steps,
-                host_ms=1e3 * statistics.median(host[regime]),
-                wall_ms=1e3 * statistics.median(wall[regime]),
-                batch=t.max_batch, layers=m.cfg.num_layers)
+        out.update(_profile_turns(
+            torch, phase,
+            {regime: (lambda regime=regime: step(regime))
+             for regime in turns},
+            batch=t.max_batch, layers=m.cfg.num_layers, steps=steps))
+    eng.jit.cuda_graphs = True
+    return out
+
+
+def phase_profile_prefill(torch, eng, m, params, phase, prompt_len=32):
+    """One prompt pass of ``prompt_len`` tokens (its bucket) through the
+    stacked prefill template, the request's KV rows written into slot 0 of
+    tenant 0's cache: its bodies as replays of the serving run's prompt
+    graphs (``prefill-graphed``) and eager (``prefill``), in turns."""
+    from repro_torch.core.jit import build_dense_prefill_template
+    t = eng.tenants["t0"]
+    tmpl = build_dense_prefill_template(m, params, prompt_len)
+    toks = torch.randint(0, m.cfg.vocab_size, (1, prompt_len),
+                         generator=torch.Generator().manual_seed(7)
+                         ).to(m.device)
+
+    def step(graphed):
+        eng.jit.cuda_graphs = graphed
+        eng.jit.run([tmpl.bind(stream_id=0, tokens=toks, cache=t.cache,
+                               env_extra={"real_len": prompt_len, "slot": 0,
+                                          "req": None})])
+
+    st = eng.jit.executor.stats
+    c0 = st.prefill_graph_captures
+    out = _profile_turns(torch, f"{phase}:prefill",
+                         {"prefill-graphed": lambda: step(True),
+                          "prefill": lambda: step(False)},
+                         batch=prompt_len, layers=m.cfg.num_layers)
+    # the serving run's graphs, replayed: no new capture
+    assert st.prefill_graph_captures == c0, (st.prefill_graph_captures, c0)
     eng.jit.cuda_graphs = True
     return out
 
@@ -1242,12 +1358,40 @@ def phase_serve_grouped(torch, cg, timed):
     def check(rep, launches, max_g, regime):
         assert launches > 0
         assert rep.jit.shared_dispatches == 0 and rep.jit.mean_group > 1.0
-        if regime == "per-layer":
+        if regime.startswith("per-layer"):
             assert max_g >= 2, (launches, max_g)
 
+    def after(eng, rep, regime):
+        # one per-layer decode step of tenant 0, its glue as replays of the
+        # serving run's glue graphs and eager, in turns
+        if regime != "per-layer-graphed":
+            return {}
+        m, params = tp[0]
+        t = eng.tenants["t0"]
+        tmpl = _decode_builder(cfg)(m, params, t.max_batch, stacked=False)
+
+        def step(graphed):
+            eng.jit.cuda_graphs = graphed
+            eng.jit.run([tmpl.bind(stream_id=0, tokens=t.slot_tok,
+                                   cache=t.cache)])
+
+        st = eng.jit.executor.stats
+        c0 = st.glue_graph_captures
+        prof = _profile_turns(torch, "serve-grouped:per-layer",
+                              {"per-layer-graphed": lambda: step(True),
+                               "per-layer": lambda: step(False)},
+                              batch=t.max_batch, layers=L)
+        assert st.glue_graph_captures == c0, (st.glue_graph_captures, c0)
+        eng.jit.cuda_graphs = True
+        return dict(profile_per_layer=prof)
+
+    # the per-layer regime with its glue graphed (the JAX package's
+    # _GLUE_JITS) and eager, in turns
     out = _serve_regimes(torch, cg, timed, "serve-grouped", cfg, tp, seed=1,
-                         budget=budget, check=check,
-                         turns=("stacked-graphed", "per-layer"))
+                         budget=budget, check=check, after=after,
+                         turns=("stacked-graphed", "per-layer-graphed",
+                                "per-layer", "per-layer",
+                                "per-layer-graphed"))
     del tp
     _free(torch)
     return out
@@ -1402,7 +1546,9 @@ def _serve_nondense(torch, cg, timed, phase, arch, want_layers, seed):
             # the two tenants' expert GEMMs share operands
             assert rep.jit.expert_coalesced > 0, rep.jit.expert_coalesced
 
-    def after(eng, rep):
+    def after(eng, rep, regime):
+        if regime != "stacked-graphed":
+            return {}
         return dict(extra_step=_extra_step(torch, eng, m, params, cfg, phase),
                     profile=phase_profile(torch, eng, m, params, phase))
 
@@ -1704,17 +1850,80 @@ def _serve_fleet(torch, models, mode, *, n_req, prompt_len, new_tokens,
     return eng, rep, time.perf_counter() - t0, counts
 
 
+# serve-families' runs, in turns: each mode graphed and eager, then each
+# graphed again (vliw over batched, both graphed, is read against the
+# spread of two runs)
+FAMILY_TURNS = ("vliw-graphed", "vliw", "batched-graphed", "batched",
+                "vliw-graphed", "batched-graphed")
+
+
+def _families_graphs(cfgs, mode, counts, n_req):
+    """{kind: (captures, replays)} a graphed serve-families run must show.
+    vliw: the vlm tenants' stacked decode bodies (one weight set: a key a
+    sub-stack), every prompt a ``Model.prefill`` call and the hybrid,
+    audio and int8-KV tenants' decode steps ``Model.decode_step`` calls;
+    batched: every prompt and every decode step a model call. A model
+    call's key is one (weight set, method, shape): an arch here, the
+    prompts all of one length."""
+    want = {k: (0, 0) for k in GRAPH_KINDS}
+    archs = {name: arch for name, arch, _, _ in FAMILY_FLEET}
+    prompts = n_req * len(FAMILY_FLEET)
+    steps = {name: c["steps"] for name, c in counts.items()}
+    stepping = {archs[n] for n, k in steps.items() if k}
+    keys = len(set(archs.values())) + len(stepping)
+    want["monolithic"] = (keys, prompts + sum(steps.values()) - keys)
+    if mode == "vliw":
+        S = len(_spans(cfgs["internvl2-2b"]))
+        runs = S * (counts["vlm0"]["programs"] + counts["vlm1"]["programs"])
+        want["decode"] = (S, runs - S)
+    return want
+
+
+def _profile_monolithic(torch, eng, cfgs):
+    """One monolithic decode step of the hybrid, audio and int8-KV tenants
+    (``ServingEngine._decode_step`` on the tenant's slotted batch as the
+    run left it), as a replay of the run's graph and eager, in turns."""
+    out = {}
+    st = eng.jit.executor.stats
+    for name, arch, _, _ in FAMILY_FLEET:
+        if name not in ("hybrid", "audio", "int8"):
+            continue
+        t = eng.tenants[name]
+
+        def step(graphed, t=t):
+            eng.jit.cuda_graphs = graphed
+            eng._decode_step(t)
+
+        c0 = st.monolithic_graph_captures
+        out[name] = _profile_turns(
+            torch, f"serve-families:{arch}" + (":int8-KV" if name == "int8"
+                                               else ""),
+            {"monolithic-graphed": lambda: step(True),
+             "monolithic": lambda: step(False)},
+            batch=t.max_batch, layers=cfgs[arch].num_layers)
+        # the run's graph, replayed: no new capture
+        assert st.monolithic_graph_captures == c0, name
+    eng.jit.cuda_graphs = True
+    return out
+
+
 def phase_serve_families(torch, cg):
     """One engine of five tenants at each config's full width and depth,
     bf16: two internvl2-2b tenants on one weight set (vlm: their decode
     steps are KernelPrograms on coalesced_gemm), hymba-1.5b (hybrid),
     whisper-tiny (audio) and gemma3-1b with an int8 KV cache (the last
-    three take the monolithic step). Served in vliw (stacked), then in
-    batched. The monolithic tenants run the same Model.decode_step in both
-    modes, so their tokens must be identical; the vlm tenants' projections
-    run on the kernel in vliw and as bf16 matmuls in batched, so their
-    agreement is printed (their exact checks: stacked vs per-layer in
-    phase 4, card vs CPU in card-vs-cpu)."""
+    three take the monolithic step). Served in vliw (stacked) and in
+    batched, each graphed and eager, in turns (``FAMILY_TURNS``): a mode's
+    runs give identical tokens, and each run's graphs by kind are what
+    ``_families_graphs`` reckons. The monolithic tenants run the same
+    Model.decode_step in both modes, so their tokens must be identical;
+    the vlm tenants' projections run on the kernel in vliw and as bf16
+    matmuls in batched, so their agreement is printed (their exact checks:
+    stacked vs per-layer in phase 4, card vs CPU in card-vs-cpu). While
+    the first graphed vliw engine lives, one monolithic decode step of the
+    hybrid, audio and int8-KV tenants, graphed and eager in turns
+    (``profile`` lines); at the end vliw's wall over batched's, graphs on
+    and off."""
     from repro_torch.configs import get_config
     cfgs = {arch: get_config(arch) for _, arch, _, _ in FAMILY_FLEET}
     free0, total = torch.cuda.mem_get_info()
@@ -1735,28 +1944,30 @@ def phase_serve_families(torch, cg):
         total_GiB=f"{total / GIB:.2f}")
     vlm_cfg = cfgs["internvl2-2b"]
     out, toks = {}, {}
-    # vliw graphed and eager in turns, then batched
-    for mode in ("vliw-graphed", "vliw", "vliw", "vliw-graphed", "batched"):
+    # vliw and batched, each graphed and eager, in turns
+    for mode in FAMILY_TURNS:
+        base = mode.removesuffix("-graphed")
         torch.cuda.reset_peak_memory_stats()
         _reset_counts(cg)
         eng, rep, wall, counts = _serve_fleet(
-            torch, models, mode.removesuffix("-graphed"), n_req=4,
-            prompt_len=32, new_tokens=8, seed=5,
-            cuda_graphs=mode == "vliw-graphed")
+            torch, models, base, n_req=4, prompt_len=32, new_tokens=8,
+            seed=5, cuda_graphs=mode.endswith("graphed"))
         launches = cg.coalesced_gemm.launches
         assert rep.unfinished == 0, rep.unfinished
         for r in rep.requests:
             assert len(r.tokens_out) == 8, (r.req_id, r.tokens_out)
         got = {r.req_id: (r.tenant, r.tokens_out) for r in rep.requests}
-        if mode.startswith("vliw"):
-            # graphed and eager vliw: the same tokens, tenant by tenant
-            assert all(got == t for m_, t in toks.items()
-                       if m_.startswith("vliw")), mode
+        # graphed and eager runs of one mode: the same tokens, tenant by
+        # tenant
+        assert all(got == t for m_, t in toks.items()
+                   if m_.removesuffix("-graphed") == base), mode
         toks[mode] = got
         peak = torch.cuda.max_memory_allocated() / GIB
-        if mode.startswith("vliw"):
+        stats = eng.jit.executor.stats
+        _check_graphs("serve-families", mode, stats, eng.jit.graphs,
+                      _families_graphs(cfgs, base, counts, n_req=4))
+        if base == "vliw":
             _check_launches(vlm_cfg, rep, launches, True)
-            _check_graphs(rep, mode)
             assert launches > 0
             assert counts["vlm0"]["programs"] > 0
             for name in ("vlm0", "vlm1"):
@@ -1792,8 +2003,8 @@ def phase_serve_families(torch, cg):
             nondense_programs=(rep.jit.nondense_programs
                                if rep.jit else 0),
             scheduler_dispatches=rep.jit.superkernels if rep.jit else 0,
-            graph_captures=rep.jit.dispatch.graph_captures if rep.jit else 0,
-            graph_replays=rep.jit.dispatch.graph_replays if rep.jit else 0,
+            graph_captures=stats.graph_captures,
+            graph_replays=stats.graph_replays,
             peak_alloc_GiB=f"{peak:.2f}")
         if mode in out:
             assert launches == out[mode]["launches"], mode
@@ -1802,17 +2013,30 @@ def phase_serve_families(torch, cg):
             out[mode] = dict(wall_s=wall, wall_s_turns=[wall],
                              launches=launches, tokens=rep.tokens_out,
                              peak_alloc_GiB=peak,
+                             graphs_by_kind=stats.graphs_by_kind(),
+                             capture_s_by_kind=dict(eng.jit.graphs.capture_s),
                              counts={k: dict(programs=v["programs"],
                                              steps=v["steps"])
                                      for k, v in counts.items()})
+            if mode == "vliw-graphed":
+                out["profile"] = _profile_monolithic(torch, eng, cfgs)
         del eng, rep
         _free(torch)
-    for mode, o in out.items():
+    for mode in dict.fromkeys(FAMILY_TURNS):
         say("serve-families", mode=mode, wall_s_turns="/".join(
-            f"{w:.3f}" for w in o["wall_s_turns"]))
+            f"{w:.3f}" for w in out[mode]["wall_s_turns"]))
+    # the paper's comparison, both modes compiled: vliw's wall against
+    # batched's, the medians of each mode's two runs
+    for suffix in ("-graphed", ""):
+        v, b = (statistics.median(out[m + suffix]["wall_s_turns"])
+                for m in ("vliw", "batched"))
+        out[f"vliw_over_batched{suffix}"] = v / b
+        say("serve-families", graphs="on" if suffix else "off",
+            vliw_wall_s=f"{v:.3f}", batched_wall_s=f"{b:.3f}",
+            vliw_over_batched_wall=f"{v / b:.3f}")
     agree, first = {}, {}
     for rid, (name, a) in toks["vliw-graphed"].items():
-        b = toks["batched"][rid][1]
+        b = toks["batched-graphed"][rid][1]
         if name.startswith("vlm"):
             agree[name] = agree.get(name, 0) + int(a == b)
             if a != b:
@@ -1821,6 +2045,7 @@ def phase_serve_families(torch, cg):
         else:
             assert a == b, (name, rid, a, b)
     say("serve-families", tokens_vliw_graphed_vs_eager="identical",
+        tokens_batched_graphed_vs_eager="identical",
         monolithic_tokens_vliw_vs_batched="identical",
         vlm_requests_agreeing=agree,
         vlm_first_differing_step=first or "none")
@@ -2171,7 +2396,14 @@ def phase_serve_mesh(torch, cg):
             (j.hazard_checks, j.hazard_violations)
         assert (j.collective_time_s > 0) == (n > 1), j.collective_time_s
         assert rep.num_devices == n
-        _check_graphs(rep, "stacked-graphed")
+        # every kind the mesh reaches replays: the decode bodies, the yi
+        # tenants' prompt bodies, the mamba2 / grok-1 prompts' Model.prefill
+        kinds = j.dispatch.graphs_by_kind()
+        assert kinds["glue"] == (0, 0) and all(
+            kinds[k][0] > 0 and kinds[k][1] > 0
+            for k in ("decode", "prefill", "monolithic")), kinds
+        say("serve-mesh", num_devices=n, graphs_by_kind=",".join(
+            f"{k}:{c}/{r}" for k, (c, r) in kinds.items()))
         programs = _check_fleet_launches(eng, rep, cfgs, launches)
         disp, coal = _per_device(eng, n)
         cert_ms, _ = _certify_ms_per_dispatch(eng)

@@ -14,7 +14,8 @@ TH002 only:
 The JAX package's other two rules police jax tracing and have no torch
 counterpart: TH001 (a jitted closure that bakes a captured array in as a
 constant) and TH003 (raw glue math called outside a jitted context). The
-port runs its glue eagerly and never traces it.
+port never traces its glue: on the card it captures it into CUDA graphs
+(core/graphs.py), whose operands are read by pointer, not baked in.
 
 Run as::
 

@@ -88,15 +88,34 @@ class DispatchStats:
     weight_invalidations: int = 0  # identity-guard trips (weight hot-swap)
     retraces: int = 0              # kernel library builds (see docstring)
     bytes_not_copied: int = 0      # packed-weight bytes NOT re-staged (hits)
-    # CUDA graphs of stacked decode bodies (core/graphs.py): captures (one
-    # a body key) and replays
+    # CUDA graphs (core/graphs.py): captures (one a key) and replays of
+    # the stacked bodies, decode and prefill
     graph_captures: int = 0
     graph_replays: int = 0
+    # ... and by kind: the prefill bodies among them, the per-layer glue
+    # stages, the monolithic Model.decode_step / Model.prefill calls
+    prefill_graph_captures: int = 0
+    prefill_graph_replays: int = 0
+    glue_graph_captures: int = 0
+    glue_graph_replays: int = 0
+    monolithic_graph_captures: int = 0
+    monolithic_graph_replays: int = 0
 
     @property
     def weight_hit_rate(self) -> float:
         n = self.weight_hits + self.weight_misses
         return self.weight_hits / n if n else 0.0
+
+    def graphs_by_kind(self) -> Dict[str, Tuple[int, int]]:
+        """{kind: (captures, replays)} for the four kinds of graph."""
+        return {
+            "decode": (self.graph_captures - self.prefill_graph_captures,
+                       self.graph_replays - self.prefill_graph_replays),
+            "prefill": (self.prefill_graph_captures,
+                        self.prefill_graph_replays),
+            "glue": (self.glue_graph_captures, self.glue_graph_replays),
+            "monolithic": (self.monolithic_graph_captures,
+                           self.monolithic_graph_replays)}
 
     def copy(self) -> "DispatchStats":
         return dataclasses.replace(self)

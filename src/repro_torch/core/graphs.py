@@ -1,50 +1,75 @@
-"""CUDA graphs of the stacked decode bodies — the port's compiled layer scans.
+"""CUDA graphs of the port's compiled serving path.
 
-The JAX package compiles each layer body of a stacked template once per
-executor tile: ``jax.jit(make_scan(bm, bn, bk, ...))`` memoized in the
-body's ``jits`` dict (dense and MoE ``_stacked_dense_body_stage``, SSM
-``_build_stacked_ssm_decode_template``). The port's body is a Python loop
-that issues every op from the host, so a 48-layer decode step costs tens
-of ms of host time for a few ms of device work. ``GraphCache`` holds the
-counterpart of that ``jits`` dict: one ``torch.cuda.CUDAGraph`` per body
-key, captured at the body's first call and replayed after it.
+The JAX package compiles three kinds of thing on its serving path:
 
-A body takes the ``BodyIO`` form: ``read(env)`` gives its inputs (the
-residual stream ``x`` and its cache slices, and for attention the row
-positions ``pos``), ``body(inputs, padded, ex, block)`` returns its outputs
-(``x`` and the body's new cache chunk), and ``write_outputs`` hands them to
-the program's env. The eager path runs the same three functions.
+  * each layer body of a stacked template, once per executor tile:
+    ``jax.jit(make_scan(bm, bn, bk, ...))`` memoized in the body's ``jits``
+    dict (dense and MoE ``_stacked_dense_body_stage``, SSM
+    ``_build_stacked_ssm_decode_template``, the prompt pass's
+    ``_stacked_prefill_body_stage``);
+  * the per-layer regime's glue, ``_GLUE_JITS``: ``decode-attend``,
+    ``prefill-attend``, ``moe-route``, ``moe-combine`` and ``ssm-core``,
+    each a ``jax.jit`` keyed on its static arguments;
+  * the layers of the monolithic ``Model.decode_step`` and
+    ``Model.prefill`` under ``jax.lax.scan``, which the serving engine
+    calls for its baseline modes and for the tenants the JIT does not
+    compile (hybrid, audio, int8-KV decode; every prompt it does not
+    declare).
 
-**Key**, as the JAX package keys its jits (the tile), plus what a graph
-holds by raw pointer or by shape: ``BodyIO.key`` (phase, model config,
-batch), the body's weight key, the launch ``bm`` (the tuned ``block.bm`` or
-the executor's), the identities of the padded operands the body reads, and
-the inputs' shapes and dtypes. Two tenants on one weight set share a key.
+The port's counterparts are Python loops that issue every op from the
+host, so a 48-layer decode step costs tens of ms of host time for a few
+ms of device work. ``GraphCache`` holds one ``torch.cuda.CUDAGraph`` per
+key of any of the four kinds (``KINDS``: a decode body, a prefill body, a
+glue stage, a monolithic call), captured at the key's first call and
+replayed after it, all through one path, ``GraphCache.call``.
 
-**Capture.** The first call of a key runs the body eagerly on the capture
+**A call** is ``fn(inputs, operands) -> outputs``, each a dict of tensors.
+``inputs`` are what the JAX package passes as the jit's arguments (a
+body's residual stream, positions and cache slices; a glue stage's q / k /
+v, cache slices, router weights or mamba parameters; a monolithic call's
+tokens, cache leaves, patch embeddings or frames): a replay copies them
+into static buffers of the same shapes and strides. ``operands`` are read
+by raw pointer and held only weakly: a body's padded packs, a monolithic
+call's params. A body takes the ``BodyIO`` form, a glue stage the
+``GlueIO`` form; ``monolithic`` flattens a model call's trees.
+
+**Key**, as the JAX package keys its jits: a body's ``BodyIO.key``
+(phase, model config, batch or prompt bucket), its weight key and the
+launch ``bm``; a glue stage's ``_GLUE_JITS`` key; a monolithic call's
+method, config, param dtype, ``kv_quant`` (and a prefill's cache length).
+``call`` adds what a graph holds by pointer or by shape: the operands'
+identities and the inputs' shapes, strides and dtypes (a jit retraces per
+shape, too). Two tenants on one weight set share every key.
+
+**Capture.** The first call of a key runs ``fn`` eagerly on the capture
 stream (its outputs are this call's result), so nothing happens for the
 first time under capture: the kernel build and load, the group ids' host
 copy, the rope tables, cuBLAS's handle and workspace on that stream. Then
-one call is captured on static copies of the inputs. A capture or replay
-that fails raises: there is no eager fallback.
+one call is captured on static copies of the inputs with
+``CUDAGraph.capture_begin`` / ``capture_end`` on the capture stream, which
+first waits for the current one. ``torch.cuda.graph`` would also
+synchronize the device and empty the allocator's cache on entry, a cost a
+capture paid on every key; instead a one-op keeper graph holds the pool
+live (``_stream_and_pool``). A capture or replay that fails raises: there
+is no eager fallback. ``capture_s`` keeps the host seconds of each kind's
+first calls (the eager call and the capture).
 
 **Replay** copies the inputs into the static buffers, replays, and copies
 the outputs out. The copy-out is the aliasing rule: a static output is
 overwritten by the next replay of its key, which may be another tenant's,
-and a single body's chunk becomes the tenant's cache as it is
-(``jit._join_chunks``), so no env may hold one. It costs the bytes of the
-outputs (and the copy-in those of the inputs) once a replay; the
-alternative, one graph per stream, would hold a pool and static buffers a
-tenant. All graphs of a cache share one memory pool: a replay only ever
+and an output may become a tenant's cache as it is, so no caller may hold
+one. All graphs of a cache share one memory pool: a replay only ever
 reads its own static inputs (allocated outside the pool) and its outputs
 are copied out before any other replay, so a graph's intermediates may
 overlap another's.
 
-**Weights.** A graph reads the executor's padded packs by raw pointer and
-holds them only weakly. The weight cache can evict a pack (its LRU byte
-budget) or invalidate it (a hot-swap); ``drop_operand``, called by the
-cache for every entry it drops, drops the graphs that read it, so a graph
-neither keeps an evicted pack alive nor replays a freed one; a hit checks
+**Operands.** A graph holds its operands by weak reference. The weight
+cache can evict a pack (its LRU byte budget) or invalidate it (a
+hot-swap); ``drop_operand``, called by the cache for every entry it drops,
+drops the graphs that read it, so a graph neither keeps an evicted pack
+alive nor replays a freed one. An operand that dies otherwise (a
+monolithic call's params after a hot-swap, ``tenant.params = new``)
+drops its graphs through the weak reference's callback. A hit checks
 besides that every operand is the live tensor it captured. A body whose
 packs the cache does not hold all at once (a pack larger than the whole
 budget, or a budget smaller than one body's packs, where fetching one
@@ -55,28 +80,35 @@ no graph of it could be replayed.
 (``launches``, ``max_groups``, ``launches_by_shape``, ``launches_by_bm``)
 would miss its launches. The capture records the counters' change over the
 captured call (and takes it back: nothing ran), and every replay adds it.
-``DispatchStats.graph_captures`` / ``graph_replays`` count captures and
-replays.
+``DispatchStats`` counts captures and replays: ``graph_captures`` /
+``graph_replays`` the bodies (decode and prefill), and a pair a kind
+beside them (``graphs_by_kind``).
 
-The CPU path never captures: a body whose inputs lie on the CPU runs
+The CPU path never captures: a call whose inputs lie on the CPU runs
 eagerly. A stand-in ``capture`` lets the CPU tests drive the cache.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
+import time
 import weakref
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.coalesced_gemm import coalesced_gemm
 from repro_torch.kernels.coalesced_gemv import coalesced_gemv
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.tree import flatten_with_path, path_key
 
 Tensors = Dict[str, torch.Tensor]
 
 # the kernel wrappers whose counters a replay adds to
 _KERNELS = (coalesced_gemm, coalesced_gemv, flash_attention)
+
+# a decode body, a prefill body, a per-layer glue stage, a monolithic call
+KINDS = ("decode", "prefill", "glue", "monolithic")
 
 
 def write_outputs(env: Dict[str, Any], outs: Tensors) -> None:
@@ -93,10 +125,11 @@ def write_outputs(env: Dict[str, Any], outs: Tensors) -> None:
 @dataclasses.dataclass
 class BodyIO:
     """A layer body as a function of tensors, the form a CUDA graph holds.
-    ``key`` is what the body computes beyond its weights (phase, model
-    config, batch); None for a body that is never captured (prefill)."""
+    ``key`` is what the body computes beyond its weights: (phase, model
+    config, batch) for a decode body, (phase, model config, prompt bucket)
+    for a prefill body; its first element is the body's kind."""
 
-    key: Optional[Tuple]
+    key: Tuple
     read: Callable[[Dict[str, Any]], Tensors]
     body: Callable[..., Tensors]     # (inputs, padded, ex, block) -> outs
 
@@ -104,6 +137,23 @@ class BodyIO:
             block=None) -> None:
         """The eager body: read, compute, write."""
         write_outputs(env, self.body(self.read(env), padded, ex, block))
+
+
+@dataclasses.dataclass
+class GlueIO:
+    """A per-layer glue stage as a function of tensors. ``bind(env)``
+    gives (key, fn, inputs): the JAX package's ``_GLUE_JITS`` key of this
+    call, ``fn(inputs) -> outputs`` (the same function for one key) and the
+    inputs read from the env; ``write(env, outputs)`` lands the outputs."""
+
+    bind: Callable[[Dict[str, Any]],
+                   Tuple[Tuple, Callable[[Tensors], Tensors], Tensors]]
+    write: Callable[[Dict[str, Any], Tensors], None]
+
+    def run(self, env: Dict[str, Any]) -> None:
+        """The eager stage."""
+        _, fn, inputs = self.bind(env)
+        self.write(env, fn(inputs))
 
 
 # ---------------------------------------------------------------------------
@@ -164,23 +214,102 @@ def _add(delta) -> None:
             setattr(fn, name, getattr(fn, name) + v)
 
 
+def _count(stats, kind: str, what: str) -> None:
+    """One capture or replay (``what``) of ``kind`` into ``stats``: the
+    bodies' pair, and the kind's own pair for all but decode bodies."""
+    if stats is None:
+        return
+    if kind in ("decode", "prefill"):
+        name = f"graph_{what}"
+        setattr(stats, name, getattr(stats, name) + 1)
+    if kind != "decode":
+        name = f"{kind}_graph_{what}"
+        setattr(stats, name, getattr(stats, name) + 1)
+
+
+# ---------------------------------------------------------------------------
+# trees and static buffers
+# ---------------------------------------------------------------------------
+
+def flatten(tree: Any) -> Tensors:
+    """A tree of dicts of tensors as {``/``-joined path: tensor}."""
+    return {path_key(p): t for p, t in flatten_with_path(tree)}
+
+
+def unflatten(flat: Tensors) -> Dict[str, Any]:
+    """``flatten``'s inverse."""
+    out: Dict[str, Any] = {}
+    for path, t in flat.items():
+        *heads, last = path.split("/")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = t
+    return out
+
+
+def _signature(inputs: Tensors) -> Tuple:
+    return tuple((n, tuple(t.shape), tuple(t.stride()), str(t.dtype),
+                  str(t.device)) for n, t in sorted(inputs.items()))
+
+
+def _identities(operands: Tensors) -> Tuple:
+    return tuple((tag, id(t)) for tag, t in sorted(operands.items()))
+
+
+def _static(t: torch.Tensor) -> torch.Tensor:
+    """A static input buffer: a copy of ``t`` with its shape and strides,
+    so the graph computes on the layout the eager call saw."""
+    return torch.empty_strided(tuple(t.shape), t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+def _body_head(st, bm: int) -> Tuple:
+    """A body's key beyond its operands and inputs: ``BodyIO.key``, the
+    body's weight key and the launch bm."""
+    return (st.graph.key, st.weight_key, int(bm))
+
+
 # ---------------------------------------------------------------------------
 # capture
 # ---------------------------------------------------------------------------
 
 class CudaCapture:
-    """One body captured into a ``torch.cuda.CUDAGraph`` on ``stream``,
-    its allocations in ``pool``. ``static_out`` holds the outputs the
-    replays write."""
+    """One call captured into a ``torch.cuda.CUDAGraph`` on ``stream``, its
+    allocations in ``pool``. ``static_out`` holds the outputs the replays
+    write. ``capture_begin`` / ``capture_end`` directly, not
+    ``torch.cuda.graph``: no device synchronize or allocator flush a
+    capture (the module docstring)."""
 
     def __init__(self, fn: Callable[[Tensors], Tensors], static_in: Tensors,
                  stream, pool):
         self.graph = torch.cuda.CUDAGraph()
-        # thread_local: a thread that is not capturing (a serving daemon's
-        # feeder) may still use the runtime meanwhile
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            self.static_out = fn(static_in)
+        # the static inputs were written on the current stream
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        # the collector stays off while capturing: it may free a dead
+        # cache's graphs (the weight cache and the graph cache hold each
+        # other) at any allocation, and a graph destroyed mid-capture
+        # invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(stream):
+                # thread_local: a thread that is not capturing (a serving
+                # daemon's feeder) may still use the runtime meanwhile
+                self.graph.capture_begin(pool=pool,
+                                         capture_error_mode="thread_local")
+                try:
+                    self.static_out = fn(static_in)
+                except BaseException:
+                    try:             # ends the invalidated capture; the
+                        self.graph.capture_end()   # first error is the one
+                    except RuntimeError:           # that is raised
+                        pass
+                    raise
+                self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()
@@ -188,21 +317,26 @@ class CudaCapture:
 
 @dataclasses.dataclass
 class _Entry:
+    kind: str
+    head: Tuple                    # the caller's key
     graph: Any                     # CudaCapture or a stand-in
     static_in: Tensors
-    operands: Tuple                # weakrefs to the padded packs read
+    operands: Tuple                # (tag, weakref) of the operands read
     launches: Dict                 # kernel-counter change of one call
 
-    def live(self, padded: Tensors) -> bool:
-        return all(ref() is padded[tag] for tag, ref in self.operands)
+    def live(self, operands: Tensors) -> bool:
+        return all(ref() is operands[tag] for tag, ref in self.operands)
+
+    def dead(self) -> bool:
+        return any(ref() is None for _, ref in self.operands)
 
 
 class GraphCache:
-    """The graphs of a ``VLIWJit``'s stacked decode bodies, by body key
-    (see the module docstring). ``capture(fn, static_in, stream, pool)``
-    builds one graph; the default is ``CudaCapture``, and a stand-in (any
-    object with ``replay()`` and ``static_out``) drives the cache on the
-    CPU. ``resident(pack)`` says whether the weight cache holds a pack."""
+    """The CUDA graphs of a ``VLIWJit`` and its serving engine, by key (see
+    the module docstring). ``capture(fn, static_in, stream, pool)`` builds
+    one graph; the default is ``CudaCapture``, and a stand-in (any object
+    with ``replay()`` and ``static_out``) drives the cache on the CPU.
+    ``resident(pack)`` says whether the weight cache holds a pack."""
 
     def __init__(self, capture: Optional[Callable] = None,
                  resident: Callable[[torch.Tensor], bool] = lambda t: True):
@@ -211,31 +345,65 @@ class GraphCache:
         self._resident = resident
         self._real = capture is None
         self._entries: Dict[Tuple, _Entry] = {}
+        # keys whose operand died (weakref callbacks; purged at the next
+        # call, never from inside a callback)
+        self._dead: List[Tuple] = []
         self._streams: Dict[int, Any] = {}
         self._pools: Dict[int, Any] = {}
-        self.dropped = 0           # graphs dropped with a pack they read
+        self._keepers: Dict[int, CudaCapture] = {}
+        self.dropped = 0           # graphs dropped with an operand they read
+        # host seconds of each kind's first calls (eager call + capture)
+        self.capture_s = {kind: 0.0 for kind in KINDS}
 
     def __len__(self) -> int:
+        self._purge()
         return len(self._entries)
+
+    def count(self, kind: str) -> int:
+        """The graphs held of one kind."""
+        self._purge()
+        return sum(e.kind == kind for e in self._entries.values())
+
+    def heads(self, kind: str) -> set:
+        """The callers' keys of the graphs held of one kind (for glue, the
+        JAX package's ``_GLUE_JITS`` keys)."""
+        self._purge()
+        return {e.head for e in self._entries.values() if e.kind == kind}
+
+    @staticmethod
+    def _full_key(kind: str, head: Tuple, inputs: Tensors,
+                  operands: Tensors) -> Tuple:
+        return (kind, head, _identities(operands), _signature(inputs))
 
     @staticmethod
     def key(st, inputs: Tensors, padded: Tensors, bm: int) -> Tuple:
-        """A body's graph key: ``BodyIO.key`` (phase, config, batch), the
-        body's weight key, the launch bm, the packs' identities and the
-        inputs' shapes and dtypes."""
-        return (st.graph.key, st.weight_key, int(bm),
-                tuple((tag, id(t)) for tag, t in sorted(padded.items())),
-                tuple((name, tuple(t.shape), str(t.dtype), str(t.device))
-                      for name, t in sorted(inputs.items())))
+        """A body's graph key: ``BodyIO.key`` (phase, config, batch or
+        bucket), the body's weight key, the launch bm, the packs'
+        identities and the inputs' shapes, strides and dtypes."""
+        return GraphCache._full_key(st.graph.key[0], _body_head(st, bm),
+                                    inputs, padded)
 
     # ------------------------------------------------------------------
     def drop_operand(self, value: Any) -> None:
         """Drop every graph that reads ``value`` (the weight cache calls
         this for each entry it evicts or invalidates)."""
+        self._purge()
         for key in [k for k, e in self._entries.items()
                     if any(ref() is value for _, ref in e.operands)]:
             del self._entries[key]
             self.dropped += 1
+
+    def _purge(self) -> None:
+        while self._dead:
+            key = self._dead.pop()
+            ent = self._entries.get(key)
+            if ent is not None and ent.dead():
+                del self._entries[key]
+                self.dropped += 1
+
+    def _watch(self, key: Tuple, t: torch.Tensor) -> "weakref.ref":
+        dead = self._dead          # the callback holds the list, not self
+        return weakref.ref(t, lambda _ref: dead.append(key))
 
     # ------------------------------------------------------------------
     def run(self, st, env: Dict[str, Any], padded: Tensors, ex,
@@ -244,68 +412,128 @@ class GraphCache:
         its key's first call the eager body and a capture."""
         io = st.graph
         inputs = io.read(env)
-        if (self._real and inputs["x"].device.type != "cuda") or not all(
-                self._resident(t) for t in padded.values()):
+        if not all(self._resident(t) for t in padded.values()):
             write_outputs(env, io.body(inputs, padded, ex, block))
             return
         bm = ex.bm if block is None else block.bm
-        key = self.key(st, inputs, padded, bm)
+
+        def fn(inp: Tensors, ops: Tensors) -> Tensors:
+            return io.body(inp, ops, ex, block)
+
+        write_outputs(env, self.call(io.key[0], _body_head(st, bm), fn,
+                                     inputs, padded, ex.stats))
+
+    def glue(self, io: GlueIO, env: Dict[str, Any], stats=None) -> None:
+        """Run per-layer glue stage ``io`` on ``env`` as a graph of its
+        ``_GLUE_JITS`` key (its inputs copied in: one graph serves every
+        layer of the key, as one jitted function does)."""
+        key, fn, inputs = io.bind(env)
+        io.write(env, self.call("glue", key, lambda inp, ops: fn(inp),
+                                inputs, {}, stats))
+
+    def monolithic(self, head: Tuple, fn: Callable[[Any, Any], Any],
+                   params, args, stats=None) -> Dict[str, Any]:
+        """``fn(params, args) -> dict`` (trees of tensors) as a graph keyed
+        on ``head``: the params' leaves are its operands (read by pointer,
+        held weakly), the args' leaves its inputs. ``fn`` must not hold the
+        params itself."""
+
+        def flat_fn(inp: Tensors, ops: Tensors) -> Tensors:
+            return flatten(fn(unflatten(ops), unflatten(inp)))
+
+        return unflatten(self.call("monolithic", head, flat_fn,
+                                   flatten(args), flatten(params), stats))
+
+    def call(self, kind: str, head: Tuple,
+             fn: Callable[[Tensors, Tensors], Tensors], inputs: Tensors,
+             operands: Optional[Tensors] = None, stats=None) -> Tensors:
+        """``fn(inputs, operands)``: a replay of the graph of ``head`` (see
+        the module docstring), or at its first call the eager call and a
+        capture; eager on the CPU. Counts into ``stats``
+        (``DispatchStats``)."""
+        assert kind in KINDS, kind
+        operands = operands or {}
+        self._purge()
+        if self._real and next(iter(inputs.values())).device.type != "cuda":
+            return fn(inputs, operands)
+        key = self._full_key(kind, head, inputs, operands)
         ent = self._entries.get(key)
-        if ent is not None and not ent.live(padded):
+        if ent is not None and not ent.live(operands):
             del self._entries[key]
             ent = None
         if ent is None:
-            outs = self._capture_body(key, io, inputs, padded, ex, block)
-            ex.stats.graph_captures += 1
-        else:
-            for name, t in ent.static_in.items():
-                t.copy_(inputs[name])
-            ent.graph.replay()
-            outs = {name: t.clone()
-                    for name, t in ent.graph.static_out.items()}
-            _add(ent.launches)
-            ex.stats.graph_replays += 1
-        write_outputs(env, outs)
+            t0 = time.perf_counter()
+            outs = self._capture_call(key, kind, head, fn, inputs, operands)
+            self.capture_s[kind] += time.perf_counter() - t0
+            _count(stats, kind, "captures")
+            return outs
+        for name, t in ent.static_in.items():
+            t.copy_(inputs[name])
+        ent.graph.replay()
+        outs = {name: t.clone() for name, t in ent.graph.static_out.items()}
+        _add(ent.launches)
+        _count(stats, kind, "replays")
+        return outs
 
-    def _capture_body(self, key, io: BodyIO, inputs: Tensors,
-                      padded: Tensors, ex, block) -> Tensors:
-        """The key's first call: the eager body on the capture stream (this
-        call's result), then one capture on static copies of the inputs."""
+    def _stream_and_pool(self, dev: torch.device):
+        """The capture stream and memory pool of ``dev``, made at its first
+        capture together with a keeper: a one-op graph captured into the
+        pool and held as long as the cache. A pool whose graphs have all
+        been destroyed (a weight cache emptied at once) becomes freeable,
+        and the allocators refuse a capture into a freeable pool until
+        their caches are emptied (``torch.cuda.graph`` empties them before
+        every capture); the keeper keeps the pool live, so the memory of
+        dropped graphs stays in it for the next captures."""
+        idx = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        if idx not in self._streams:
+            stream = torch.cuda.Stream(device=dev)
+            pool = torch.cuda.graph_pool_handle()
+            one = torch.zeros(1, device=dev)
+            self._keepers[idx] = CudaCapture(
+                lambda inp: {"one": inp["one"].add_(1.0)}, {"one": one},
+                stream, pool)
+            self._streams[idx], self._pools[idx] = stream, pool
+        return self._streams[idx], self._pools[idx]
 
-        def fn(inp: Tensors) -> Tensors:
-            return io.body(inp, padded, ex, block)
+    def _capture_call(self, key, kind: str, head: Tuple, fn,
+                      inputs: Tensors, operands: Tensors) -> Tensors:
+        """The key's first call: the eager call on the capture stream (this
+        call's result), then one capture on static copies of the inputs.
+        The captured function reaches the operands through weak references
+        only (a stand-in keeps it for its replays)."""
+        refs = tuple((tag, self._watch(key, t))
+                     for tag, t in sorted(operands.items()))
 
-        dev = inputs["x"].device
+        def bound(inp: Tensors) -> Tensors:
+            return fn(inp, {tag: ref() for tag, ref in refs})
+
+        dev = next(iter(inputs.values())).device
         stream = pool = None
         if self._real:
-            idx = dev.index if dev.index is not None \
-                else torch.cuda.current_device()
-            stream = self._streams.get(idx)
-            if stream is None:
-                stream = self._streams[idx] = torch.cuda.Stream(device=dev)
-                self._pools[idx] = torch.cuda.graph_pool_handle()
-            pool = self._pools[idx]
+            stream, pool = self._stream_and_pool(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
-                outs = fn(inputs)
+                outs = fn(inputs, operands)
             torch.cuda.current_stream(dev).wait_stream(stream)
         else:
-            outs = fn(inputs)
+            outs = fn(inputs, operands)
         # the static inputs live outside the graphs' pool, on the stream
         # the replays copy into them from
-        static_in = {n: t.clone() for n, t in inputs.items()}
+        static_in = {n: _static(t) for n, t in inputs.items()}
         before = _counters()
         for (fn_, name) in before:
             if name.startswith("max_"):       # the call's own maximum
                 setattr(fn_, name, 0)
-        graph = self._capture(fn, static_in, stream, pool)
-        launches = _delta(before, _counters())
-        _restore(before)
-        self._entries[key] = _Entry(
-            graph, static_in,
-            tuple((tag, weakref.ref(t)) for tag, t in sorted(padded.items())),
-            launches)
+        try:
+            graph = self._capture(bound, static_in, stream, pool)
+        finally:
+            launches = _delta(before, _counters())
+            _restore(before)
+        self._entries[key] = _Entry(kind, head, graph, static_in, refs,
+                                    launches)
         return outs
 
 
-__all__ = ["BodyIO", "CudaCapture", "GraphCache", "write_outputs"]
+__all__ = ["BodyIO", "CudaCapture", "GlueIO", "GraphCache", "KINDS",
+           "flatten", "unflatten", "write_outputs"]

@@ -46,10 +46,10 @@ flags) instead of ~6 stages a layer: the whole sub-stack is one schedulable
 op whose operands are the params tree's stacked ``[L, k, n]`` blocks, padded
 once into the executor's persistent cache (``stacked_operand``). Where the
 JAX package runs a jitted ``lax.scan`` over the layer axis, the body here is
-a Python loop over the sub-stack's layers; on the card a decode body is
-captured once per key into a CUDA graph and replayed (``VLIWJit.graphs``,
-core/graphs.py, the counterpart of the JAX package's per-body jits; the
-CPU runs it eagerly). Each of its GEMMs is one solo
+a Python loop over the sub-stack's layers; on the card a body, decode or
+prefill, is captured once per key into a CUDA graph and replayed
+(``VLIWJit.graphs``, core/graphs.py, the counterpart of the JAX package's
+per-body jits; the CPU runs it eagerly). Each of its GEMMs is one solo
 ``coalesced_gemm`` launch (``_scan_gemm``, G = 1) that replicates the
 executor's dispatch of a lone op exactly: the same m-tile bucket, the same
 padded envelope, the same glue functions. So a stacked program is bitwise
@@ -57,7 +57,10 @@ equal to the per-layer one. A stacked op is charged as ``layers``
 sequential tile-waves per operand (``GemmShape.layers``) and coalesces
 only with ops of the same stack signature (``clustering.coalesce_key``);
 a coalesced group of bodies runs back to back. ``stacked=False`` keeps
-the per-layer emission as the bitwise oracle.
+the per-layer emission as the bitwise oracle; its attention, MoE route /
+combine and SSM core glue are ``GlueIO`` stages, each replayed on the card
+as the graph of its ``_GLUE_JITS`` key (the JAX package's jitted per-layer
+glue), the other glue eager.
 
 MoE and SSM tenants compile the same way (``build_moe_decode_template``,
 ``build_ssm_decode_template``). An MoE layer keeps the dense attention
@@ -100,7 +103,7 @@ from repro_torch.core.costmodel import (BlockConfig, CostModel, GemmShape,
                                         H100)
 from repro_torch.core.dispatch import (DispatchStats, SuperkernelExecutor,
                                        _pad_rows_cols, _tile_bucket)
-from repro_torch.core.graphs import BodyIO, GraphCache
+from repro_torch.core.graphs import BodyIO, GlueIO, GraphCache
 from repro_torch.core.kernelspec import KernelOp, make_op, op_aspect
 from repro_torch.core.plancache import PlanCache, PlanCacheStats
 from repro_torch.core.schedtrace import (DispatchRecord, OpRecord,
@@ -144,6 +147,14 @@ class GlueStage:
     fn: Callable[[Dict[str, Any]], None]
     reads: Optional[Tuple] = None
     writes: Optional[Tuple] = None
+    # the stage as a function of tensors (``fn`` is its eager call), for
+    # the per-layer glue the JAX package jits: replayed as a CUDA graph on
+    # the card (``VLIWJit.run_glue``)
+    graph: Optional[GlueIO] = None
+
+
+def _glue_stage(io: GlueIO, reads: Tuple, writes: Tuple) -> GlueStage:
+    return GlueStage(io.run, reads=reads, writes=writes, graph=io)
 
 
 def partition_layers(flags: Sequence[bool]) -> List[Tuple[int, int]]:
@@ -201,9 +212,8 @@ class StackedGemmStage:
                    SuperkernelExecutor, Optional[BlockConfig]], None]
     reads: Optional[Tuple] = None
     writes: Optional[Tuple] = None
-    # the body as a function of tensors (``run`` is its eager call), for a
-    # decode body the form its CUDA graph holds (core/graphs.py); None for
-    # a body that is never captured
+    # the body as a function of tensors (``run`` is its eager call), the
+    # form its CUDA graph holds (core/graphs.py)
     graph: Optional[BodyIO] = None
 
 
@@ -268,14 +278,20 @@ class KernelProgram:
     _suffix_fn: Optional[Callable[[CostModel], List[float]]] = \
         dataclasses.field(default=None, repr=False, compare=False)
 
-    def advance_glue(self) -> Optional[Stage]:
+    def advance_glue(self, glue: Optional[Callable] = None
+                     ) -> Optional[Stage]:
         """Run glue stages until the next GEMM or layer-body stage (or
-        completion)."""
+        completion). ``glue(io, env)`` runs a stage that has a ``GlueIO``
+        (the session's ``VLIWJit.run_glue``); without it every stage runs
+        its eager ``fn``."""
         while self.pc < len(self.stages):
             st = self.stages[self.pc]
             if isinstance(st, (GemmStage, StackedGemmStage)):
                 return st
-            st.fn(self.env)
+            if glue is not None and st.graph is not None:
+                glue(st.graph, self.env)
+            else:
+                st.fn(self.env)
             self.pc += 1
         return None
 
@@ -437,7 +453,8 @@ def _emit_dense_body(cfg: ModelConfig, params, stages: List[Stage], *,
                      ) -> None:
     """Emit the per-layer stage scaffolding shared by the dense DECODE and
     PREFILL builders: pre-norm, the wq/wk/wv projections, the phase-specific
-    attention glue (``attend_for(l, lp, is_global)``), wo, post-norm and the
+    attention glue (``attend_for(l, lp, is_global)``, a ``GlueIO``: the
+    JAX package jits it), wo, post-norm and the
     gated FFN. Exactly one copy: cross-phase operand sharing requires both
     builders to emit identical weight keys and tags.
 
@@ -479,8 +496,8 @@ def _emit_dense_body(cfg: ModelConfig, params, stages: List[Stage], *,
                  lambda env, out, name=name: env.__setitem__(name, out),
                  n_heads * hd, cfg.d_model, ("h",), (name,))
 
-        glue(attend_for(l, lp, is_global), reads=attend_reads,
-             writes=("attn_out", "new_layers"))
+        stages.append(_glue_stage(attend_for(l, lp, is_global),
+                                  attend_reads, ("attn_out", "new_layers")))
         gemm("attn_wo", weight_key(cfg.name, pid, "wo", layer=l),
              lambda lp=lp: lp["attn"]["wo"],
              lambda env: env["attn_out"],
@@ -522,11 +539,22 @@ def _emit_dense_body(cfg: ModelConfig, params, stages: List[Stage], *,
         glue(post_ffn, reads=("x", "down"), writes=("x",))
 
 
+# sqrt(d_model) on a device in a dtype, made once: a host-to-device copy
+# an embed otherwise
+_EMBED_SCALES: Dict[Tuple[int, str, torch.dtype], torch.Tensor] = {}
+
+
 def _embed_scale(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """sqrt(d_model) as a float32 scalar cast to ``x``'s dtype (the JAX
-    package's ``jnp.asarray(jnp.sqrt(d), x.dtype)``)."""
-    return torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
-                        device=x.device).to(x.dtype)
+    package's ``jnp.asarray(jnp.sqrt(d), x.dtype)``), one tensor per
+    (d_model, device, dtype)."""
+    key = (cfg.d_model, str(x.device), x.dtype)
+    scale = _EMBED_SCALES.get(key)
+    if scale is None:
+        scale = _EMBED_SCALES[key] = torch.tensor(
+            math.sqrt(cfg.d_model), dtype=torch.float32,
+            device=x.device).to(x.dtype)
+    return scale
 
 
 def _emit_decode_embed(cfg: ModelConfig, params, stages: List[Stage]) -> None:
@@ -612,22 +640,42 @@ def _gqa_decode_attend(cfg: ModelConfig, B: int, q_flat, k_flat, v_flat,
     return o.reshape(B, cfg.num_heads * hd).to(out_dtype), kc, vc
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _write_attend(env, outs: Dict[str, torch.Tensor]) -> None:
+    """An attention glue stage's outputs into the env: the layer's new
+    k / v (its cache slices, or the prompt's rows) and ``attn_out``."""
+    env["new_layers"]["k"].append(outs["k"])
+    env["new_layers"]["v"].append(outs["v"])
+    env["attn_out"] = outs["attn_out"]
+
+
 def _decode_attend_for(cfg: ModelConfig, B: int):
-    """Single-token slotted-cache attention glue factory."""
+    """Single-token slotted-cache attention glue factory: the JAX
+    package's ``decode-attend`` glue jit, keyed (cfg, B, is_global, out
+    dtype), its arguments q / k / v, the layer's cache slices and pos."""
 
     def attend_for(l, lp, is_global):
-        def attend(env, l=l, is_global=is_global):
+        def bind(env):
             cache = env["cache"]
-            pos = torch.broadcast_to(cache["pos"], (B,))
-            attn_out, kc, vc = _gqa_decode_attend(
-                cfg, B, env["wq"], env["wk"], env["wv"],
-                cache["layers"]["k"][l], cache["layers"]["v"][l], pos,
-                is_global, env["h"].dtype)
-            env["new_layers"]["k"].append(kc)
-            env["new_layers"]["v"].append(vc)
-            env["attn_out"] = attn_out
+            out_dtype = env["h"].dtype
 
-        return attend
+            def attend(inp):
+                attn_out, kc, vc = _gqa_decode_attend(
+                    cfg, B, inp["q"], inp["k"], inp["v"], inp["kc"],
+                    inp["vc"], inp["pos"], is_global, out_dtype)
+                return {"attn_out": attn_out, "k": kc, "v": vc}
+
+            key = ("decode-attend", cfg, B, bool(is_global),
+                   _dtype_name(out_dtype))
+            return key, attend, {
+                "q": env["wq"], "k": env["wk"], "v": env["wv"],
+                "kc": cache["layers"]["k"][l], "vc": cache["layers"]["v"][l],
+                "pos": torch.broadcast_to(cache["pos"], (B,))}
+
+        return GlueIO(bind, _write_attend)
 
     return attend_for
 
@@ -644,14 +692,20 @@ def _moe_route(cfg: ModelConfig, router: torch.Tensor, h2: torch.Tensor,
     return buf, meta, weights
 
 
-def _moe_combine(cfg: ModelConfig, downs: List[torch.Tensor], weights,
-                 meta, h2: torch.Tensor) -> torch.Tensor:
-    """The experts' [C, d] outputs combined back to the B tokens, in h2's
-    dtype: the FFN residual of one MoE layer."""
-    B = int(h2.shape[0])
-    y = moe_lib.combine_tokens(torch.stack(downs), weights.reshape(-1),
-                               meta, B, cfg.d_model)
-    return y.to(h2.dtype)
+def _moe_combine(cfg: ModelConfig, out_buf: torch.Tensor, weights,
+                 meta) -> torch.Tensor:
+    """The experts' stacked [E, C, d] outputs combined back to the B
+    tokens (fp32): the FFN residual of one MoE layer before its cast to the
+    residual's dtype. The glue of both MoE regimes."""
+    B = int(weights.shape[0])
+    return moe_lib.combine_tokens(out_buf, weights.reshape(-1), meta, B,
+                                  cfg.d_model)
+
+
+def _metas(tensors: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The dispatch's meta tuple from its ``meta<i>`` entries."""
+    return tuple(tensors[f"meta{i}"] for i in range(
+        sum(k.startswith("meta") for k in tensors)))
 
 
 def _ssm_core(cfg: ModelConfig, mamba_p, zxbcdt: torch.Tensor,
@@ -664,8 +718,7 @@ def _ssm_core(cfg: ModelConfig, mamba_p, zxbcdt: torch.Tensor,
 
 def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
                         m_rows: int, read, attend_for, reads: Tuple,
-                        moe: bool = False,
-                        graph_key: Optional[Tuple] = None
+                        graph_key: Tuple, moe: bool = False
                         ) -> StackedGemmStage:
     """ONE layer body covering layers [lo, hi) of a GQA model (dense or,
     with ``moe``, MoE), in place of their per-layer stages; shared by the
@@ -679,8 +732,9 @@ def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
     for the body's layer i, the same function its per-layer glue calls.
     The layers' k/v are stacked into one [Lsub, ...] chunk for the epilogue
     to concatenate. An MoE body's expert packs hold ``Lsub·E`` matrices,
-    layer i's expert e at ``i·E + e``. ``graph_key`` (decode) lets the
-    session replay the body as a CUDA graph (core/graphs.py)."""
+    layer i's expert e at ``i·E + e``. ``graph_key`` ((phase, cfg, batch or
+    prompt bucket): ``BodyIO.key``) lets the session replay the body as a
+    CUDA graph (core/graphs.py)."""
     hd = cfg.resolved_head_dim
     d = cfg.d_model
     eps = cfg.norm_eps
@@ -722,7 +776,8 @@ def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
                     act = silu_mul(gemm(buf[e], "expert_gate", j, dff),
                                    gemm(buf[e], "expert_up", j, dff))
                     downs.append(gemm(act, "expert_down", j, d))
-                x = x + _moe_combine(cfg, downs, wgt, meta, h2)
+                x = x + _moe_combine(cfg, torch.stack(downs), wgt,
+                                     meta).to(h2.dtype)
                 continue
             act = silu_mul(gemm(h2, "ffn_gate", i, dff),
                            gemm(h2, "ffn_up", i, dff))
@@ -735,7 +790,7 @@ def _stacked_body_stage(cfg: ModelConfig, params, lo: int, hi: int, *,
         weight_key=weight_key(cfg.name, pid, "body", stack=(lo, hi)),
         operands=operands, layers=Lsub, run=io.run,
         reads=reads, writes=("x", "new_layers"),
-        graph=io if graph_key is not None else None)
+        graph=io)
 
 
 def _stacked_operands(cfg: ModelConfig, blocks, pid: int, lo: int, hi: int,
@@ -925,19 +980,38 @@ def build_moe_decode_template(model, params, batch: int, *,
     pid = id(params)
     mp = params["blocks"]["moe"]
 
+    def route(inp):
+        buf, meta, weights = _moe_route(cfg, inp["router"], inp["h2"], C)
+        return {"buf": buf, "weights": weights,
+                **{f"meta{i}": t for i, t in enumerate(meta)}}
+
+    def route_write(env, outs):
+        env["moe_buf"], env["moe_w"] = outs["buf"], outs["weights"]
+        env["moe_meta"] = _metas(outs)
+        env["moe_down"] = [None] * E
+
+    def combine(inp):
+        return {"y": _moe_combine(cfg, inp["out_buf"], inp["weights"],
+                                  _metas(inp))}
+
+    def combine_write(env, outs):
+        env["x"] = env["x"] + outs["y"].to(env["h2"].dtype)
+
     def ffn_for(l, lp, stages):
         router = lp["moe"]["router"]
 
         def glue(fn, reads=None, writes=None):
             stages.append(GlueStage(fn, reads=reads, writes=writes))
 
-        def route_dispatch(env):
-            env["moe_buf"], env["moe_meta"], env["moe_w"] = _moe_route(
-                cfg, router, env["h2"], C)
-            env["moe_down"] = [None] * E
+        # the JAX package's ``moe-route`` glue jit: its arguments the
+        # layer's router and h2
+        def route_bind(env):
+            return ("moe-route", cfg, B, C), route, {"router": router,
+                                                     "h2": env["h2"]}
 
-        glue(route_dispatch, reads=("h2",),
-             writes=("moe_buf", "moe_meta", "moe_w", "moe_down"))
+        stages.append(_glue_stage(
+            GlueIO(route_bind, route_write), reads=("h2",),
+            writes=("moe_buf", "moe_meta", "moe_w", "moe_down")))
         for e in range(E):
             wg, wu, wd = (_stable_view(mp[name], (l, e),
                                        lambda w, e=e: w[l, e])
@@ -969,14 +1043,20 @@ def build_moe_decode_template(model, params, batch: int, *,
                 shape=GemmShape(m=C, n=d, k=cfg.d_ff),
                 reads=(("moe_act", e),), writes=("moe_down",)))
 
-        def combine(env):
+        # the JAX package's ``moe-combine`` glue jit: the experts' outputs
+        # stacked ahead of it, the cast and the residual add after it
+        def combine_bind(env):
             env.pop("moe_buf")
-            env["x"] = env["x"] + _moe_combine(
-                cfg, env.pop("moe_down"), env.pop("moe_w"),
-                env.pop("moe_meta"), env["h2"])
+            inputs = {"out_buf": torch.stack(env.pop("moe_down")),
+                      "weights": env.pop("moe_w")}
+            for i, t in enumerate(env.pop("moe_meta")):
+                inputs[f"meta{i}"] = t
+            return ("moe-combine", cfg, B), combine, inputs
 
-        glue(combine, reads=("moe_down", "moe_w", "moe_meta", "moe_buf",
-                             "x", "h2"), writes=("x",))
+        stages.append(_glue_stage(
+            GlueIO(combine_bind, combine_write),
+            reads=("moe_down", "moe_w", "moe_meta", "moe_buf", "x", "h2"),
+            writes=("x",)))
 
     return _build_gqa_decode_template(model, params, batch, ffn_for=ffn_for)
 
@@ -1092,6 +1172,15 @@ def build_ssm_decode_template(model, params, batch: int, *,
     def glue(fn, reads=None, writes=None):
         stages.append(GlueStage(fn, reads=reads, writes=writes))
 
+    def scan(inp):
+        y, new_c = _ssm_core(cfg, inp, inp["zxbcdt"], inp["conv"], inp["h"])
+        return {"y": y, "conv": new_c["conv"], "h": new_c["h"]}
+
+    def scan_write(env, outs):
+        env["new_layers"]["conv"].append(outs["conv"])
+        env["new_layers"]["h"].append(outs["h"])
+        env["ssm_y"] = outs["y"]
+
     _emit_decode_embed(cfg, params, stages)
     glue(_reset_ssm_layers, reads=(), writes=("new_layers",))
     for l in range(cfg.num_layers):
@@ -1109,15 +1198,19 @@ def build_ssm_decode_template(model, params, batch: int, *,
             shape=GemmShape(m=B, n=n_in, k=d),
             reads=("h",), writes=("zxbcdt",)))
 
-        def scan(env, lp=lp, l=l):
+        # the JAX package's ``ssm-core`` glue jit: its arguments the
+        # recurrence's mamba leaves, zxbcdt and the layer's recurrent cache
+        def scan_bind(env, lp=lp, l=l):
             layers = env["cache"]["layers"]
-            y, new_c = _ssm_core(cfg, lp["mamba"], env.pop("zxbcdt"),
-                                 layers["conv"][l], layers["h"][l])
-            env["new_layers"]["conv"].append(new_c["conv"])
-            env["new_layers"]["h"].append(new_c["h"])
-            env["ssm_y"] = y
+            inputs = {k: v for k, v in lp["mamba"].items()
+                      if k not in ("in_proj", "out_proj")}
+            inputs.update(zxbcdt=env.pop("zxbcdt"), conv=layers["conv"][l],
+                          h=layers["h"][l])
+            return ("ssm-core", cfg), scan, inputs
 
-        glue(scan, reads=("cache", "zxbcdt"), writes=("new_layers", "ssm_y"))
+        stages.append(_glue_stage(GlueIO(scan_bind, scan_write),
+                                  reads=("cache", "zxbcdt"),
+                                  writes=("new_layers", "ssm_y")))
         stages.append(GemmStage(
             "ssm_out_proj", weight_key(cfg.name, pid, "out_proj", layer=l),
             lambda lp=lp: lp["mamba"]["out_proj"],
@@ -1226,22 +1319,35 @@ def build_dense_prefill_template(model, params, seq_len: int, *,
 
             return attend
 
+        # a body is a function of x alone at a bucket (positions are
+        # arange(Sp); real_len and slot are read after the bodies), so it
+        # is keyed as a decode body is, with the bucket for the batch
         for lo, hi in partition_layers(cfg.global_layer_flags()):
             stages.append(_stacked_body_stage(
                 cfg, params, lo, hi, m_rows=Sp, read=read,
-                attend_for=stacked_attend_for, reads=("x", "positions")))
+                attend_for=stacked_attend_for, reads=("x", "positions"),
+                graph_key=("prefill", cfg, Sp)))
     else:
         def attend_for(l, lp, is_global):
-            # causal self-attention over the whole (padded) prompt
-            def attend(env, is_global=is_global):
-                attn_out, k_t, v_t = _causal_prefill_attend(
-                    cfg, Sp, env["wq"], env["wk"], env["wv"],
-                    env["positions"], is_global, env["h"].dtype)
-                env["new_layers"]["k"].append(k_t)
-                env["new_layers"]["v"].append(v_t)
-                env["attn_out"] = attn_out
+            # causal self-attention over the whole (padded) prompt: the
+            # JAX package's ``prefill-attend`` glue jit, keyed (cfg, Sp,
+            # is_global, out dtype), its arguments q / k / v and positions
+            def bind(env):
+                out_dtype = env["h"].dtype
 
-            return attend
+                def attend(inp):
+                    attn_out, k_t, v_t = _causal_prefill_attend(
+                        cfg, Sp, inp["q"], inp["k"], inp["v"],
+                        inp["positions"], is_global, out_dtype)
+                    return {"attn_out": attn_out, "k": k_t, "v": v_t}
+
+                key = ("prefill-attend", cfg, Sp, bool(is_global),
+                       _dtype_name(out_dtype))
+                return key, attend, {"q": env["wq"], "k": env["wk"],
+                                     "v": env["wv"],
+                                     "positions": env["positions"]}
+
+            return GlueIO(bind, _write_attend)
 
         _emit_dense_body(cfg, params, stages, m_rows=Sp,
                          attend_for=attend_for,
@@ -1274,7 +1380,9 @@ def build_dense_prefill_template(model, params, seq_len: int, *,
         kc[:, slot] = F.pad(k_new, pad).to(kc.dtype)
         vc[:, slot] = F.pad(v_new, pad).to(vc.dtype)
         pos = cache["pos"].clone()
-        pos[slot] = S
+        # a fill, not ``pos[slot] = S``: that copies a host scalar in, a
+        # copy that waits for the card (the prompt pass just queued)
+        pos.narrow(0, slot, 1).fill_(S)
         env["cache"] = {"pos": pos, "layers": {**layers, "k": kc, "v": vc}}
 
     glue(finish, reads=("cache", "new_layers", "real_len", "slot"),
@@ -1484,7 +1592,7 @@ class JitSession:
                 prog_uid=prog.uid, stream=prog.stream_id, kind=prog.kind,
                 req_ids=tuple(r for r, _ in prog.req_deadlines),
                 kv_writes=tuple(prog.kv_writes), device=self.device))
-        st = prog.advance_glue()
+        st = prog.advance_glue(self.jit.run_glue)
         if st is None:            # pure-glue program: completes immediately
             self._done.append(prog)
             return
@@ -1620,9 +1728,9 @@ class JitSession:
                 ex.stats.weight_hits += 1
             ex.stats.dispatches += 1
             builds0 = build_count()
-            if self.jit.cuda_graphs and st.graph is not None:
-                # a decode body: a replay of its CUDA graph (a capture at
-                # its key's first call); eager on the CPU
+            if self.jit.cuda_graphs:
+                # a replay of the body's CUDA graph (a capture at its key's
+                # first call); eager on the CPU
                 self.jit.graphs.run(st, prog.env, padded, ex, block)
             else:
                 st.run(prog.env, padded, ex, block)
@@ -1634,7 +1742,7 @@ class JitSession:
         """Step past the stage just run: declare the program's next op, or
         complete it."""
         prog.pc += 1
-        nxt = prog.advance_glue()
+        nxt = prog.advance_glue(self.jit.run_glue)
         if nxt is None:
             completed.append(prog)
         else:
@@ -1761,15 +1869,25 @@ class VLIWJit:
         self.weight_cache = PlanCache(wcap,
                                       byte_capacity=weight_budget_bytes)
         self.executor = SuperkernelExecutor(self.weight_cache, bm=bm)
-        # the stacked decode bodies' CUDA graphs (core/graphs.py), the
-        # counterpart of the JAX package's jitted layer scans, which it
-        # always compiles: on by default; False runs every body eagerly
-        # (the eager-vs-graphed comparison). The CPU never captures. A
-        # graph reads packed weights by raw pointer, so every pack the
-        # weight cache drops takes the graphs that read it along.
+        # the CUDA graphs (core/graphs.py) of the stacked bodies (decode
+        # and prefill), the per-layer glue and the serving engine's
+        # monolithic model calls: the counterparts of the JAX package's
+        # jitted layer scans and glue, which it always compiles. On by
+        # default; False runs every one of them eagerly (the eager twin of
+        # the graphed run). The CPU never captures. A graph reads packed
+        # weights by raw pointer, so every pack the weight cache drops
+        # takes the graphs that read it along.
         self.cuda_graphs = cuda_graphs
         self.graphs = GraphCache(resident=self.weight_cache.holds)
         self.weight_cache.on_drop.append(self.graphs.drop_operand)
+
+    def run_glue(self, io: GlueIO, env: Dict[str, Any]) -> None:
+        """Run one per-layer glue stage: a replay of its key's CUDA graph
+        (``cuda_graphs``), else eagerly."""
+        if self.cuda_graphs:
+            self.graphs.glue(io, env, self.executor.stats)
+        else:
+            io.run(env)
 
     def session(self, record_trace: bool = False, *, device: int = 0,
                 cost: Optional[CostModel] = None,

@@ -69,11 +69,16 @@ Prompts: the JAX package draws them with ``jax.random``; here a CPU
 Tenants compile to layer-stacked templates by default
 (``stacked_layers=True``, one body per homogeneous sub-stack of layers, as
 in the JAX package); ``stacked_layers=False`` serves the per-layer
-emission, the bitwise oracle. Both give the same tokens. On the card each
-stacked decode body replays as a CUDA graph (``cuda_graphs=True``, the
-default, as the JAX package always compiles its layer scans;
-``core/graphs.py``); ``cuda_graphs=False`` runs the bodies eagerly, for
-the eager-vs-graphed comparison. Graphs change no token.
+emission, the bitwise oracle. Both give the same tokens. On the card
+(``cuda_graphs=True``, the default, as the JAX package always compiles;
+``core/graphs.py``) each stacked body, decode or prefill, replays as a
+CUDA graph, so does each per-layer attention / MoE route / combine / SSM
+core glue stage (the JAX package's ``_GLUE_JITS``), and so does every
+monolithic ``Model.decode_step`` and ``Model.prefill`` call (whose layers
+the JAX package runs under a compiled ``lax.scan``), keyed on the model's
+config, dtype, ``kv_quant``, the params' identity and the inputs' shapes.
+``cuda_graphs=False`` runs every one of them eagerly: the eager twin of the
+graphed run. Graphs change no token.
 
 The modelled mesh (``num_devices`` or an explicit ``DeviceSet``): each
 tenant binds to a home device at its FIRST admission
@@ -538,8 +543,7 @@ class ServingEngine:
             pbatch["frames"] = torch.zeros(
                 (1, m.cfg.encoder_seq_len, m.cfg.d_model), dtype=m.dtype,
                 device=self.device)
-        logits, pc = m.prefill(tenant.params, pbatch,
-                               cache_len=tenant.cache_len)
+        logits, pc = self._prefill(tenant, pbatch)
         tok = int(torch.argmax(logits[0, -1]))
         req.tokens_out = [tok]
         dt = self._prefill_time(m.cfg, req.prompt_len)
@@ -577,17 +581,55 @@ class ServingEngine:
         else:  # time: every active request decodes alone, serialized
             for t in live:
                 n_active = len(t.active_slots())
-                logits, t.cache = t.model.decode_step(t.params, t.slot_tok,
-                                                      t.cache)
+                logits, t.cache = self._decode_step(t)
                 self._consume(t, logits, now + dt)
                 dt += n_active * self._ops_time(t.cfg, 1)
         return dt
 
     def _tenant_batched_step(self, t: Tenant, now: float = 0.0) -> float:
-        logits, t.cache = t.model.decode_step(t.params, t.slot_tok, t.cache)
+        logits, t.cache = self._decode_step(t)
         dt = self._ops_time(t.cfg, len(t.active_slots()))
         self._consume(t, logits, now + dt)
         return dt
+
+    # ------------------------------------------------------------------
+    # the monolithic model calls
+    # ------------------------------------------------------------------
+    def _model_head(self, t: Tenant, method: str) -> Tuple:
+        """A monolithic call's graph key (beyond the params' identity and
+        the inputs' shapes): the method, the model's config, param dtype
+        and ``kv_quant``."""
+        m = t.model
+        return (method, m.cfg, str(m.dtype).removeprefix("torch."),
+                m.kv_quant)
+
+    def _decode_step(self, t: Tenant):
+        """``Model.decode_step`` on the tenant's slotted batch: (logits,
+        new cache); on the card a replay of its CUDA graph."""
+        m = t.model
+        if not self.jit.cuda_graphs:
+            return m.decode_step(t.params, t.slot_tok, t.cache)
+        out = self.jit.graphs.monolithic(
+            self._model_head(t, "decode_step"),
+            lambda p, a: dict(zip(("logits", "cache"), m.decode_step(
+                p, a["tokens"], a["cache"]))),
+            t.params, {"tokens": t.slot_tok, "cache": t.cache},
+            self.jit.executor.stats)
+        return out["logits"], out["cache"]
+
+    def _prefill(self, t: Tenant, pbatch: Dict[str, torch.Tensor]):
+        """``Model.prefill`` of one prompt at the tenant's cache length:
+        (logits, cache); on the card a replay of its CUDA graph (the
+        prompt's length is in the key, through its shape)."""
+        m, cl = t.model, t.cache_len
+        if not self.jit.cuda_graphs:
+            return m.prefill(t.params, pbatch, cache_len=cl)
+        out = self.jit.graphs.monolithic(
+            self._model_head(t, "prefill") + (cl,),
+            lambda p, a: dict(zip(("logits", "cache"),
+                                  m.prefill(p, a, cache_len=cl))),
+            t.params, pbatch, self.jit.executor.stats)
+        return out["logits"], out["cache"]
 
     def _consume(self, t: Tenant, logits: torch.Tensor,
                  now: float = 0.0) -> None:
@@ -961,12 +1003,13 @@ class ServingEngine:
         self._last_device_busy = [
             st.busy[d] + sessions[d].stats.modeled_time_s
             for d in range(len(sessions))]
+        # the shared caches' delta of the whole loop (its last monolithic
+        # steps ran after the last tick). The mesh's sessions share one
+        # executor and one pair of plan caches, so each session's delta of
+        # them holds the others' work too: fold the loop's delta in once
+        # (device 0's, which was opened first)
+        sessions[0]._sync_cache_stats()
         if len(sessions) > 1:
-            # the mesh's sessions share one executor and one pair of plan
-            # caches, so each session's delta of them holds the others'
-            # work too: fold the loop's delta in once (device 0's, which
-            # was opened first)
-            sessions[0]._sync_cache_stats()
             for s in sessions[1:]:
                 s.stats.plan_cache = PlanCacheStats()
                 s.stats.block_plans = PlanCacheStats()

@@ -20,6 +20,7 @@ P V with P split into two bf16 halves, and both sides round fp32 results
 of order 1 or less to bf16.
 """
 import dataclasses
+import gc
 import importlib
 import importlib.util
 from pathlib import Path
@@ -764,6 +765,36 @@ def test_capture_failure_raises(cuda):
     with pytest.raises(RuntimeError):
         GraphCache().run(st, {"x": torch.ones(2, 4, device=cuda)}, {}, ex)
     torch.cuda.synchronize()
+    assert gc.isenabled()
+
+
+def test_collector_is_off_during_a_capture(cuda):
+    """The collector may free a dead cache's graphs (a reference cycle:
+    the weight cache and the graph cache hold each other) at any
+    allocation, and a graph destroyed while another is capturing
+    invalidates that capture (seen on the card in
+    test_nondense_stacked_bitwise_equal_to_per_layer_on_card): a capture
+    runs with the collector off and turns it back on after."""
+    from repro_torch.core.graphs import BodyIO, GraphCache
+    from repro_torch.core.jit import StackedGemmStage, VLIWJit
+    seen = []
+
+    def body(inp, padded, ex, block=None):
+        seen.append(gc.isenabled())
+        return {"x": inp["x"] + 1.0}
+
+    st = StackedGemmStage(
+        tag="body", weight_key=("m", 0, "body"), operands=[], layers=1,
+        run=None, graph=BodyIO(("decode", "m", 2),
+                               lambda env: {"x": env["x"]}, body))
+    ex = VLIWJit().executor
+    graphs = GraphCache()
+    for step in range(3):
+        env = {"x": torch.full((2, 4), float(step), device=cuda)}
+        graphs.run(st, env, {}, ex)
+        assert torch.equal(env["x"].cpu(), torch.full((2, 4), step + 1.0))
+    # the eager first call, the capture; replays run no Python
+    assert seen == [True, False] and gc.isenabled()
 
 
 @pytest.mark.parametrize("k_heads_first", [False, True])
@@ -807,3 +838,189 @@ def test_bf16_scores_on_the_tensor_cores(cuda, k_heads_first):
     qf, kf = q.to(cuda), k.to(cuda)
     assert torch.equal(qk_scores(qf, kf, k_heads_first=k_heads_first),
                        torch.einsum(eq, qf, kf))
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the prompt bodies, the monolithic model calls and the
+# per-layer glue (core/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _same_tree(a, b, where=""):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _same_tree(a[k], b[k], f"{where}/{k}")
+    else:
+        assert torch.equal(a, b), where
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prompt_body_replay_bitwise_equal_to_eager(cuda, dtype):
+    """Three prompt passes of different lengths in one bucket through the
+    stacked prefill template: replays of its bodies' graphs give the eager
+    bodies' logits and written cache bit for bit, and the per-layer
+    template's (its attention glue graphed too); one capture a body."""
+    from repro_torch.core.jit import VLIWJit, build_dense_prefill_template
+    m, p = _graph_model("gemma3-1b", dtype, cuda)
+    out = {}
+    for regime in ("graphed", "eager", "per-layer"):
+        vj = VLIWJit(max_group=8, cuda_graphs=regime != "eager")
+        tmpl = build_dense_prefill_template(m, p, 32,
+                                            stacked=regime != "per-layer")
+        g = torch.Generator().manual_seed(8)
+        cache, logits = m.init_cache(2, 48), []
+        for i, S in enumerate((20, 32, 17)):
+            toks = torch.zeros((1, 32), dtype=torch.long)
+            toks[0, :S] = torch.randint(0, m.cfg.vocab_size, (S,),
+                                        generator=g)
+            prog = tmpl.bind(stream_id=0, tokens=toks.to(cuda), cache=cache,
+                             env_extra={"real_len": S, "slot": i % 2,
+                                        "req": None})
+            vj.run([prog])
+            logits.append(prog.env["logits"])
+            cache = prog.env["cache"]
+        torch.cuda.synchronize()
+        out[regime] = (logits, cache)
+        kinds = vj.executor.stats.graphs_by_kind()
+        if regime == "graphed":
+            assert kinds["prefill"] == (3, 6), kinds
+        elif regime == "per-layer":
+            assert kinds["glue"] == (2, 22), kinds
+        else:
+            assert all(v == (0, 0) for v in kinds.values()), kinds
+    for regime in ("eager", "per-layer"):
+        for a, b in zip(out["graphed"][0], out[regime][0]):
+            assert torch.equal(a, b), regime
+        _same_tree(out["graphed"][1], out[regime][1], regime)
+
+
+def _family(arch, kv_quant, dtype, device):
+    m = Model(smoke_config(arch), param_dtype=dtype, device=device,
+              kv_quant=kv_quant)
+    return m, m.init(torch.Generator(device=device).manual_seed(6))
+
+
+@pytest.mark.parametrize("arch,kv_quant", [("hymba-1.5b", False),
+                                           ("whisper-tiny", False),
+                                           ("gemma3-1b", True),
+                                           ("internvl2-2b", False)])
+def test_monolithic_replay_bitwise_equal_to_eager(cuda, arch, kv_quant):
+    """The engine's monolithic ``Model.prefill`` and ``Model.decode_step``
+    calls (bf16), three each: replays give the plain calls' logits and
+    every cache leaf bit for bit; one capture a call shape."""
+    m, p = _family(arch, kv_quant, torch.bfloat16, cuda)
+    eng = ServingEngine([Tenant("t", m, p, cache_len=48, max_batch=4)],
+                        mode="batched", device=cuda)
+    t = eng.tenants["t"]
+    g = torch.Generator().manual_seed(9)
+    for _ in range(3):
+        batch = {"tokens": torch.randint(0, m.cfg.vocab_size, (1, 12),
+                                         generator=g).to(cuda)}
+        if m.cfg.arch_type == "vlm":
+            batch["patch_embeds"] = torch.randn(
+                1, m.cfg.num_patch_tokens, m.cfg.d_model,
+                generator=g).to(cuda, torch.bfloat16)
+        if m.cfg.is_encdec:
+            batch["frames"] = torch.randn(
+                1, m.cfg.encoder_seq_len, m.cfg.d_model,
+                generator=g).to(cuda, torch.bfloat16)
+        got, want = eng._prefill(t, batch), m.prefill(p, batch, cache_len=48)
+        assert torch.equal(got[0], want[0])
+        _same_tree(got[1], want[1], "prefill")
+    t.cache = want[1]
+    t.cache = {"pos": t.cache["pos"].repeat(4), "layers": {
+        k: v.repeat(1, 4, *([1] * (v.dim() - 2)))
+        for k, v in t.cache["layers"].items()}}
+    for step in range(3):
+        t.slot_tok = torch.randint(0, m.cfg.vocab_size, (4, 1),
+                                   generator=g).to(cuda)
+        want = m.decode_step(p, t.slot_tok, t.cache)
+        got = eng._decode_step(t)
+        assert torch.equal(got[0], want[0]), step
+        _same_tree(got[1], want[1], f"decode {step}")
+        t.cache = got[1]
+    torch.cuda.synchronize()
+    assert eng.jit.executor.stats.graphs_by_kind()["monolithic"] == (2, 4)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b",
+                                  "mamba2-2.7b"])
+def test_per_layer_glue_replay_bitwise_equal_to_eager(cuda, arch):
+    """Three per-layer decode steps (bf16) with the attention / MoE route
+    and combine / SSM core glue replayed as graphs and eager: logits and
+    caches bit for bit, and the stacked template's."""
+    from repro_torch.core.jit import VLIWJit
+    m, p = _graph_model(arch, torch.bfloat16, cuda)
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, m.cfg.vocab_size, (4, 12), generator=g)
+    _, cache0 = m.prefill(p, {"tokens": prompt.to(cuda)}, cache_len=32)
+    tok0 = torch.randint(0, m.cfg.vocab_size, (4, 1), generator=g).to(cuda)
+    out = {}
+    for regime in ("glue-graphed", "eager", "stacked"):
+        tmpl = _graph_builder(m.cfg, regime == "stacked")(m, p, 4)
+        vj = VLIWJit(max_group=8, cuda_graphs=regime != "eager")
+        out[regime] = _graph_decode(vj, tmpl, cache0, tok0)
+        torch.cuda.synchronize()
+        glue = vj.executor.stats.graphs_by_kind()["glue"]
+        assert (glue[0] > 0 and glue[1] > 0) == (regime == "glue-graphed")
+    for regime in ("eager", "stacked"):
+        for a, b in zip(out["glue-graphed"][0], out[regime][0]):
+            assert torch.equal(a, b), regime
+        for leaf, t in out[regime][1]["layers"].items():
+            assert torch.equal(out["glue-graphed"][1]["layers"][leaf], t), \
+                (regime, leaf)
+
+
+@pytest.mark.parametrize("mode", ["vliw", "batched", "time"])
+def test_fleet_graphed_tokens_equal_eager(cuda, mode):
+    """A dense + MoE + SSM + hybrid + audio + int8-KV fleet (bf16, smoke
+    configs) served with graphs and eagerly: the same tokens; the graphed
+    run replays every kind it reaches."""
+    fleet = [("dense", *_graph_model("gemma3-1b", torch.bfloat16, cuda)),
+             ("moe", *_graph_model("grok-1-314b", torch.bfloat16, cuda)),
+             ("ssm", *_graph_model("mamba2-2.7b", torch.bfloat16, cuda)),
+             ("hybrid", *_family("hymba-1.5b", False, torch.bfloat16, cuda)),
+             ("audio", *_family("whisper-tiny", False, torch.bfloat16,
+                                cuda)),
+             ("int8", *_family("gemma3-1b", True, torch.bfloat16, cuda))]
+    trace = make_trace([n for n, *_ in fleet], rate_hz=1e4, n_per_tenant=2,
+                       prompt_len=16, max_new_tokens=4, slo_s=1.0)
+    out = {}
+    for graphs in (True, False):
+        eng = ServingEngine([Tenant(n, m, p, cache_len=32, max_batch=2)
+                             for n, m, p in fleet], mode=mode, device=cuda,
+                            cuda_graphs=graphs)
+        rep = eng.run(trace)
+        out[graphs] = {r.req_id: r.tokens_out for r in rep.requests}
+        kinds = eng.jit.executor.stats.graphs_by_kind()
+        assert (kinds["monolithic"][1] > 0) == graphs, kinds
+        if mode == "vliw":
+            assert (kinds["prefill"][1] > 0) == graphs, kinds
+            assert (kinds["decode"][1] > 0) == graphs, kinds
+    assert out[True] == out[False]
+
+
+def test_capture_after_every_graph_was_dropped(cuda):
+    """An emptied weight cache drops every graph of the pool at once; the
+    next captures go into the same pool (its keeper graph holds it live)
+    and replay the eager steps bit for bit."""
+    from repro_torch.core.jit import VLIWJit
+    m, p = _graph_model("gemma3-1b", torch.bfloat16, cuda)
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, m.cfg.vocab_size, (4, 12), generator=g)
+    _, cache0 = m.prefill(p, {"tokens": prompt.to(cuda)}, cache_len=32)
+    tok0 = torch.randint(0, m.cfg.vocab_size, (4, 1), generator=g).to(cuda)
+    tmpl = _graph_builder(m.cfg)(m, p, 4)
+    vj = VLIWJit(max_group=8)
+    first = _graph_decode(vj, tmpl, cache0, tok0)
+    n = len(vj.graphs)
+    vj.weight_cache.clear()
+    assert len(vj.graphs) == 0
+    again = _graph_decode(vj, tmpl, cache0, tok0)
+    want = _graph_decode(VLIWJit(max_group=8, cuda_graphs=False), tmpl,
+                         cache0, tok0)
+    torch.cuda.synchronize()
+    assert vj.executor.stats.graph_captures == 2 * n
+    for got in (first, again):
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)

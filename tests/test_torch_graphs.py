@@ -184,9 +184,14 @@ def test_key_distinct_per_body_batch_bm_and_operand(models):
     t_new = tjit.build_dense_decode_template(
         tm, tm.init(torch.Generator().manual_seed(9)), 2)
     assert key(_bodies(t_new)[0]) != keys[0]
-    # prefill bodies are never captured
+    # prefill bodies are captured too, under keys of their own kind
+    # (tests/test_torch_step_graphs.py holds their keys)
     pre = tjit.build_dense_prefill_template(tm, tp, 8)
-    assert all(st.graph is None for st in _bodies(pre))
+    env8 = {"x": torch.zeros(8, tm.cfg.d_model),
+            "positions": torch.arange(8)[None]}
+    pkeys = [key(st, env8) for st in _bodies(pre)]
+    assert all(k[0] == "prefill" for k in pkeys)
+    assert len(set(pkeys)) == 3 and not set(pkeys) & set(keys)
 
 
 def test_two_tenants_on_one_weight_set_share_one_graph(models):
@@ -197,7 +202,9 @@ def test_two_tenants_on_one_weight_set_share_one_graph(models):
     graphs = _stand_in(eng.jit)
     rep = eng.run(trace)
     bodies = len(_bodies(tjit.build_dense_decode_template(tm, tp, 2)))
-    assert len(graphs) == bodies
+    # the decode bodies' graphs, and one of the prompts' Model.prefill
+    assert graphs.count("decode") == bodies
+    assert graphs.count("monolithic") == 1
     assert rep.jit.dispatch.graph_captures == bodies
     assert rep.jit.dispatch.graph_replays > 0
     other = tm.init(torch.Generator().manual_seed(4))
@@ -206,7 +213,8 @@ def test_two_tenants_on_one_weight_set_share_one_graph(models):
     eng = ServingEngine(tenants, mode="vliw", device="cpu")
     graphs = _stand_in(eng.jit)
     eng.run(trace)
-    assert len(graphs) == 2 * bodies
+    assert graphs.count("decode") == 2 * bodies
+    assert graphs.count("monolithic") == 2
 
 
 # ---------------------------------------------------------------------------
@@ -309,9 +317,9 @@ def test_replay_adds_its_captures_launches_to_the_counters():
 # the weight cache's drops
 # ---------------------------------------------------------------------------
 
-def _graph_packs(graphs):
+def _graph_packs(graphs, kind="decode"):
     return [{tag: ref() for tag, ref in e.operands}
-            for e in graphs._entries.values()]
+            for e in graphs._entries.values() if e.kind == kind]
 
 
 @pytest.mark.parametrize("family", ["dense", "ssm"])
@@ -368,7 +376,7 @@ def test_hot_swap_drops_the_old_graphs_and_serves_the_new_weights(models):
     eng.tenants["a"].params = p_new          # weight hot-swap, same model
     swapped = eng.run(trace2)
     assert eng.jit.executor.stats.weight_invalidations >= 1
-    assert graphs.dropped >= 1 and len(graphs) == 1
+    assert graphs.dropped >= 1 and graphs.count("decode") == 1
     # the old packs are freed: neither the cache nor a graph holds them
     gc.collect()
     assert all(r() is None for r in old_refs)
