@@ -227,10 +227,22 @@ Phases, each printing its own lines; a failing phase raises:
      train-ckpt  — two smoke training steps on the card (bf16 params),
                    checkpointed under ``build/``, restored on the CPU:
                    every leaf bitwise equal;
-     train-cli   — ``python -m repro_torch.launch.train --steps 20`` (smoke,
-                   the card by default) and ``--production --steps 3``
+     train-cli   — one production step at world 1 on the card (nccl, the
+                   1×1 ``DeviceMesh``; gemma3-1b and grok-1 smoke, bf16)
+                   bitwise equal to the plain step; grok-1 smoke (fp32)
+                   under ``moe_groups = 2``, its gradients with remat
+                   bitwise those without (the recompute, on the autograd
+                   engine's thread, sees the forward's hints); then
+                   ``python -m repro_torch.launch.train --steps 20`` (smoke,
+                   the card by default) and ``--production --steps 5``
                    (gemma3-1b full config, bf16, remat, DTensor params and
-                   optimizer state on the 1×1 ``DeviceMesh``), both rc 0;
+                   optimizer state on the 1×1 ``DeviceMesh``, world 1,
+                   nccl; its median ms a step of steps 2-5), both rc 0;
+     train-world — the launcher's ``--production --smoke --dtype float32``
+                   run on the CPU as four gloo ranks on (data 2, model 2),
+                   each a fresh interpreter, against the world-1 run: the
+                   3 losses within 2e-4 (``device=cpu ranks=4``: the card
+                   holds one rank);
  10. the kernel table as one JSON line, then the result line.
 
 Launch counts are set to 0 just before each path phase (4-9), and in
@@ -3106,14 +3118,102 @@ def phase_train_ckpt(torch, outdir):
     return dict(leaves=n)
 
 
+def _production_step_bitwise(torch):
+    """One production step at world 1 on the card (nccl, the (1, 1)
+    DeviceMesh, DTensor params and optimizer state, each weight gathered at
+    use) against the plain step from the same params and batch: loss,
+    grad norm, every stepped param and second moment bitwise equal.
+    gemma3-1b and grok-1 smoke, bf16 params."""
+    import torch.distributed as dist
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.hints import activation_sharding
+    from repro_torch.launch.mesh import ensure_process_group, make_host_mesh
+    from repro_torch.launch.train import _production_state
+    from repro_torch.models import Model
+    from repro_torch.training import (DataConfig, OptimizerConfig,
+                                      SyntheticLM, batch_to_device,
+                                      init_opt_state, make_train_step)
+    from repro_torch.tree import leaves, tree_map
+    started = ensure_process_group("cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = make_host_mesh("cuda")
+        for arch in ("gemma3-1b", "grok-1-314b"):
+            cfg = smoke_config(arch)
+            model = Model(cfg, param_dtype=torch.bfloat16, device="cuda",
+                          remat=True)
+            batch = batch_to_device(next(iter(SyntheticLM(
+                cfg, DataConfig(batch_size=4, seq_len=64, seed=2)))), model)
+            params = model.init(torch.Generator(device="cuda").manual_seed(3))
+            plain = tree_map(torch.clone, params)
+            step = make_train_step(model, OptimizerConfig(
+                lr=1e-3, warmup_steps=1, total_steps=4))
+            p1, s1, m1 = step(plain, init_opt_state(plain), batch)
+            dparams, dopt, hints = _production_state(model, params, mesh, 4)
+            with activation_sharding(hints):
+                p2, s2, m2 = step(dparams, dopt, batch)
+            same = (torch.equal(m1["loss"], m2["loss"])
+                    and torch.equal(m1["grad_norm"], m2["grad_norm"])
+                    and all(torch.equal(a, b.full_tensor()) for a, b in
+                            zip(leaves(p1) + leaves(s1.nu),
+                                leaves(p2) + leaves(s2.nu))))
+            say("train-cli", check="production_step_world_1", arch=arch,
+                dtype="bfloat16", backend="nccl",
+                loss=f"{float(m2['loss']):.6f}",
+                vs_plain_step="bitwise_equal" if same else "DIFFERENT")
+            assert same, arch
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _remat_recompute_keeps_hints(torch):
+    """grok-1 smoke on the card, fp32, under the ``moe_groups = 2`` hint
+    (two token groups, each routed with its own capacity): the loss and
+    gradients of ``loss_and_grads`` with remat bitwise those without. On
+    CUDA the backward, and with it the remat recompute, runs on the
+    autograd engine's own thread, which the recompute must not leave
+    without the forward's hints (``hints.carry``)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.hints import activation_sharding
+    from repro_torch.models import Model
+    from repro_torch.training import (DataConfig, SyntheticLM,
+                                      batch_to_device, loss_and_grads)
+    from repro_torch.tree import leaves
+    cfg = smoke_config("grok-1-314b")
+    out = {}
+    for remat in (False, True):
+        model = Model(cfg, param_dtype=torch.float32, device="cuda",
+                      remat=remat)
+        params = model.init(torch.Generator(device="cuda").manual_seed(3))
+        batch = batch_to_device(next(iter(SyntheticLM(
+            cfg, DataConfig(batch_size=4, seq_len=64, seed=2)))), model)
+        with activation_sharding({"moe_groups": 2}):
+            out[remat] = loss_and_grads(model, params, batch)
+    (l0, g0), (l1, g1) = out[False], out[True]
+    pairs = list(zip(leaves(g0), leaves(g1)))
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    same = torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in pairs)
+    say("train-cli", check="remat_recompute_hints", arch=cfg.name,
+        dtype="float32", moe_groups=2, grad_leaves=len(pairs),
+        max_abs_diff=f"{err:.3e}",
+        vs_no_remat="bitwise_equal" if same else "DIFFERENT")
+    assert same, err
+
+
 def phase_train_cli(torch):
     """The training launcher as a user runs it, on the card: smoke (fp32,
-    20 steps) and --production (gemma3-1b full config, bf16, remat, 3 steps
-    on the 1x1 DeviceMesh)."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    20 steps) and --production (gemma3-1b full config, bf16, remat, 5 steps
+    on the 1x1 DeviceMesh, world 1, nccl: the median ms a step of steps
+    2-5 from its step lines); before them, one production step at world 1
+    held bitwise to the plain step, and a remat step under an MoE group
+    hint held bitwise to the same step without remat."""
+    _production_step_bitwise(torch)
+    _remat_recompute_keeps_hints(torch)
     out = {}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
     for label, extra in (("smoke", ["--steps", "20"]),
-                         ("production", ["--production", "--steps", "3"])):
+                         ("production", ["--production", "--steps", "5"])):
         cmd = [sys.executable, "-m", "repro_torch.launch.train", *extra]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -3122,14 +3222,93 @@ def phase_train_cli(torch):
         lines = proc.stdout.strip().splitlines()
         for line in lines[:1] + lines[-3:]:
             print(f"    {line}", flush=True)
-        say("train-cli", mode=label, command=" ".join(cmd[1:]),
-            rc=proc.returncode, seconds=f"{secs:.1f}")
         assert proc.returncode == 0, proc.stderr[-4000:]
         assert "device=cuda" in lines[0], lines[0]
+        kv = {}
         if label == "production":
-            assert "mesh={'data': 1, 'model': 1}" in lines[0], lines[0]
-        out[label] = dict(rc=proc.returncode, seconds=secs)
+            assert "mesh={'data': 1, 'model': 1} world=1" in lines[0], \
+                lines[0]
+            ms = [float(m) for m in re.findall(
+                r"^step +\d+ loss \S+ lr \S+ ms (\S+)", proc.stdout, re.M)]
+            assert len(ms) == 5, proc.stdout
+            kv = dict(world=1, backend="nccl",
+                      ms_per_step_median=f"{statistics.median(ms[1:]):.1f}",
+                      ms_per_step=",".join(f"{m:.1f}" for m in ms))
+        say("train-cli", mode=label, command=" ".join(cmd[1:]),
+            rc=proc.returncode, seconds=f"{secs:.1f}", **kv)
+        out[label] = dict(rc=proc.returncode, seconds=secs, **kv)
     return out
+
+
+def phase_train_world(torch, outdir, world=4, timeout_s=300):
+    """The launcher's --production --smoke run (gemma3-1b reduced config,
+    fp32, remat) on the CPU as four gloo ranks on the (data 2, model 2)
+    mesh, each a fresh interpreter in a session of its own with a
+    ``file://`` rendezvous under ``outdir``, against the same run at world
+    1: the 3 losses within 2e-4. The card holds one rank, so this world
+    runs on the host's cores."""
+    import shutil
+    import signal
+    base = ["-m", "repro_torch.launch.train", "--production", "--smoke",
+            "--device", "cpu", "--dtype", "float32", "--steps", "3",
+            "--batch-size", "4", "--seq-len", "32"]
+    run_dir = Path(outdir) / "train_world"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+
+    def losses(text):
+        return [float(m) for m in re.findall(r"^step +\d+ loss (\S+)",
+                                             text, re.M)]
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+              "LOCAL_RANK"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    one = subprocess.run([sys.executable, *base], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout_s)
+    assert one.returncode == 0, one.stderr[-4000:]
+    want = losses(one.stdout)
+    cmd = base + ["--mesh", "2,2", "--init-method",
+                  (run_dir / "pg").as_uri(), "--pg-timeout-s", "60"]
+    procs, logs = [], []
+    for r in range(world):
+        so, se = run_dir / f"rank{r}.out", run_dir / f"rank{r}.err"
+        logs.append((so, se))
+        with open(so, "w") as fo, open(se, "w") as fe:
+            procs.append(subprocess.Popen(
+                [sys.executable, *cmd], cwd=ROOT, stdout=fo, stderr=fe,
+                stdin=subprocess.DEVNULL, start_new_session=True,
+                env=dict(env, RANK=str(r), WORLD_SIZE=str(world),
+                         LOCAL_RANK=str(r))))
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    secs = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    errs = "".join(se.read_text()[-2000:] for _, se in logs)
+    assert rcs == [0] * world, (rcs, errs)
+    out0 = logs[0][0].read_text()
+    assert not any(so.read_text() for so, _ in logs[1:])
+    first = out0.splitlines()[0]
+    print(f"    {first}", flush=True)
+    assert "mesh={'data': 2, 'model': 2} world=4" in first, first
+    got = losses(out0)
+    err = max(abs(a - b) for a, b in zip(got, want))
+    say("train-world", device="cpu", ranks=world, mesh="data=2,model=2",
+        backend="gloo", dtype="float32", arch="gemma3-1b-smoke",
+        losses=",".join(f"{v:.6f}" for v in got),
+        world_1=",".join(f"{v:.6f}" for v in want),
+        max_abs_diff=f"{err:.2e}", tol="2e-4", seconds=f"{secs:.1f}")
+    assert len(got) == len(want) == 3 and err <= 2e-4, (got, want)
+    return dict(losses=got, world_1=want, max_abs_diff=err)
 
 
 # ---------------------------------------------------------------------------
@@ -3236,6 +3415,7 @@ def main(argv=None) -> int:
     timed_phase("train-vs-cpu", phase_train_vs_cpu, torch, cg, gv, fa)
     timed_phase("train-ckpt", phase_train_ckpt, torch, ROOT / "build")
     timed_phase("train-cli", phase_train_cli, torch)
+    timed_phase("train-world", phase_train_world, torch, ROOT / "build")
     bad = [k for k in ("jax", "repro") if k in sys.modules]
     assert not bad, f"imported {bad}"
 

@@ -15,8 +15,8 @@ certifier rejects a group that mixes devices or runs off its assignment
 The other half runs ONE model SPMD over a mesh: ``sharding.py`` (the
 reference's sharding rules as per-dimension specs, turned into DTensor
 placements on a ``DeviceMesh``) and ``hints.py`` (activation hints,
-``constrain``), used by ``launch/train.py --production`` and the
-dry-run.
+``constrain``), used by ``launch/train.py --production`` on a mesh of
+any size (one process a rank) and by the dry-run.
 """
 from repro_torch.distributed.placement import (DeviceSet, PlacementPolicy,
                                                TenantPlacement,

@@ -10,13 +10,15 @@ tensor; given a DTensor inside it, it redistributes the DTensor to the
 hint's placements. The port's training step keeps activations as plain
 tensors and gathers each weight at use (``sharding.gather_at_use``), so on
 that path the calls sit where the reference puts them (``_decoder_input``,
-``stack_full``, ``_chunked_ce``) and leave the tensors as they are.
+``stack_full``, ``_chunked_ce``) and leave the tensors as they are. There
+the ``"btd"`` hint also says which mesh axes split the batch: a plain
+activation is this rank's block over them (``sharding.batch_axes``).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -39,6 +41,22 @@ def activation_sharding(specs: Dict[str, object]):
         _STATE.specs = prev
 
 
+def carry(fn: Callable) -> Callable:
+    """``fn`` run under the hints current at this call. A non-reentrant
+    checkpoint recomputes its body in the backward pass, and on CUDA the
+    backward runs on the autograd engine's own thread, where the hints of
+    the thread that ran the forward are not set: a checkpointed body that
+    reads them (``moe_ffn``'s groups, ``moe.route``'s aux all-reduce)
+    carries them there, so the recompute is the forward."""
+    specs = _current()
+
+    def run(*args):
+        with activation_sharding(specs):
+            return fn(*args)
+
+    return run
+
+
 def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
     specs = _current()
     if specs is None or kind not in specs:
@@ -59,4 +77,4 @@ def static_hint(kind: str, default=None):
     return specs.get(kind, default)
 
 
-__all__ = ["activation_sharding", "constrain", "static_hint"]
+__all__ = ["activation_sharding", "carry", "constrain", "static_hint"]

@@ -8,6 +8,11 @@ Mesh: (data, model) on one pod, (pod, data, model) across pods
 meshes, which touch no device) or a ``torch.distributed`` ``DeviceMesh``
 with ``mesh_dim_names``; the rules read only axis sizes.
 
+Past one rank the training step is ZeRO-3 over data-parallel ranks:
+``gather_at_use`` gathers each weight, every rank takes its block of the
+global batch (``batch_block``), and the gather's backward sums the
+gradients over the axes that split the batch (``batch_axes``).
+
 Baseline scheme (uniform across all ten architectures, as the reference):
 
   * FFN + vocab: tensor-parallel over "model" (w_gate / w_up shard d_ff,
@@ -249,13 +254,101 @@ def distribute(tree: Any, shardings: Any) -> Any:
                     tree, shardings)
 
 
-def gather_at_use(tree: Any) -> Any:
+def gather_at_use(tree: Any, grad_axes: Tuple[str, ...] = ()) -> Any:
     """Every DTensor leaf gathered to a full local tensor, differentiably
-    (ZeRO-3's gather of the weights at use; the gradient flows back to the
-    DTensor in its own placements). Other leaves pass through."""
-    from torch.distributed.tensor import DTensor
-    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
-                    else t, tree)
+    (ZeRO-3's gather of the weights at use). Other leaves pass through.
+
+    ``grad_axes``: the mesh axes whose ranks hold different blocks of the
+    batch. The gathered weight's gradient is ``Partial`` on them, so the
+    backward reduce-scatters (sums) the ranks' gradients into the weight's
+    own placements; it is ``Replicate`` on the other axes, whose ranks
+    compute the same block and so the same gradient (no sum there). With
+    no ``grad_axes`` every rank's gradient is taken as the whole one: right
+    only when every rank sees the whole batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    def gather(t):
+        if not isinstance(t, DTensor):
+            return t
+        if not grad_axes:
+            return t.full_tensor()
+        return t.full_tensor(grad_placements=[
+            Partial() if a in grad_axes else Replicate()
+            for a in t.device_mesh.mesh_dim_names])
+
+    return tree_map(gather, tree)
+
+
+def batch_axes() -> Tuple[Any, Tuple[str, ...]]:
+    """(mesh, the mesh axes of size > 1 over which this rank holds a block
+    of the batch), read from the ``"btd"`` activation hint the training
+    launcher sets (``distributed/hints.py``); (None, ()) outside such a
+    context, on a one-rank mesh, and when the batch is replicated."""
+    from repro_torch.distributed.hints import static_hint
+    sh = static_hint("btd")
+    if sh is None or not sh.spec or sh.spec[0] is None:
+        return None, ()
+    ax = sh.spec[0]
+    sizes = axis_sizes(sh.mesh)
+    axes = tuple(a for a in ((ax,) if isinstance(ax, str) else ax)
+                 if sizes[a] > 1)
+    return (sh.mesh, axes) if axes else (None, ())
+
+
+def batch_block(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's block of every leaf of the global ``batch``, split on
+    its leading (batch) dimension as the ``"btd"`` hint splits the batch
+    (``local_block``); ``batch`` itself where the ranks hold it whole
+    (``batch_axes``)."""
+    mesh, axes = batch_axes()
+    if not axes:
+        return batch
+    from repro_torch.distributed.hints import static_hint
+    spec = static_hint("btd").spec[:1]
+    return {k: local_block(v, NamedSharding(mesh, spec))
+            for k, v in batch.items()}
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: Any, axes: Tuple[str, ...], *,
+                   differentiable: bool = False) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``axes`` of ``mesh`` (one
+    all-reduce on each axis's process group, so ranks that differ on other
+    axes are not added). ``differentiable``: through
+    ``torch.distributed.nn``, whose backward all-reduces (sums) the
+    incoming gradients; else on a copy, outside autograd."""
+    import torch.distributed as dist
+    for a in axes:
+        group = mesh.get_group(a)
+        if differentiable:
+            from torch.distributed.nn.functional import all_reduce
+            t = all_reduce(t, group=group)
+        else:
+            t = t.detach().clone()
+            dist.all_reduce(t, group=group)
+    return t
+
+
+def local_block(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of the global tensor ``t`` under ``sharding`` (on
+    a ``DeviceMesh``): along each sharded dimension, the block at the
+    rank's coordinates on its axes, major to minor (pod before data, as
+    the reference's ``P(("pod", "data"))``), as DTensor's ``Shard``
+    places it. Every sharded dimension divides evenly."""
+    coord = dict(zip(sharding.mesh.mesh_dim_names,
+                     sharding.mesh.get_coordinate()))
+    sizes = axis_sizes(sharding.mesh)
+    for d, ax in enumerate(sharding.spec):
+        if ax is None:
+            continue
+        idx, n = 0, 1
+        for a in ((ax,) if isinstance(ax, str) else ax):
+            idx, n = idx * sizes[a] + coord[a], n * sizes[a]
+        if t.shape[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(t.shape)} does not "
+                             f"divide over {ax} ({n})")
+        size = t.shape[d] // n
+        t = t.narrow(d, idx * size, size)
+    return t
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -271,7 +364,8 @@ def full(t: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
-    "NamedSharding", "axis_sizes", "batch_shardings", "cache_shardings",
-    "distribute", "fsdp_axes", "full", "gather_at_use", "local",
+    "NamedSharding", "all_reduce_sum", "axis_sizes", "batch_axes",
+    "batch_block", "batch_shardings", "cache_shardings", "distribute",
+    "fsdp_axes", "full", "gather_at_use", "local", "local_block",
     "opt_state_shardings", "param_shardings", "to_placements",
 ]

@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.distributed.hints import constrain
+from repro_torch.distributed.hints import carry, constrain
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
@@ -202,12 +202,12 @@ class Model:
 
     def _chunked_ce(self, params: Params, y: torch.Tensor,
                     labels: torch.Tensor, mask: Optional[torch.Tensor]
-                    ) -> torch.Tensor:
-        """Mean next-token CE over sequence chunks of ``LOSS_CHUNK``: the
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Next-token CE over sequence chunks of ``LOSS_CHUNK``: the
         logits live one [B, c, V] fp32 slab at a time, recomputed in the
         backward pass (a 262k vocabulary at B·c = 2048 is 2.15 GB a
-        slab). ``logsumexp`` minus the gold logit, masked, summed, over the
-        mask's count."""
+        slab). ``logsumexp`` minus the gold logit, masked, summed; returns
+        (that sum, the mask's count)."""
         B, S, _ = y.shape
         c = min(self.LOSS_CHUNK, S)
         if S % c:
@@ -227,16 +227,29 @@ class Model:
         for i in range(0, S, c):
             args = (y[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c])
             if torch.is_grad_enabled():
-                t, n = checkpoint(body, *args, use_reentrant=False)
+                t, n = checkpoint(carry(body), *args, use_reentrant=False)
             else:
                 t, n = body(*args)
             tot, cnt = tot + t, cnt + n
-        return tot / torch.clamp(cnt, min=1.0)
+        return tot, cnt
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
         """Mean next-token CE (fp32 scalar); image-patch positions carry no
         target (vlm); MoE adds ``aux_loss_weight`` times the aux loss."""
+        tot, cnt, aux = self.loss_terms(params, batch)
+        ce = tot / torch.clamp(cnt, min=1.0)
+        if self.cfg.has_moe:
+            ce = ce + self.cfg.moe.aux_loss_weight * aux
+        return ce
+
+    def loss_terms(self, params: Params, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The parts of ``loss``: (the masked CE summed over the batch's
+        target positions, their count, the MoE aux loss summed over the
+        layers (0 without MoE)), fp32 scalars. A rank that holds a block
+        of the batch divides its sum by the global count
+        (``training/train_loop.py``)."""
         cfg = self.cfg
         y, aux = self._hidden(params, batch)
         labels = batch["labels"]
@@ -251,10 +264,8 @@ class Model:
                                       dtype=torch.float32,
                                       device=labels.device)], dim=1)
             mask = m if mask is None else mask * m
-        ce = self._chunked_ce(params, y, labels, mask)
-        if cfg.has_moe:
-            ce = ce + cfg.moe.aux_loss_weight * aux
-        return ce
+        tot, cnt = self._chunked_ce(params, y, labels, mask)
+        return tot, cnt, aux
 
     # ------------------------------------------------------------------
     # serving: prefill + decode

@@ -61,7 +61,15 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
     ``jax.lax.top_k`` breaks ties toward the lower expert index;
     ``torch.topk`` promises no order among equal values. A stable
     descending sort keeps equal probabilities in index order, so its first
-    k columns are the JAX package's choice, ties included."""
+    k columns are the JAX package's choice, ties included.
+
+    The aux loss is over all the batch's tokens, as in the JAX package: on
+    a rank that holds a block of the batch (``sharding.batch_axes``),
+    ``frac`` and ``mean_p`` are averaged over the ranks of those axes
+    before the product (the all-reduce of ``mean_p`` is differentiable),
+    so every such rank holds the global aux loss."""
+    from repro_torch.distributed.sharding import (_axis_size, all_reduce_sum,
+                                                  batch_axes)
     logits = x.float() @ router                         # [T, E]
     probs = torch.softmax(logits, dim=-1)
     weights, experts = torch.sort(probs, dim=-1, descending=True,
@@ -72,6 +80,11 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
     one_hot = F.one_hot(experts[:, 0], cfg.num_experts).float()
     frac = one_hot.mean(dim=0)
     mean_p = probs.mean(dim=0)
+    mesh, axes = batch_axes()
+    if axes:
+        n = _axis_size(mesh, axes)
+        frac = all_reduce_sum(frac, mesh, axes) / n
+        mean_p = all_reduce_sum(mean_p, mesh, axes, differentiable=True) / n
     aux = cfg.num_experts * torch.sum(frac * mean_p)
     return weights, experts, aux
 
@@ -154,11 +167,22 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
     (GShard-style), each with its own capacity. The default is the
     launcher's ``moe_groups`` hint (``distributed/hints.py``; the product
     of the mesh's data axes, 1 on one device), else 1, as in the JAX
-    package; a group count that does not divide T falls back to 1."""
+    package; a group count that does not divide T falls back to 1. The
+    hint counts the groups of the whole batch: a rank that holds a block
+    of it (``sharding.batch_axes``) routes the groups of its block, the
+    hint over the ranks of those axes (one group, T/D of the batch's
+    tokens, when the hint is the data ranks D)."""
     from repro_torch.distributed.hints import static_hint
+    from repro_torch.distributed.sharding import _axis_size, batch_axes
     T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
-    G = groups if groups is not None else int(static_hint("moe_groups", 1))
+    if groups is not None:
+        G = groups
+    else:
+        G = int(static_hint("moe_groups", 1))
+        mesh, axes = batch_axes()
+        if axes:
+            G = max(G // _axis_size(mesh, axes), 1)
     if T % G:
         G = 1
     Tg = T // G

@@ -31,7 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.hints import constrain
+from repro_torch.distributed.hints import carry, constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -91,14 +91,15 @@ def _attn_kw(cfg: ModelConfig, is_global: bool) -> Dict[str, Any]:
 
 def _maybe_remat(fn: Callable, remat: bool) -> Callable:
     """``fn`` itself, or ``fn`` recomputed in the backward pass when
-    ``remat`` and grad are on (non-reentrant checkpoint)."""
+    ``remat`` and grad are on (non-reentrant checkpoint), under the
+    forward's activation hints (``hints.carry``)."""
     if not remat:
         return fn
 
     def body(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(carry(fn), *args, use_reentrant=False)
 
     return body
 

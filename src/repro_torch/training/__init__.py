@@ -8,11 +8,12 @@ from repro_torch.training.optimizer import (OptimizerConfig, OptState,
                                             adamw_update, global_norm,
                                             init_opt_state, lr_at)
 from repro_torch.training.train_loop import (batch_to_device,
+                                             loss_and_grads,
                                              make_train_step, train)
 
 __all__ = [
     "DataConfig", "OptState", "OptimizerConfig", "SyntheticLM",
     "adamw_update", "batch_to_device", "checkpoint_step", "global_norm",
-    "init_opt_state", "lr_at", "make_train_step", "restore_checkpoint",
-    "save_checkpoint", "train",
+    "init_opt_state", "loss_and_grads", "lr_at", "make_train_step",
+    "restore_checkpoint", "save_checkpoint", "train",
 ]

@@ -11,7 +11,9 @@ bfloat16, which numpy lacks: the reference writes ``ml_dtypes.bfloat16``
 arrays, which numpy without ``ml_dtypes`` loads as two-byte voids
 (``|V2``); this module reads those bytes as bf16 bits. It writes a bf16
 leaf widened to fp32, which is exact, so the reference's ``astype``
-restores it bit for bit. A DTensor leaf is gathered before it is written;
+restores it bit for bit. A DTensor leaf is gathered before it is written:
+every rank of the world takes part in the gathers (each is a collective),
+rank 0 alone writes the file, and the ranks return once it is written.
 ``shardings`` places restored leaves on a ``DeviceMesh``.
 """
 from __future__ import annotations
@@ -45,14 +47,20 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def save_checkpoint(path: str, tree: Any, step: Optional[int] = None) -> str:
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    """Write ``tree`` to ``path``; called by every rank of a world."""
+    import torch.distributed as dist
     payload = {path_key(p): _to_numpy(leaf)
                for p, leaf in flatten_with_path(tree)}
-    if step is not None:
-        payload["__step__"] = np.asarray(step)
-    tmp = path + ".tmp"
-    np.savez(tmp, **payload)
-    os.replace(tmp + ".npz" if not tmp.endswith(".npz") else tmp, path)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1 or dist.get_rank() == 0:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if step is not None:
+            payload["__step__"] = np.asarray(step)
+        tmp = path + ".tmp"
+        np.savez(tmp, **payload)
+        os.replace(tmp + ".npz" if not tmp.endswith(".npz") else tmp, path)
+    if world > 1:
+        dist.barrier()
     return path
 
 

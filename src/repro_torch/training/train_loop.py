@@ -2,12 +2,21 @@
 package's ``training/train_loop.py``.
 
 ``make_train_step`` returns a (params, opt_state, batch) -> (params,
-opt_state, metrics) function: the loss and its gradients by
-``torch.autograd.grad`` over the param leaves (the reference's
-``jax.value_and_grad``), then ``adamw_update`` under ``no_grad``, in
-place (the reference's ``donate_argnums``). The step runs eagerly. With
-DTensor params (``--production``) each weight is gathered at use and its
-gradient comes back in the param's placements.
+opt_state, metrics) function: the loss and its gradients
+(``loss_and_grads``, by ``torch.autograd.grad`` over the param leaves: the
+reference's ``jax.value_and_grad``), then ``adamw_update`` under
+``no_grad``, in place (the reference's ``donate_argnums``). The step runs
+eagerly. With DTensor params (``--production``) each weight is gathered at
+use and its gradient comes back in the param's placements.
+
+The step takes the global batch on every rank. On a mesh whose ranks
+split the batch (the ``"btd"`` hint's axes, ``sharding.batch_axes``) each
+rank keeps its block of it (``sharding.batch_block``); its loss term is
+its CE sum over the global target count plus its share (1 / D) of the
+global aux loss; the gather's backward sums the data ranks' gradients, so
+every weight gets the global batch's gradient, and the reported loss is
+summed over those ranks. With the batch whole on every rank (one process,
+a one-rank mesh) the step is the plain one.
 """
 from __future__ import annotations
 
@@ -18,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike
-from repro_torch.distributed.sharding import gather_at_use
+from repro_torch.distributed.sharding import (_axis_size, all_reduce_sum,
+                                              batch_axes, batch_block,
+                                              gather_at_use)
 from repro_torch.models.model import Model
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.optimizer import (OptimizerConfig, OptState,
@@ -42,31 +53,61 @@ def batch_to_device(batch: Dict[str, Any], model: Model,
     return out
 
 
+def _rank_loss(model: Model, params: Any, batch: Dict[str, torch.Tensor],
+               mesh: Any, axes) -> torch.Tensor:
+    """This rank's term of the global loss, its block of the batch on the
+    ranks of ``axes``: the terms summed over those ranks are the loss of
+    the whole batch, and so are their gradients (the aux loss is already
+    global on every rank, ``moe.route``; its all-reduce sums the
+    gradients in its backward, so each rank takes 1 / D of it)."""
+    tot, cnt, aux = model.loss_terms(params, batch)
+    count = all_reduce_sum(cnt, mesh, axes)
+    loss = tot / torch.clamp(count, min=1.0)
+    if model.cfg.has_moe:
+        loss = loss + (model.cfg.moe.aux_loss_weight * aux
+                       / _axis_size(mesh, axes))
+    return loss
+
+
+def loss_and_grads(model: Model, params: Any, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Any]:
+    """(the loss, its gradient tree) at ``params`` on the global
+    ``batch``: on a mesh whose ranks split the batch, each rank computes
+    on its block and gets the global batch's loss and gradient (module
+    doc), the gradients in the params' placements."""
+    mesh, axes = batch_axes()
+    batch = batch_block(batch)
+    flat = leaves(params)
+    with torch.enable_grad():
+        for p in flat:
+            p.requires_grad_(True)
+        try:
+            used = gather_at_use(params, grad_axes=axes)
+            loss = (_rank_loss(model, used, batch, mesh, axes) if axes
+                    else model.loss(used, batch))
+            # a leaf the family never reads (an SSM layer's ln2) gets
+            # zeros, as under jax.grad
+            grads_flat = torch.autograd.grad(loss, flat, allow_unused=True)
+        finally:
+            for p in flat:
+                p.requires_grad_(False)
+    loss = loss.detach()
+    if axes:
+        loss = all_reduce_sum(loss, mesh, axes)
+    by_id = {id(p): (torch.zeros_like(p) if g is None else g)
+             for p, g in zip(flat, grads_flat)}
+    return loss, tree_map(lambda p: by_id[id(p)], params)
+
+
 def make_train_step(model: Model, opt_cfg: OptimizerConfig
                     ) -> Callable[[Any, OptState, Dict[str, torch.Tensor]],
                                   Tuple[Any, OptState,
                                         Dict[str, torch.Tensor]]]:
     def train_step(params, opt_state, batch):
-        flat = leaves(params)
-        with torch.enable_grad():
-            for p in flat:
-                p.requires_grad_(True)
-            try:
-                loss = model.loss(gather_at_use(params), batch)
-                # a leaf the family never reads (an SSM layer's ln2) gets
-                # zeros, as under jax.grad
-                grads_flat = torch.autograd.grad(loss, flat,
-                                                 allow_unused=True)
-            finally:
-                for p in flat:
-                    p.requires_grad_(False)
-        by_id = {id(p): (torch.zeros_like(p) if g is None else g)
-                 for p, g in zip(flat, grads_flat)}
-        grads = tree_map(lambda p: by_id[id(p)], params)
+        loss, grads = loss_and_grads(model, params, batch)
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
                                                   opt_state)
-        metrics = dict(metrics, loss=loss.detach())
-        return params, opt_state, metrics
+        return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
 
@@ -109,4 +150,5 @@ def train(model: Model, data: Iterable[Dict[str, Any]], steps: int, *,
             "wall_s": wall}
 
 
-__all__ = ["batch_to_device", "make_train_step", "train"]
+__all__ = ["batch_to_device", "loss_and_grads", "make_train_step",
+           "train"]

@@ -1024,3 +1024,29 @@ def test_capture_after_every_graph_was_dropped(cuda):
     for got in (first, again):
         for a, b in zip(got[0], want[0]):
             assert torch.equal(a, b)
+
+
+def test_remat_recompute_keeps_the_hints(cuda):
+    """On CUDA the backward, and with it a remat recompute, runs on the
+    autograd engine's own thread. grok-1 smoke, fp32, under the
+    ``moe_groups = 2`` hint: the loss and gradients of ``loss_and_grads``
+    with remat are bitwise those without (a recompute without the
+    forward's hints would route one group, with another capacity)."""
+    from repro_torch.distributed.hints import activation_sharding
+    from repro_torch.training import (DataConfig, SyntheticLM,
+                                      batch_to_device, loss_and_grads)
+    from repro_torch.tree import leaves
+    cfg = smoke_config("grok-1-314b")
+    out = {}
+    for remat in (False, True):
+        model = Model(cfg, param_dtype=torch.float32, device=cuda,
+                      remat=remat)
+        params = model.init(torch.Generator(device=cuda).manual_seed(3))
+        batch = batch_to_device(next(iter(SyntheticLM(
+            cfg, DataConfig(batch_size=4, seq_len=64, seed=2)))), model)
+        with activation_sharding({"moe_groups": 2}):
+            out[remat] = loss_and_grads(model, params, batch)
+    (l0, g0), (l1, g1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    for a, b in zip(leaves(g0), leaves(g1), strict=True):
+        assert torch.equal(a, b)
