@@ -65,10 +65,13 @@ Phases, each printing its own lines; a failing phase raises:
                    the dispatches; a replay counts its capture's
                    launches), launches per program, weight hit rate,
                    graph captures and replays by kind (decode body,
-                   prefill body, per-layer glue, monolithic model call),
-                   each held to ``_vliw_graphs``: one capture a key, the
-                   other calls replays (serve-shared: decode 1 / 13,
-                   prefill 1 / 7; 0 in an eager run), each kind's capture
+                   prefill body, per-layer glue, monolithic model call,
+                   executor dispatch body), each held to
+                   ``_vliw_graphs``: one capture a key, the other calls
+                   replays (serve-shared: decode 1 / 13, prefill 1 / 7;
+                   dispatch: one capture a key a spy on the executor
+                   works out from the run's plain dispatches; 0 in an
+                   eager run), each kind's capture
                    ms, peak GiB, then the gemm's launches by (M, K, N, G,
                    dtype), each marked by whether phase 3 times that shape
                    (also in phase 5). The tokens of every run must be
@@ -98,11 +101,24 @@ Phases, each printing its own lines; a failing phase raises:
                    to the bm = 8 launch on the same inputs;
   5. serve-grouped — two full-width yi-9b tenants with distinct weights
                    (bf16, 12 layers), graphed stacked, then per-layer with
-                   its attention glue graphed (``per-layer-graphed``, the
-                   JAX package's ``_GLUE_JITS``) and eager in turns:
+                   its attention glue and its GEMM dispatches graphed
+                   (``per-layer-graphed``: the JAX package's
+                   ``_GLUE_JITS`` and jitted dispatch bodies), then eager:
                    per-layer the kernel runs with G >= 2 weight matrices;
-                   ``profile`` lines of one per-layer decode step, glue
-                   graphed and eager in turns;
+     dispatch-graphs — the executor's dispatch bodies as CUDA graphs: the
+                   host µs of one dispatch, eager and replayed in turns
+                   (grouped at yi-9b's wq and ffn gate/up shapes, G = 1,
+                   2, 4, 8, 4 rows a member and ragged, bf16; the LSTM
+                   matvec, fp32, distinct and one weight), each replay
+                   bitwise the eager call; then serve-grouped's
+                   configuration in the per-layer regime, graphed and eager
+                   in turns (tokens identical, launches equal, dispatch
+                   graphs held to one capture a key); a second run over
+                   warm per-layer templates of both tenants: 0 dispatch
+                   captures, 0 kernel builds, 0 packs, logits bitwise the
+                   eager run's; ``profile`` lines of one per-layer decode
+                   step of tenant 0, glue and dispatches graphed and eager
+                   in turns; peak GiB of each;
   5b. serve-moe  — two tenants sharing one full-width grok-1 weight set
                    (bf16, 8 experts top-2, 2 layers: one layer's experts
                    are 9.66 GB), the five runs of phase 4, the bytes
@@ -195,10 +211,17 @@ Phases, each printing its own lines; a failing phase raises:
                    at the LSTM shape (fp32, G = 4) for 20 ticks, distinct
                    weights (``coalesced_gemv``) and shared weights
                    (``coalesced_gemm``), outputs against ``ops.coalesced_
-                   matvec`` on the card and the CPU plain path; prints the
-                   coalescer's decision and host time per tick;
+                   matvec`` on the card and the CPU plain path; each
+                   regime with its dispatch bodies graphed and eager in
+                   turns (outputs bitwise equal, launches one a tick in
+                   both, one dispatch capture and 19 replays); prints the
+                   coalescer's decision and host ms a tick;
   8. windowed-attention — ``ops.windowed_attention`` at the gemma3-1b local
                    shape on the card against the CPU plain path;
+     examples    — each ``examples/torch_*.py`` through its ``main`` on the
+                   card (``train_tiny --steps 20``, its checkpoint under
+                   ``build/``), its invariants held and its wall seconds
+                   printed;
   9. train       — the training path: gemma3-1b at full width and depth
                    (26 layers, d 1152, vocab 262,144 tied), bf16 params,
                    fp32 AdamW, remat, B = 4, S = 2048 (the chunked
@@ -840,6 +863,7 @@ def _serve(torch, cfg, tenants_params, *, n_req, prompt_len, new_tokens,
     eng = ServingEngine(tenants, mode="vliw", weight_budget_bytes=budget,
                         plan_capacity=1024, stacked_layers=stacked,
                         device=tenants_params[0][0].device, **engine_kw)
+    eng.dispatch_keys = _spy_dispatches(eng.jit.executor)
     if setup is not None:
         setup(eng)
     if eng.device.type == "cuda":
@@ -910,7 +934,38 @@ def _report_serve(torch, phase, cfg, rep, wall, launches, max_groups,
         modeled_ms=f"{rep.modeled_time_s * 1e3:.3f}(H100 cost model)")
 
 
-GRAPH_KINDS = ("decode", "prefill", "glue", "monolithic")
+GRAPH_KINDS = ("decode", "prefill", "glue", "monolithic", "dispatch")
+
+
+def _spy_dispatches(ex):
+    """Record, for every plain dispatch of executor ``ex``, the key its
+    dispatch graph must have, worked out here from the call: the body
+    (shared or grouped), the launch bm, the mesh slot, the activations'
+    shapes, strides and dtypes and the weight tensors (their packs and
+    group ids follow from these). Returns the list it appends to."""
+    keys = []
+    run = ex.execute_problems
+
+    def spy(problems, wkeys, *, shared_operand=False, group=None, device=0,
+            block=None):
+        keys.append((shared_operand, ex.bm if block is None else block.bm,
+                     device,
+                     tuple((tuple(a.shape), a.stride(), a.dtype)
+                           for a, _ in problems),
+                     tuple(id(w) for _, w in problems)))
+        return run(problems, wkeys, shared_operand=shared_operand,
+                   group=group, device=device, block=block)
+
+    ex.execute_problems = spy
+    return keys
+
+
+def _dispatch_want(keys):
+    """(captures, replays) of the dispatch graphs of a graphed run whose
+    plain dispatches had ``keys``: one capture a distinct key, a replay
+    every other dispatch."""
+    n = len(set(keys))
+    return n, len(keys) - n
 
 
 def _check_graphs(phase, regime, stats, graphs, want):
@@ -936,7 +991,7 @@ def _check_graphs(phase, regime, stats, graphs, want):
     assert got == want, (phase, regime, got, want)
 
 
-def _vliw_graphs(cfg, rep, regime, *, weight_sets, n_req):
+def _vliw_graphs(cfg, rep, regime, *, weight_sets, n_req, dispatches):
     """{kind: (captures, replays)} a vliw run of ``n_req`` 32-token prompts
     of one model on ``weight_sets`` weight sets must show. Every program
     runs each sub-stack's body once (stacked) or each layer's glue once
@@ -944,9 +999,13 @@ def _vliw_graphs(cfg, rep, regime, *, weight_sets, n_req):
     prompts ``Model.prefill`` calls (one shape). A key is one (weight set,
     sub-stack) for a body, one (weight set, shape) for a model call, one
     ``_GLUE_JITS`` key for glue, whatever the weights: captures are the
-    keys, replays the other calls."""
+    keys, replays the other calls. Every plain dispatch (the stacked
+    programs' unembeds, every per-layer GEMM) runs a dispatch graph: one
+    capture a key of ``dispatches`` (``_spy_dispatches``)."""
     dense = cfg.arch_type == "dense"
     want = {k: (0, 0) for k in GRAPH_KINDS}
+    if regime.endswith("graphed"):
+        want["dispatch"] = _dispatch_want(dispatches)
     if regime == "stacked-graphed":
         S = len(_spans(cfg))
         programs = round(_programs(cfg, rep, True))
@@ -1030,7 +1089,8 @@ def _serve_regimes(torch, cg, timed, phase, cfg, tenants_params, *, seed,
         _check_launches(cfg, rep, launches, stacked)
         _check_graphs(phase, regime, rep.jit.dispatch, eng.jit.graphs,
                       _vliw_graphs(cfg, rep, regime,
-                                   weight_sets=weight_sets, n_req=8))
+                                   weight_sets=weight_sets, n_req=8,
+                                   dispatches=eng.dispatch_keys))
         check(rep, launches, max_g, regime)
         _report_serve(torch, phase, cfg, rep, wall, launches, max_g, regime)
         by_shape = _report_shapes(f"{phase} ({regime})", cg, timed)
@@ -1350,8 +1410,23 @@ def phase_profile_prefill(torch, eng, m, params, phase, prompt_len=32):
 
 
 def phase_serve_grouped(torch, cg, timed):
+    cfg, tp, budget = _grouped_tenants(torch, "serve-grouped")
+    # graphed (the decode bodies, or the per-layer glue and dispatch
+    # bodies) and eager; dispatch-graphs runs the per-layer regime in turns
+    out = _serve_regimes(torch, cg, timed, "serve-grouped", cfg, tp, seed=1,
+                         budget=budget, check=_grouped_check,
+                         turns=("stacked-graphed", "per-layer-graphed",
+                                "per-layer"))
+    del tp
+    _free(torch)
+    return out
+
+
+def _grouped_tenants(torch, phase, L=12):
+    """serve-grouped's configuration: yi-9b at full width, ``L`` layers,
+    bf16, two weight sets (seeds 10, 11), and a weight budget of the free
+    memory less their params and 6 GiB."""
     from repro_torch.models import Model
-    L = 12
     cfg = _full_yi(L)
     free, _ = torch.cuda.mem_get_info()
     p_layer, _ = _layer_bytes(cfg, 2)
@@ -1363,21 +1438,160 @@ def phase_serve_grouped(torch, cg, timed):
         m = Model(cfg, param_dtype=torch.bfloat16)
         tp.append((m, m.init(torch.Generator(device=m.device)
                              .manual_seed(10 + i))))
-    say("serve-grouped", layers=L, tenants=2, weights="distinct",
+    say(phase, layers=L, tenants=2, weights="distinct",
         param_GiB=f"{params_bytes / GIB:.2f}",
         weight_budget_GiB=f"{budget / GIB:.2f}")
+    return cfg, tp, budget
 
-    def check(rep, launches, max_g, regime):
-        assert launches > 0
-        assert rep.jit.shared_dispatches == 0 and rep.jit.mean_group > 1.0
-        if regime.startswith("per-layer"):
-            assert max_g >= 2, (launches, max_g)
+
+def _grouped_check(rep, launches, max_g, regime):
+    """Two weight sets: no shared dispatch, groups of two; per-layer, the
+    GEMMs of both tenants coalesce (G = 2)."""
+    assert launches > 0
+    assert rep.jit.shared_dispatches == 0 and rep.jit.mean_group > 1.0
+    if regime.startswith("per-layer"):
+        assert max_g >= 2, (launches, max_g)
+
+
+# the host-µs table's groups: yi-9b's attention q and ffn gate / up
+# GEMMs (bf16), G members of 4 rows each or ragged rows
+DISPATCH_SHAPES = (("yi-9b wq", 4096, 4096), ("yi-9b ffn gate/up", 4096,
+                                                11008))
+DISPATCH_G = (1, 2, 4, 8)
+
+
+def _host_us(torch, fn, calls=15):
+    """Median host µs of one call, each started on an idle card (a
+    synchronize before it, outside the timing) and timed until it returns."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+def _dispatch_host_table(torch):
+    """Host µs of one executor dispatch, eager and as a replay of its CUDA
+    graph, timed in turns (eager, graphed, graphed, eager; the medians of
+    each pair averaged) on two executors over the same weights: grouped
+    dispatches at ``DISPATCH_SHAPES`` x ``DISPATCH_G``, 4 rows a member and
+    ragged, bf16, and the shared body (one weight, G > 1, 4 rows a
+    member); the LSTM matvec (G = 4, K 2048, N 4096, fp32) on
+    distinct weights (the gemv) and on one weight (the shared GEMM). Each
+    replay is bitwise the eager call."""
+    from repro_torch.core import PlanCache, SuperkernelExecutor
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for label, K, N in DISPATCH_SHAPES:
+        for G in DISPATCH_G:
+            ws = [torch.randn(K, N, device="cuda", generator=g,
+                              dtype=torch.bfloat16) / math.sqrt(K)
+                  for _ in range(G)]
+            for rows in ([4] * G, [1 + (3 * i) % 4 for i in range(G)]):
+                cases.append(("grouped", label, ws, rows))
+            if G > 1:                # one weight set: the shared body
+                cases.append(("shared", label, [ws[0]] * G, [4] * G))
+    lstm = [torch.randn(2048, 4096, device="cuda", generator=g)
+            / math.sqrt(2048) for _ in range(4)]
+    cases += [("matvec", "lstm", lstm, [1] * 4),
+              ("shared", "lstm (one weight)", [lstm[0]] * 4, [1] * 4)]
+    out = []
+    for body, label, ws, rows in cases:
+        exs = {graphed: SuperkernelExecutor(
+            PlanCache(64, byte_capacity=16 * GIB), cuda_graphs=graphed)
+            for graphed in (True, False)}
+        acts = [torch.randn(m, int(w.shape[0]), device="cuda", generator=g,
+                            dtype=w.dtype) for m, w in zip(rows, ws)]
+
+        def call(ex, acts=acts, ws=ws, body=body, label=label):
+            if label.startswith("lstm"):     # the matvec entry point
+                return ex.matvec([a[0] for a in acts], ws)
+            return ex.execute_problems(list(zip(acts, ws)),
+                                       [("m", id(w)) for w in ws],
+                                       shared_operand=body == "shared")
+
+        res = {graphed: [call(ex), call(ex)][1]
+               for graphed, ex in exs.items()}
+        for a, b in zip(res[True], res[False]):
+            assert torch.equal(a, b) and a.stride() == b.stride(), label
+        st = exs[True].stats.graphs_by_kind()["dispatch"]
+        assert st == (1, 1), (label, st)
+        us = {True: [], False: []}
+        for graphed in (False, True, True, False):
+            us[graphed].append(_host_us(torch,
+                                        lambda ex=exs[graphed]: call(ex)))
+        eager_us, graphed_us = (statistics.mean(us[k]) for k in (False,
+                                                                 True))
+        row = dict(body=body, shape=label, K=int(ws[0].shape[0]),
+                   N=int(ws[0].shape[1]), G=len(ws), rows=rows,
+                   dtype=str(ws[0].dtype).removeprefix("torch."),
+                   host_us_eager=eager_us, host_us_graphed=graphed_us)
+        say("dispatch-graphs", body=body, shape=label, K=row["K"],
+            N=row["N"], G=row["G"], rows=",".join(map(str, rows)),
+            dtype=row["dtype"], host_us_eager=f"{eager_us:.1f}",
+            host_us_graphed=f"{graphed_us:.1f}",
+            graphed_over_eager=f"{graphed_us / eager_us:.3f}",
+            replay="bitwise_equal")
+        out.append(row)
+        del exs, res
+    return out
+
+
+def phase_dispatch_graphs(torch, cg, timed):
+    """The executor's dispatch bodies as CUDA graphs: the host µs of one
+    dispatch, eager and replayed (``_dispatch_host_table``); then
+    serve-grouped's configuration in the per-layer regime (every GEMM a
+    dispatch), graphed and eager in turns: tokens identical, launches one
+    a scheduler dispatch in both, one dispatch graph a key; a second run
+    over warm per-layer templates of both tenants captures no dispatch
+    graph, and its logits are the eager run's bit for bit; one per-layer
+    decode step graphed and eager (``profile``); peak GiB of each."""
+    table = _dispatch_host_table(torch)
+    _free(torch)
+    cfg, tp, budget = _grouped_tenants(torch, "dispatch-graphs")
+
+    def warm_run(eng):
+        st = eng.jit.executor.stats
+        build = _decode_builder(cfg)
+        tmpls = [(build(m, p, eng.tenants[f"t{i}"].max_batch,
+                        stacked=False), eng.tenants[f"t{i}"])
+                 for i, (m, p) in enumerate(tp)]
+
+        def progs():
+            return [tmpl.bind(stream_id=i, tokens=t.slot_tok, cache=t.cache)
+                    for i, (tmpl, t) in enumerate(tmpls)]
+
+        eng.jit.run(progs())                 # the first run over them
+        c0, r0 = st.dispatch_graph_captures, st.dispatch_graph_replays
+        b0, m0 = st.retraces, st.weight_misses
+        got = progs()
+        eng.jit.run(got)
+        replays = st.dispatch_graph_replays - r0
+        assert st.dispatch_graph_captures == c0, \
+            (st.dispatch_graph_captures, c0)
+        assert replays > 0 and st.retraces == b0 and st.weight_misses == m0
+        eng.jit.cuda_graphs = False
+        want = progs()
+        eng.jit.run(want)
+        eng.jit.cuda_graphs = True
+        for a, b in zip(got, want):
+            assert torch.equal(a.env["logits"], b.env["logits"])
+        say("dispatch-graphs", second_run="warm per-layer templates",
+            dispatch_captures=0, dispatch_replays=replays,
+            kernel_builds=0, weight_misses=0,
+            logits_graphed_vs_eager="bitwise_equal")
+        return dict(second_run_dispatch_captures=0,
+                    second_run_dispatch_replays=replays)
 
     def after(eng, rep, regime):
-        # one per-layer decode step of tenant 0, its glue as replays of the
-        # serving run's glue graphs and eager, in turns
         if regime != "per-layer-graphed":
             return {}
+        out = warm_run(eng)
+        # one per-layer decode step of tenant 0: its glue and its GEMM
+        # dispatches as replays of their graphs, and eager, in turns
         m, params = tp[0]
         t = eng.tenants["t0"]
         tmpl = _decode_builder(cfg)(m, params, t.max_batch, stacked=False)
@@ -1387,23 +1601,34 @@ def phase_serve_grouped(torch, cg, timed):
             eng.jit.run([tmpl.bind(stream_id=0, tokens=t.slot_tok,
                                    cache=t.cache)])
 
+        step(True)                 # tenant 0 alone: G = 1 keys, captured
         st = eng.jit.executor.stats
-        c0 = st.glue_graph_captures
-        prof = _profile_turns(torch, "serve-grouped:per-layer",
-                              {"per-layer-graphed": lambda: step(True),
-                               "per-layer": lambda: step(False)},
-                              batch=t.max_batch, layers=L)
-        assert st.glue_graph_captures == c0, (st.glue_graph_captures, c0)
+        c0 = (st.glue_graph_captures, st.dispatch_graph_captures)
+        out["profile_per_layer"] = _profile_turns(
+            torch, "dispatch-graphs:per-layer",
+            {"per-layer-graphed": lambda: step(True),
+             "per-layer": lambda: step(False)},
+            batch=t.max_batch, layers=cfg.num_layers)
+        assert (st.glue_graph_captures, st.dispatch_graph_captures) == c0
         eng.jit.cuda_graphs = True
-        return dict(profile_per_layer=prof)
+        return out
 
-    # the per-layer regime with its glue graphed (the JAX package's
-    # _GLUE_JITS) and eager, in turns
-    out = _serve_regimes(torch, cg, timed, "serve-grouped", cfg, tp, seed=1,
-                         budget=budget, check=check, after=after,
-                         turns=("stacked-graphed", "per-layer-graphed",
-                                "per-layer", "per-layer",
-                                "per-layer-graphed"))
+    out = _serve_regimes(torch, cg, timed, "dispatch-graphs", cfg, tp,
+                         seed=1, budget=budget, check=_grouped_check,
+                         after=after,
+                         turns=("per-layer-graphed", "per-layer",
+                                "per-layer", "per-layer-graphed"))
+    graphed, eager = out["per-layer-graphed"], out["per-layer"]
+    c, r = graphed["graphs_by_kind"]["dispatch"]
+    capture_ms = 1e3 * graphed["capture_s_by_kind"]["dispatch"]
+    say("dispatch-graphs",
+        peak_GiB_graphed=f"{graphed['peak_alloc_GiB']:.2f}",
+        peak_GiB_eager=f"{eager['peak_alloc_GiB']:.2f}",
+        launches=f"{graphed['launches']}/{eager['launches']}",
+        dispatch_captures=c, dispatch_replays=r,
+        capture_ms_dispatch=f"{capture_ms:.1f}")
+    assert graphed["launches"] == eager["launches"]
+    out["host_us_table"] = table
     del tp
     _free(torch)
     return out
@@ -1828,6 +2053,7 @@ def _serve_fleet(torch, models, mode, *, n_req, prompt_len, new_tokens,
                         device=tenants[0].model.device,
                         weight_budget_bytes=16 * GIB,
                         cuda_graphs=cuda_graphs)
+    eng.dispatch_keys = _spy_dispatches(eng.jit.executor)
     counts = {t.name: dict(programs=0, steps=0, margin=math.inf)
               for t in tenants}
     build, step, consume = (eng._build_program, eng._tenant_batched_step,
@@ -1869,15 +2095,17 @@ FAMILY_TURNS = ("vliw-graphed", "vliw", "batched-graphed", "batched",
                 "vliw-graphed", "batched-graphed")
 
 
-def _families_graphs(cfgs, mode, counts, n_req):
+def _families_graphs(cfgs, mode, counts, n_req, dispatches):
     """{kind: (captures, replays)} a graphed serve-families run must show.
     vliw: the vlm tenants' stacked decode bodies (one weight set: a key a
-    sub-stack), every prompt a ``Model.prefill`` call and the hybrid,
-    audio and int8-KV tenants' decode steps ``Model.decode_step`` calls;
-    batched: every prompt and every decode step a model call. A model
-    call's key is one (weight set, method, shape): an arch here, the
-    prompts all of one length."""
+    sub-stack), their unembeds' dispatch graphs (a key of ``dispatches``),
+    every prompt a ``Model.prefill`` call and the hybrid, audio and
+    int8-KV tenants' decode steps ``Model.decode_step`` calls; batched:
+    every prompt and every decode step a model call. A model call's key is
+    one (weight set, method, shape): an arch here, the prompts all of one
+    length."""
     want = {k: (0, 0) for k in GRAPH_KINDS}
+    want["dispatch"] = _dispatch_want(dispatches)
     archs = {name: arch for name, arch, _, _ in FAMILY_FLEET}
     prompts = n_req * len(FAMILY_FLEET)
     steps = {name: c["steps"] for name, c in counts.items()}
@@ -1977,7 +2205,8 @@ def phase_serve_families(torch, cg):
         peak = torch.cuda.max_memory_allocated() / GIB
         stats = eng.jit.executor.stats
         _check_graphs("serve-families", mode, stats, eng.jit.graphs,
-                      _families_graphs(cfgs, base, counts, n_req=4))
+                      _families_graphs(cfgs, base, counts, n_req=4,
+                                       dispatches=eng.dispatch_keys))
         if base == "vliw":
             _check_launches(vlm_cfg, rep, launches, True)
             assert launches > 0
@@ -2409,11 +2638,14 @@ def phase_serve_mesh(torch, cg):
         assert (j.collective_time_s > 0) == (n > 1), j.collective_time_s
         assert rep.num_devices == n
         # every kind the mesh reaches replays: the decode bodies, the yi
-        # tenants' prompt bodies, the mamba2 / grok-1 prompts' Model.prefill
+        # tenants' prompt bodies, the mamba2 / grok-1 prompts' Model.prefill;
+        # the unembeds' dispatch graphs, one a key (a pack per mesh slot)
         kinds = j.dispatch.graphs_by_kind()
         assert kinds["glue"] == (0, 0) and all(
             kinds[k][0] > 0 and kinds[k][1] > 0
             for k in ("decode", "prefill", "monolithic")), kinds
+        assert kinds["dispatch"] == _dispatch_want(eng.dispatch_keys), \
+            (kinds, _dispatch_want(eng.dispatch_keys))
         say("serve-mesh", num_devices=n, graphs_by_kind=",".join(
             f"{k}:{c}/{r}" for k, (c, r) in kinds.items()))
         programs = _check_fleet_launches(eng, rep, cfgs, launches)
@@ -2749,21 +2981,45 @@ def phase_rnn_matvec(torch, cg, gv):
     xs = torch.randn(ticks, G, K, device="cuda", generator=g)
     result = {}
     for regime, weights in (("distinct", ws), ("shared", [ws[0]] * G)):
-        ex = SuperkernelExecutor(PlanCache(16, byte_capacity=1 << 30), bm=8)
-        torch.cuda.synchronize()
-        cg.coalesced_gemm.launches = 0
-        gv.coalesced_gemv.launches = 0
-        t0 = time.perf_counter()
-        for t in range(ticks):
-            outs = ex.matvec(list(xs[t]), weights, group="lstm")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n_gemv, n_gemm = gv.coalesced_gemv.launches, cg.coalesced_gemm.launches
-        if regime == "distinct":
-            assert n_gemv == ticks and n_gemm == 0, (n_gemv, n_gemm)
-            assert ex.stats.weight_hit_rate == (ticks - 1) / ticks, ex.stats
-        else:
-            assert n_gemm == ticks and n_gemv == 0, (n_gemv, n_gemm)
+        # the default executor (its dispatch bodies CUDA graphs) and its
+        # eager twin, in turns: host ms a tick until the call returns,
+        # the first tick (the pack, the capture) apart
+        host = {True: [], False: []}
+        last = {}
+        for graphed in (True, False, False, True):
+            ex = SuperkernelExecutor(PlanCache(16, byte_capacity=1 << 30),
+                                     bm=8, cuda_graphs=graphed)
+            torch.cuda.synchronize()
+            cg.coalesced_gemm.launches = 0
+            gv.coalesced_gemv.launches = 0
+            tick_s = []
+            t0 = time.perf_counter()
+            for t in range(ticks):
+                t1 = time.perf_counter()
+                outs = ex.matvec(list(xs[t]), weights, group="lstm")
+                tick_s.append(time.perf_counter() - t1)
+            torch.cuda.synchronize()
+            n_gemv = gv.coalesced_gemv.launches
+            n_gemm = cg.coalesced_gemm.launches
+            # replays count their launches: the same counts graphed
+            if regime == "distinct":
+                assert n_gemv == ticks and n_gemm == 0, (n_gemv, n_gemm)
+                assert ex.stats.weight_hit_rate == (ticks - 1) / ticks, \
+                    ex.stats
+            else:
+                assert n_gemm == ticks and n_gemv == 0, (n_gemv, n_gemm)
+            kinds = ex.stats.graphs_by_kind()["dispatch"]
+            assert kinds == ((1, ticks - 1) if graphed else (0, 0)), kinds
+            host[graphed].append(statistics.median(tick_s[1:]))
+            if graphed in last:
+                for a, b in zip(outs, last[graphed][0]):
+                    assert torch.equal(a, b)
+            else:
+                last[graphed] = (outs, tick_s[0],
+                                 time.perf_counter() - t0, ex)
+        for a, b in zip(last[True][0], last[False][0]):
+            assert torch.equal(a, b), regime
+        outs, first_s, wall, ex = last[True]
         # the last tick against the eager entry point on the card and the
         # CPU plain path (not counted: the counts were read above)
         x_last = list(xs[-1])
@@ -2790,20 +3046,89 @@ def phase_rnn_matvec(torch, cg, gv):
                 singles[i].matvec([xs[t, i]], [weights[i]])
         torch.cuda.synchronize()
         wall_single = time.perf_counter() - t1
+        steady = {k: 1e3 * statistics.mean(v) for k, v in host.items()}
         say("rnn-matvec", regime=regime, G=G, K=K, N=N, ticks=ticks,
             gemv_launches=n_gemv, gemm_launches=n_gemm,
             weight_hit_rate=f"{ex.stats.weight_hit_rate:.4f}",
             dispatches=ex.stats.dispatches,
             kernel_builds=ex.stats.retraces,
             max_abs_err_vs_cpu=f"{err:.3e}",
+            graphed_vs_eager="bitwise_equal",
+            host_ms_per_tick_graphed=f"{steady[True]:.4f}",
+            host_ms_per_tick_eager=f"{steady[False]:.4f}",
+            first_tick_ms_graphed=f"{1e3 * first_s:.3f}",
             host_ms_per_tick_coalesced=f"{1e3 * wall / ticks:.4f}",
             host_ms_per_tick_G_calls=f"{1e3 * wall_single / ticks:.4f}")
         result[regime] = dict(gemv=n_gemv, gemm=n_gemm, max_abs_err=err,
                               ms_per_tick=1e3 * wall / ticks,
-                              ms_per_tick_single=1e3 * wall_single / ticks)
+                              ms_per_tick_single=1e3 * wall_single / ticks,
+                              host_ms_per_tick_graphed=steady[True],
+                              host_ms_per_tick_eager=steady[False])
     del ws, xs
     torch.cuda.empty_cache()
     return result
+
+
+def _example(name):
+    """``examples/torch_<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, cg):
+    """Each ``examples/torch_*.py`` on the card at its smoke sizes, through
+    its ``main`` (which prints its own lines), with its invariants held:
+    the zoo's 32 clusters and the JIT's logits against the monolithic
+    decode (quickstart); tokens identical across the three modes and a
+    second wave waited for (multi_tenant_serving); the collaborative bm's
+    superkernel against ``a @ b`` (autotune_blocks, fp32 2e-4); the loss
+    falls and the checkpoint holds the last step (train_tiny, 20 steps,
+    under build/). Each line gives the example's wall seconds, ending in a
+    synchronize."""
+    out = {}
+
+    def run(name, argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = _example(name).main(argv)
+        torch.cuda.synchronize()
+        out[name] = res
+        return res, time.perf_counter() - t0
+
+    res, wall = run("quickstart", [])
+    assert (res["zoo_problems"], res["clusters"]) == (70, 32), res
+    assert res["launches"] > 0 and max(res["max_err"].values()) < 1e-3, res
+    say("examples", example="quickstart", wall_s=f"{wall:.3f}",
+        clusters=res["clusters"], launches=res["launches"],
+        max_err_vs_decode_step=f"{max(res['max_err'].values()):.2e}",
+        modeled_speedup=f"{res['modeled_speedup']:.2f}"
+                        f"(H100 cost model, spec-sheet values)")
+    res, wall = run("multi_tenant_serving", [])
+    assert res["tokens_identical"], res
+    assert res["two_wave"]["wait"]["waits"] >= 1
+    say("examples", example="multi_tenant_serving", wall_s=f"{wall:.3f}",
+        tokens_identical_across_modes=res["tokens_identical"],
+        wall_s_by_mode="/".join(f"{m}:{r['wall_s']:.3f}"
+                                for m, r in res["modes"].items()),
+        vliw_graphs_by_kind=",".join(
+            f"{k}:{c}/{r}" for k, (c, r)
+            in res["modes"]["vliw"]["graphs_by_kind"].items()))
+    res, wall = run("autotune_blocks", [])
+    for (a, w), o in zip(res["problems"], res["outputs"]):
+        torch.testing.assert_close(o, a @ w, rtol=2e-4, atol=2e-4)
+    say("examples", example="autotune_blocks", wall_s=f"{wall:.3f}",
+        bm=res["bm"], max_abs_err_vs_matmul=f"{res['max_err']:.2e}")
+    ckpt = ROOT / "build" / "examples" / "train_tiny.npz"
+    res, wall = run("train_tiny", ["--steps", "20", "--ckpt", str(ckpt)])
+    assert res["last"] < res["first"] and res["ckpt_step"] == 20, res
+    say("examples", example="train_tiny", wall_s=f"{wall:.3f}", steps=20,
+        loss=f"{res['first']:.4f}->{res['last']:.4f}",
+        train_wall_s=f"{res['wall_s']:.3f}", ckpt_step=res["ckpt_step"])
+    return out
 
 
 def phase_windowed_attention(torch, fa):
@@ -3394,6 +3719,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     grouped = timed_phase("serve-grouped", phase_serve_grouped, torch, cg,
                           timed)
+    dispatch = timed_phase("dispatch-graphs", phase_dispatch_graphs, torch,
+                           cg, timed)
     moe = timed_phase("serve-moe", phase_serve_moe, torch, cg, timed)
     ssm = timed_phase("serve-ssm", phase_serve_ssm, torch, cg, timed)
     mesh = timed_phase("serve-mesh", phase_serve_mesh, torch, cg)
@@ -3411,6 +3738,7 @@ def main(argv=None) -> int:
     rnn = timed_phase("rnn-matvec", phase_rnn_matvec, torch, cg, gv)
     attn = timed_phase("windowed-attention", phase_windowed_attention,
                        torch, fa)
+    examples = timed_phase("examples", phase_examples, torch, cg)
     timed_phase("train", phase_train, torch, cg, gv, fa)
     timed_phase("train-vs-cpu", phase_train_vs_cpu, torch, cg, gv, fa)
     timed_phase("train-ckpt", phase_train_ckpt, torch, ROOT / "build")
@@ -3457,6 +3785,10 @@ def main(argv=None) -> int:
         "serve-daemon (run)": daemon["virtual"]["launches_run"],
         "serve-daemon (virtual clock)": daemon["virtual"]["launches_door"],
         "serve-daemon (real clock)": daemon["real"]["launches"]})
+    by_phase.update({f"dispatch-graphs ({regime})": dispatch[regime]
+                     ["launches"] for regime in ("per-layer-graphed",
+                                                 "per-layer")})
+    by_phase["examples (quickstart)"] = examples["quickstart"]["launches"]
     by_phase["rnn-matvec (shared)"] = rnn["shared"]["gemm"]
     kernels = [
         entry("coalesced_gemm", "src/repro/kernels/coalesced_gemm.py:43",

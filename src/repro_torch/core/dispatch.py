@@ -40,11 +40,25 @@ stream. G streams on ONE weight tensor go through the shared-operand GEMM
 path; distinct weights are stacked into a cached [G_pad, K, N] operand and
 run by the hand-written ``coalesced_gemv`` kernel (``_dispatch_matvec``).
 
+The JAX package ``jax.jit``s the three dispatch bodies, each keyed on its
+static arguments and its operands' shapes. Their counterparts here are
+CUDA graphs (core/graphs.py, kind ``"dispatch"``): a dispatch whose packed
+weights the cache holds replays its key's graph — the activations copied
+into views of one zeroed static packed buffer, the kernel's launch, one
+clone of its output cut per problem — and captures it at the key's first
+call. The key is the body and its static arguments (``n_real``,
+``m_tiles``, ``bm``), the activations' shapes, strides and dtypes, and the
+identities of the pack and the group-id vector, which the graph reads by
+pointer. ``cuda_graphs=False`` (and every CPU tensor) runs the bodies
+eagerly.
+
 ``DispatchStats.retraces`` counted jitted-body traces in the JAX package.
-Eager PyTorch has nothing to retrace; the field now counts kernel library
+It keeps counting what a first call pays beside a capture: kernel library
 builds during the dispatch (``kernels.build.build_count``, over all
 kernels): one per library on its first CUDA dispatch in a process, 0 after
-it and 0 on the CPU.
+it and 0 on the CPU. The JAX package's steady-state "not one retrace" is,
+here, "not one dispatch capture" (``dispatch_graph_captures``) in a second
+run over warm templates.
 
 Correctness contract: bucket padding is zeros, and adding ``+0.0`` terms to
 an fp32 accumulator is exact, so the bucketed fast path computes the same
@@ -56,13 +70,16 @@ BYTES by ``VLIWJit(weight_budget_bytes=...)`` (default 1 GiB).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.clustering import matvec_weight_key
 from repro_torch.core.costmodel import BlockConfig
+from repro_torch.core.graphs import (DispatchIO, GraphCache, Tensors,
+                                     copy_each)
 from repro_torch.core.kernelspec import KernelOp
 from repro_torch.core.plancache import PlanCache
 from repro_torch.core.schedtrace import OperandIdentityHazard
@@ -100,6 +117,9 @@ class DispatchStats:
     glue_graph_replays: int = 0
     monolithic_graph_captures: int = 0
     monolithic_graph_replays: int = 0
+    # ... and the dispatch bodies (_dispatch_grouped / _shared / _matvec)
+    dispatch_graph_captures: int = 0
+    dispatch_graph_replays: int = 0
 
     @property
     def weight_hit_rate(self) -> float:
@@ -107,7 +127,7 @@ class DispatchStats:
         return self.weight_hits / n if n else 0.0
 
     def graphs_by_kind(self) -> Dict[str, Tuple[int, int]]:
-        """{kind: (captures, replays)} for the four kinds of graph."""
+        """{kind: (captures, replays)} for the five kinds of graph."""
         return {
             "decode": (self.graph_captures - self.prefill_graph_captures,
                        self.graph_replays - self.prefill_graph_replays),
@@ -115,7 +135,9 @@ class DispatchStats:
                         self.prefill_graph_replays),
             "glue": (self.glue_graph_captures, self.glue_graph_replays),
             "monolithic": (self.monolithic_graph_captures,
-                           self.monolithic_graph_replays)}
+                           self.monolithic_graph_replays),
+            "dispatch": (self.dispatch_graph_captures,
+                         self.dispatch_graph_replays)}
 
     def copy(self) -> "DispatchStats":
         return dataclasses.replace(self)
@@ -188,6 +210,57 @@ def _dispatch_matvec(xs, w_stacked, *, n_real) -> Tuple[torch.Tensor, ...]:
     return tuple(out[i, :n] for i, n in enumerate(n_real))
 
 
+def _pad_members(acts: Tuple[torch.Tensor, ...],
+                 G_pad: int) -> Tuple[torch.Tensor, ...]:
+    """``acts`` extended to the bucketed problem count with zero
+    activations of the cheapest member's shape (their outputs are
+    dropped)."""
+    if G_pad == len(acts):
+        return acts
+    pad = torch.zeros_like(min(acts, key=lambda a: int(a.shape[0])))
+    return acts + (pad,) * (G_pad - len(acts))
+
+
+def _packed_io(M: int, K: int, offsets: Sequence[int],
+               n_real: Sequence[int],
+               launch: Callable[[torch.Tensor, Tensors], torch.Tensor]
+               ) -> DispatchIO:
+    """A dispatch body in its graph's form (core/graphs.py ``DispatchIO``):
+    input ``a{i}`` lands at row ``offsets[i]`` of one zeroed [M, K] packed
+    buffer (a vector fills that row), the graph holds ``launch(packed,
+    operands)`` alone, and the copy-out is one clone of the kernel's output
+    cut as the eager body cuts it: ``o{i}`` is ``n_real[i]`` columns of
+    input i's rows. The pad rows and columns are never written, so they
+    stay zero."""
+    cuts: List[Tuple[int, Optional[int]]] = []
+
+    def stage(inputs: Tensors):
+        a0 = inputs["a0"]
+        packed = torch.zeros(M, K, dtype=a0.dtype, device=a0.device)
+        targets = {}
+        for i, off in enumerate(offsets):
+            a = inputs[f"a{i}"]
+            if a.dim() == 1:
+                view, rows = packed[off, :a.shape[0]], None
+            else:
+                view = packed[off:off + a.shape[0], :a.shape[1]]
+                rows = int(a.shape[0])
+            targets[f"a{i}"] = view
+            cuts.append((off, rows))
+        copy_in = functools.partial(copy_each, targets)
+        copy_in(inputs)
+        return {"packed": packed}, copy_in
+
+    def unpack(static_out: Tensors) -> Tensors:
+        out = static_out["out"].clone()
+        return {f"o{i}": out[off, :n] if rows is None
+                else out[off:off + rows, :n]
+                for i, ((off, rows), n) in enumerate(zip(cuts, n_real))}
+
+    return DispatchIO(
+        stage, lambda st, ops: {"out": launch(st["packed"], ops)}, unpack)
+
+
 def _pow2(n: int) -> int:
     """Smallest power of two ≥ n (n ≥ 1)."""
     return 1 << max(n - 1, 0).bit_length()
@@ -213,7 +286,8 @@ class SuperkernelExecutor:
     """
 
     def __init__(self, weight_cache: Optional[PlanCache] = None, *,
-                 bm: int = 8):
+                 bm: int = 8, graphs: Optional[GraphCache] = None,
+                 cuda_graphs: bool = True):
         assert bm & (bm - 1) == 0, f"bm must be a power of two, got {bm}"
         # packed-weight entries are full padded copies, so the fallback
         # cache is byte-budgeted too
@@ -222,6 +296,15 @@ class SuperkernelExecutor:
         # the packer's m-tile; the CUDA kernel tiles N and K itself
         self.bm = bm
         self.stats = DispatchStats()
+        # the dispatch bodies' CUDA graphs (the module docstring). A
+        # VLIWJit hands in its own cache: one memory pool, one drop path.
+        # A standalone executor builds one that the weight cache's drops
+        # reach, so an evicted or invalidated pack takes its graphs along.
+        self.cuda_graphs = cuda_graphs
+        if graphs is None:
+            graphs = GraphCache(resident=self.weight_cache.holds)
+            self.weight_cache.on_drop.append(graphs.drop_operand)
+        self.graphs = graphs
         # device copies of group-id vectors, one per distinct (pattern,
         # device): building one from a host list is a blocking copy, and
         # bucketing keeps the set of patterns small
@@ -241,9 +324,11 @@ class SuperkernelExecutor:
     def _packed_weights(self, weights: Sequence[torch.Tensor],
                         wkeys: Sequence[Tuple], K: int, N: int, G_pad: int,
                         *, shared: bool, group=None,
-                        device: int = 0) -> torch.Tensor:
+                        device: int = 0) -> Tuple[torch.Tensor, bool]:
         """The group's padded weight operand — [K, N] (shared) or
-        [G_pad, K, N] (stacked) — from the persistent cache.
+        [G_pad, K, N] (stacked) — from the persistent cache, and whether the
+        cache holds it (a pack larger than the whole byte budget passes
+        through uncached, and no graph may read it by pointer).
 
         Keyed by the ordered weight-key tuple + bucketed envelope and
         identity-guarded on the weight tensors themselves (see the module
@@ -272,7 +357,8 @@ class SuperkernelExecutor:
                              * (G_pad - len(parts)))
             return torch.stack(parts, dim=0)
 
-        return self._cached(key, build, tuple(weights), group)
+        pack = self._cached(key, build, tuple(weights), group)
+        return pack, key in self.weight_cache
 
     def _cached(self, key, build, guard: Tuple, group) -> torch.Tensor:
         """A packed operand from the persistent cache, with the hit, miss
@@ -388,41 +474,80 @@ class SuperkernelExecutor:
         # bucket the problem COUNT too; pad entries are zero activations
         # (cheapest member's shape) whose outputs are dropped
         G_pad = _pow2(G)
-        if G_pad > G:
-            pad = torch.zeros_like(min(acts, key=lambda a: int(a.shape[0])))
-            acts = acts + (pad,) * (G_pad - G)
+        rows = [int(a.shape[0]) for a in acts]
+        rows += [min(rows)] * (G_pad - G)
         on = acts[0].device
         if shared_operand:
             w = ws[0]
             K = envelope_bucket(int(w.shape[0]))
             N = envelope_bucket(int(w.shape[1]))
-            m_tiles = _tile_bucket([sum(int(a.shape[0]) for a in acts)], bm)
-            b = self._packed_weights([w], [wkeys[0]], K, N, 1, shared=True,
-                                     group=group, device=device)
-            outs = _dispatch_shared(acts, b,
-                                    self.group_ids((0,) * m_tiles, on),
-                                    n_real=int(w.shape[1]), m_tiles=m_tiles,
-                                    bm=bm)
+            n = int(w.shape[1])
+            m_tiles = _tile_bucket([sum(rows)], bm)
+            b, held = self._packed_weights([w], [wkeys[0]], K, N, 1,
+                                           shared=True, group=group,
+                                           device=device)
+            gids = self.group_ids((0,) * m_tiles, on)
+            head = ("shared", n, m_tiles, bm)
+            body = functools.partial(_dispatch_shared, n_real=n,
+                                     m_tiles=m_tiles, bm=bm)
+            n_real = (n,) * G
+            offsets, s = [], 0
+            for m in rows[:G]:          # concatenated tightly
+                offsets.append(s)
+                s += m
         else:
             K = envelope_bucket(max(int(w.shape[0]) for w in ws))
             N = envelope_bucket(max(int(w.shape[1]) for w in ws))
-            m_tiles = _tile_bucket([int(a.shape[0]) for a in acts], bm)
-            b = self._packed_weights(ws, wkeys, K, N, G_pad, shared=False,
-                                     group=group, device=device)
+            m_tiles = _tile_bucket(rows, bm)
+            b, held = self._packed_weights(ws, wkeys, K, N, G_pad,
+                                           shared=False, group=group,
+                                           device=device)
             n_real = [int(w.shape[1]) for w in ws]
-            n_real += [n_real[0]] * (G_pad - G)
-            gids = []
-            for g, a in enumerate(acts):
+            n_real = tuple(n_real + [n_real[0]] * (G_pad - G))
+            ids, offsets = [], []
+            for g, m in enumerate(rows):
                 # pad problems read group 0's weights: their activations
                 # are zero, so the product is zero and never read back
-                gids.extend([g if g < G else 0]
-                            * (_round_up(int(a.shape[0]), bm) // bm))
-            gids.extend([0] * (m_tiles - len(gids)))  # pad tiles: group 0
-            outs = _dispatch_grouped(
-                acts, b, self.group_ids(tuple(gids), on),
-                n_real=tuple(n_real), m_tiles=m_tiles, bm=bm)
+                offsets.append(len(ids) * bm)
+                ids.extend([g if g < G else 0] * (_round_up(m, bm) // bm))
+            ids.extend([0] * (m_tiles - len(ids)))  # pad tiles: group 0
+            gids = self.group_ids(tuple(ids), on)
+            head = ("grouped", n_real, m_tiles, bm)
+            body = functools.partial(_dispatch_grouped, n_real=n_real,
+                                     m_tiles=m_tiles, bm=bm)
+        if self.cuda_graphs and held:
+            def launch(a: torch.Tensor, ops: Tensors) -> torch.Tensor:
+                w_ = ops["b"][None] if shared_operand else ops["b"]
+                return coalesced_gemm(a, w_, ops["gids"], bm=bm)
+
+            outs = self._graphed(
+                head, lambda xs, ops: body(xs, ops["b"], ops["gids"]),
+                acts, G_pad, {"b": b, "gids": gids},
+                lambda: _packed_io(m_tiles * bm, K, offsets[:G],
+                                   n_real[:G], launch))
+        else:
+            outs = body(_pad_members(acts, G_pad), b, gids)[:G]
         self.stats.retraces += build_count() - builds0
-        return list(outs[:G])
+        return list(outs)
+
+    def _graphed(self, head: Tuple, body, acts: Tuple[torch.Tensor, ...],
+                 G_pad: int, operands: Tensors,
+                 io: Callable[[], DispatchIO]) -> List[torch.Tensor]:
+        """A dispatch body ``body(padded activations, operands) -> outputs``
+        through its CUDA graph (``GraphCache.call``, kind ``"dispatch"``):
+        the real activations are the graph's inputs, the pad members stay
+        zero rows of its packed buffer. ``io()`` builds the graph's form at
+        the key's first call."""
+        G = len(acts)
+
+        def eager(inp: Tensors, ops: Tensors) -> Tensors:
+            xs = _pad_members(tuple(inp[f"a{i}"] for i in range(G)), G_pad)
+            return {f"o{i}": o for i, o in enumerate(body(xs, ops)[:G])}
+
+        outs = self.graphs.call(
+            "dispatch", head, eager, {f"a{i}": a for i, a in enumerate(acts)},
+            operands, self.stats, io=io)
+        return [outs[f"o{i}"] for i in range(G)]
 
     # ------------------------------------------------------------------
     def matvec(self, xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
@@ -450,13 +575,20 @@ class SuperkernelExecutor:
         K = envelope_bucket(max(int(w.shape[0]) for w in ws))
         N = envelope_bucket(max(int(w.shape[1]) for w in ws))
         wkeys = [matvec_weight_key(w) for w in ws]
-        w_stacked = self._packed_weights(ws, wkeys, K, N, G_pad,
-                                         shared=False, group=group)
+        w_stacked, held = self._packed_weights(ws, wkeys, K, N, G_pad,
+                                               shared=False, group=group)
         xs = tuple(xs)
         n_real = [int(w.shape[1]) for w in ws]
-        if G_pad > G:
-            xs = xs + (torch.zeros_like(xs[0]),) * (G_pad - G)
-            n_real += [n_real[0]] * (G_pad - G)
-        outs = _dispatch_matvec(xs, w_stacked, n_real=tuple(n_real))
+        n_real = tuple(n_real + [n_real[0]] * (G_pad - G))
+        body = functools.partial(_dispatch_matvec, n_real=n_real)
+        if self.cuda_graphs and held:
+            outs = self._graphed(
+                ("matvec", n_real), lambda v, ops: body(v, ops["w"]), xs,
+                G_pad, {"w": w_stacked},
+                lambda: _packed_io(G_pad, K, range(G), n_real[:G],
+                                   lambda x, ops: coalesced_gemv(x,
+                                                                 ops["w"])))
+        else:
+            outs = body(_pad_members(xs, G_pad), w_stacked)[:G]
         self.stats.retraces += build_count() - builds0
-        return list(outs[:G])
+        return list(outs)

@@ -1,6 +1,6 @@
 """CUDA graphs of the port's compiled serving path.
 
-The JAX package compiles three kinds of thing on its serving path:
+The JAX package compiles four kinds of thing on its serving path:
 
   * each layer body of a stacked template, once per executor tile:
     ``jax.jit(make_scan(bm, bn, bk, ...))`` memoized in the body's ``jits``
@@ -14,14 +14,20 @@ The JAX package compiles three kinds of thing on its serving path:
     ``Model.prefill`` under ``jax.lax.scan``, which the serving engine
     calls for its baseline modes and for the tenants the JIT does not
     compile (hybrid, audio, int8-KV decode; every prompt it does not
-    declare).
+    declare);
+  * the executor's dispatch bodies, ``_dispatch_grouped``,
+    ``_dispatch_shared`` and ``_dispatch_matvec`` (core/dispatch.py), each
+    a ``jax.jit`` keyed on its static arguments and operand shapes: every
+    plain GEMM dispatch (a per-layer GEMM, a stacked program's unembed, a
+    matvec tick) runs one.
 
 The port's counterparts are Python loops that issue every op from the
 host, so a 48-layer decode step costs tens of ms of host time for a few
 ms of device work. ``GraphCache`` holds one ``torch.cuda.CUDAGraph`` per
-key of any of the four kinds (``KINDS``: a decode body, a prefill body, a
-glue stage, a monolithic call), captured at the key's first call and
-replayed after it, all through one path, ``GraphCache.call``.
+key of any of the five kinds (``KINDS``: a decode body, a prefill body, a
+glue stage, a monolithic call, a dispatch body), captured at the key's
+first call and replayed after it, all through one path,
+``GraphCache.call``.
 
 **A call** is ``fn(inputs, operands) -> outputs``, each a dict of tensors.
 ``inputs`` are what the JAX package passes as the jit's arguments (a
@@ -30,16 +36,22 @@ v, cache slices, router weights or mamba parameters; a monolithic call's
 tokens, cache leaves, patch embeddings or frames): a replay copies them
 into static buffers of the same shapes and strides. ``operands`` are read
 by raw pointer and held only weakly: a body's padded packs, a monolithic
-call's params. A body takes the ``BodyIO`` form, a glue stage the
-``GlueIO`` form; ``monolithic`` flattens a model call's trees.
+call's params, a dispatch's packed weights and group ids. A body takes the
+``BodyIO`` form, a glue stage the ``GlueIO`` form; ``monolithic`` flattens
+a model call's trees. A dispatch body takes the ``DispatchIO`` form: its
+inputs are the group's activations, copied into views of one zeroed
+packed buffer (its pad rows and columns stay zero), and the graph holds
+the kernel's launch on that buffer alone; the copy-out is one clone of the
+kernel's output, cut per problem as the eager body cuts it.
 
 **Key**, as the JAX package keys its jits: a body's ``BodyIO.key``
 (phase, model config, batch or prompt bucket), its weight key and the
 launch ``bm``; a glue stage's ``_GLUE_JITS`` key; a monolithic call's
-method, config, param dtype, ``kv_quant`` (and a prefill's cache length).
-``call`` adds what a graph holds by pointer or by shape: the operands'
-identities and the inputs' shapes, strides and dtypes (a jit retraces per
-shape, too). Two tenants on one weight set share every key.
+method, config, param dtype, ``kv_quant`` (and a prefill's cache length);
+a dispatch body's name and static arguments (``n_real``, ``m_tiles``,
+``bm``). ``call`` adds what a graph holds by pointer or by shape: the
+operands' identities and the inputs' shapes, strides and dtypes (a jit
+retraces per shape, too). Two tenants on one weight set share every key.
 
 **Capture.** The first call of a key runs ``fn`` eagerly on the capture
 stream (its outputs are this call's result), so nothing happens for the
@@ -82,7 +94,10 @@ would miss its launches. The capture records the counters' change over the
 captured call (and takes it back: nothing ran), and every replay adds it.
 ``DispatchStats`` counts captures and replays: ``graph_captures`` /
 ``graph_replays`` the bodies (decode and prefill), and a pair a kind
-beside them (``graphs_by_kind``).
+beside them (``graphs_by_kind``). A graph reads its operands by pointer,
+so the key holds their identities: the per-layer regime captures one
+dispatch graph a (signature, pack), where the JAX package compiles one a
+signature.
 
 The CPU path never captures: a call whose inputs lie on the CPU runs
 eagerly. A stand-in ``capture`` lets the CPU tests drive the cache.
@@ -90,6 +105,7 @@ eagerly. A stand-in ``capture`` lets the CPU tests drive the cache.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import time
 import weakref
@@ -107,8 +123,9 @@ Tensors = Dict[str, torch.Tensor]
 # the kernel wrappers whose counters a replay adds to
 _KERNELS = (coalesced_gemm, coalesced_gemv, flash_attention)
 
-# a decode body, a prefill body, a per-layer glue stage, a monolithic call
-KINDS = ("decode", "prefill", "glue", "monolithic")
+# a decode body, a prefill body, a per-layer glue stage, a monolithic call,
+# an executor dispatch body
+KINDS = ("decode", "prefill", "glue", "monolithic", "dispatch")
 
 
 def write_outputs(env: Dict[str, Any], outs: Tensors) -> None:
@@ -154,6 +171,32 @@ class GlueIO:
         """The eager stage."""
         _, fn, inputs = self.bind(env)
         self.write(env, fn(inputs))
+
+
+@dataclasses.dataclass
+class DispatchIO:
+    """An executor dispatch body in the form its graph holds.
+    ``stage(inputs)`` makes the static buffers the launch reads (a zeroed
+    packed buffer), writes the inputs into them and returns (static,
+    copy_in): ``copy_in(inputs)`` writes a later call's inputs into the same
+    places before its replay. ``launch(static, operands)`` is the captured
+    call; ``unpack(static_out)`` the copy-out."""
+
+    stage: Callable[[Tensors], Tuple[Tensors, Callable[[Tensors], None]]]
+    launch: Callable[[Tensors, Tensors], Tensors]
+    unpack: Callable[[Tensors], Tensors]
+
+
+def _clones(static_out: Tensors) -> Tensors:
+    """The copy-out of every kind but a dispatch: a clone an output."""
+    return {name: t.clone() for name, t in static_out.items()}
+
+
+def copy_each(targets: Tensors, inputs: Tensors) -> None:
+    """The copy-in of every kind: each input into its static buffer
+    (``targets[name]``; for a dispatch, a view of its packed buffer)."""
+    for name, t in inputs.items():
+        targets[name].copy_(t)
 
 
 # ---------------------------------------------------------------------------
@@ -249,8 +292,10 @@ def unflatten(flat: Tensors) -> Dict[str, Any]:
 
 
 def _signature(inputs: Tensors) -> Tuple:
-    return tuple((n, tuple(t.shape), tuple(t.stride()), str(t.dtype),
-                  str(t.device)) for n, t in sorted(inputs.items()))
+    # in the caller's order (one caller builds one order): a dispatch
+    # graph's key is built on every plain GEMM dispatch
+    return tuple((n, t.shape, t.stride(), t.dtype, t.device)
+                 for n, t in inputs.items())
 
 
 def _identities(operands: Tensors) -> Tuple:
@@ -320,9 +365,10 @@ class _Entry:
     kind: str
     head: Tuple                    # the caller's key
     graph: Any                     # CudaCapture or a stand-in
-    static_in: Tensors
+    copy_in: Callable[[Tensors], None]     # the inputs into the buffers
     operands: Tuple                # (tag, weakref) of the operands read
     launches: Dict                 # kernel-counter change of one call
+    unpack: Callable[[Tensors], Tensors]   # the copy-out
 
     def live(self, operands: Tensors) -> bool:
         return all(ref() is operands[tag] for tag, ref in self.operands)
@@ -446,11 +492,15 @@ class GraphCache:
 
     def call(self, kind: str, head: Tuple,
              fn: Callable[[Tensors, Tensors], Tensors], inputs: Tensors,
-             operands: Optional[Tensors] = None, stats=None) -> Tensors:
+             operands: Optional[Tensors] = None, stats=None,
+             io: Optional[Callable[[], DispatchIO]] = None) -> Tensors:
         """``fn(inputs, operands)``: a replay of the graph of ``head`` (see
         the module docstring), or at its first call the eager call and a
         capture; eager on the CPU. Counts into ``stats``
-        (``DispatchStats``)."""
+        (``DispatchStats``). ``io()`` (a dispatch body; called at the
+        key's first call only) gives the static buffers, the captured call
+        and the copy-out; without it the graph captures ``fn`` on a static
+        copy of each input and clones each output."""
         assert kind in KINDS, kind
         operands = operands or {}
         self._purge()
@@ -463,14 +513,14 @@ class GraphCache:
             ent = None
         if ent is None:
             t0 = time.perf_counter()
-            outs = self._capture_call(key, kind, head, fn, inputs, operands)
+            outs = self._capture_call(key, kind, head, fn, inputs, operands,
+                                      io)
             self.capture_s[kind] += time.perf_counter() - t0
             _count(stats, kind, "captures")
             return outs
-        for name, t in ent.static_in.items():
-            t.copy_(inputs[name])
+        ent.copy_in(inputs)
         ent.graph.replay()
-        outs = {name: t.clone() for name, t in ent.graph.static_out.items()}
+        outs = ent.unpack(ent.graph.static_out)
         _add(ent.launches)
         _count(stats, kind, "replays")
         return outs
@@ -497,16 +547,21 @@ class GraphCache:
         return self._streams[idx], self._pools[idx]
 
     def _capture_call(self, key, kind: str, head: Tuple, fn,
-                      inputs: Tensors, operands: Tensors) -> Tensors:
+                      inputs: Tensors, operands: Tensors,
+                      io: Optional[Callable[[], DispatchIO]]) -> Tensors:
         """The key's first call: the eager call on the capture stream (this
-        call's result), then one capture on static copies of the inputs.
-        The captured function reaches the operands through weak references
-        only (a stand-in keeps it for its replays)."""
+        call's result), then one capture on static copies of the inputs
+        (``io``: of its staged buffers). The captured function reaches the
+        operands through weak references only (a stand-in keeps it for its
+        replays)."""
         refs = tuple((tag, self._watch(key, t))
                      for tag, t in sorted(operands.items()))
+        if io is not None:
+            io = io()
+        captured = fn if io is None else io.launch
 
         def bound(inp: Tensors) -> Tensors:
-            return fn(inp, {tag: ref() for tag, ref in refs})
+            return captured(inp, {tag: ref() for tag, ref in refs})
 
         dev = next(iter(inputs.values())).device
         stream = pool = None
@@ -520,7 +575,13 @@ class GraphCache:
             outs = fn(inputs, operands)
         # the static inputs live outside the graphs' pool, on the stream
         # the replays copy into them from
-        static_in = {n: _static(t) for n, t in inputs.items()}
+        if io is None:
+            static_in = {n: _static(t) for n, t in inputs.items()}
+            copy_in = functools.partial(copy_each, static_in)
+            unpack = _clones
+        else:
+            static_in, copy_in = io.stage(inputs)
+            unpack = io.unpack
         before = _counters()
         for (fn_, name) in before:
             if name.startswith("max_"):       # the call's own maximum
@@ -530,10 +591,11 @@ class GraphCache:
         finally:
             launches = _delta(before, _counters())
             _restore(before)
-        self._entries[key] = _Entry(kind, head, graph, static_in, refs,
-                                    launches)
+        self._entries[key] = _Entry(kind, head, graph, copy_in, refs,
+                                    launches, unpack)
         return outs
 
 
-__all__ = ["BodyIO", "CudaCapture", "GlueIO", "GraphCache", "KINDS",
+__all__ = ["BodyIO", "CudaCapture", "DispatchIO", "GlueIO", "GraphCache",
+           "KINDS", "copy_each",
            "flatten", "unflatten", "write_outputs"]

@@ -1868,18 +1868,40 @@ class VLIWJit:
             weight_capacity
         self.weight_cache = PlanCache(wcap,
                                       byte_capacity=weight_budget_bytes)
-        self.executor = SuperkernelExecutor(self.weight_cache, bm=bm)
         # the CUDA graphs (core/graphs.py) of the stacked bodies (decode
-        # and prefill), the per-layer glue and the serving engine's
-        # monolithic model calls: the counterparts of the JAX package's
-        # jitted layer scans and glue, which it always compiles. On by
-        # default; False runs every one of them eagerly (the eager twin of
-        # the graphed run). The CPU never captures. A graph reads packed
-        # weights by raw pointer, so every pack the weight cache drops
-        # takes the graphs that read it along.
-        self.cuda_graphs = cuda_graphs
-        self.graphs = GraphCache(resident=self.weight_cache.holds)
-        self.weight_cache.on_drop.append(self.graphs.drop_operand)
+        # and prefill), the per-layer glue, the serving engine's
+        # monolithic model calls and the executor's dispatch bodies: the
+        # counterparts of the JAX package's jitted layer scans, glue and
+        # dispatch bodies, which it always compiles. On by default; False
+        # runs every one of them eagerly (the eager twin of the graphed
+        # run). The CPU never captures. A graph reads packed weights by raw
+        # pointer, so every pack the weight cache drops takes the graphs
+        # that read it along. The executor owns this cache and the flag
+        # (``graphs``, ``cuda_graphs``).
+        graphs = GraphCache(resident=self.weight_cache.holds)
+        self.weight_cache.on_drop.append(graphs.drop_operand)
+        self.executor = SuperkernelExecutor(self.weight_cache, bm=bm,
+                                            graphs=graphs,
+                                            cuda_graphs=cuda_graphs)
+
+    @property
+    def graphs(self) -> GraphCache:
+        """The JIT's CUDA graphs (one cache, the executor's)."""
+        return self.executor.graphs
+
+    @graphs.setter
+    def graphs(self, cache: GraphCache) -> None:
+        self.executor.graphs = cache
+
+    @property
+    def cuda_graphs(self) -> bool:
+        """Whether the JIT's compiled parts run as CUDA graphs (one flag,
+        the executor's)."""
+        return self.executor.cuda_graphs
+
+    @cuda_graphs.setter
+    def cuda_graphs(self, on: bool) -> None:
+        self.executor.cuda_graphs = on
 
     def run_glue(self, io: GlueIO, env: Dict[str, Any]) -> None:
         """Run one per-layer glue stage: a replay of its key's CUDA graph

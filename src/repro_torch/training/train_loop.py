@@ -119,14 +119,17 @@ def train(model: Model, data: Iterable[Dict[str, Any]], steps: int, *,
           checkpoint_path: Optional[str] = None,
           checkpoint_every: int = 0,
           log_fn: Callable[[str], None] = print,
-          device: DeviceLike = None) -> Dict[str, Any]:
-    """Smoke-scale training loop (one process): fresh params from
-    ``generator`` (default: seed 0 on the model's device), ``steps`` steps
-    over ``data``'s batches (moved to ``device``, default the model's)."""
+          device: DeviceLike = None,
+          params: Optional[Any] = None) -> Dict[str, Any]:
+    """Smoke-scale training loop (one process): ``params`` (default: fresh
+    from ``generator``, itself by default seed 0 on the model's device),
+    ``steps`` steps over ``data``'s batches (moved to ``device``, default
+    the model's)."""
     opt_cfg = opt_cfg or OptimizerConfig(total_steps=steps)
-    if generator is None:
-        generator = torch.Generator(device=model.device).manual_seed(0)
-    params = model.init(generator)
+    if params is None:
+        if generator is None:
+            generator = torch.Generator(device=model.device).manual_seed(0)
+        params = model.init(generator)
     opt_state = init_opt_state(params)
     step_fn = make_train_step(model, opt_cfg)
 

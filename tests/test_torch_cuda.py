@@ -648,10 +648,12 @@ def test_graph_replay_bitwise_equal_to_eager(cuda, arch, dtype):
         counts[regime] = _count_delta(c0, _counts())
         st = vj.executor.stats
         if regime == "graphed":
-            bodies = len(vj.graphs)
-            assert bodies >= 1
+            # the bodies' graphs (the unembed's dispatch graph beside them)
+            bodies = vj.graphs.count("decode")
+            assert bodies >= 1 and len(vj.graphs) == bodies + 1
             assert (st.graph_captures, st.graph_replays) == (bodies,
                                                             2 * bodies)
+            assert st.graphs_by_kind()["dispatch"] == (1, 2)
         else:
             assert st.graph_captures == st.graph_replays == 0
     assert counts["graphed"] == counts["eager"]
@@ -1000,6 +1002,125 @@ def test_fleet_graphed_tokens_equal_eager(cuda, mode):
     assert out[True] == out[False]
 
 
+def _dispatch_problems(body, G, dtype, device, seed):
+    """G problems of the executor's dispatch bodies: ragged rows and
+    ragged (K, N) under one envelope (grouped), one weight G times
+    (shared), G vectors on distinct weights (matvec)."""
+    g = torch.Generator().manual_seed(seed)
+    if body == "shared":
+        ws = [(torch.randn(300, 260, generator=g) / 300 ** 0.5)
+              .to(device, dtype)] * G
+    else:
+        ws = [(torch.randn(300 - 7 * i, 260 - 5 * i, generator=g)
+               / 300 ** 0.5).to(device, dtype) for i in range(G)]
+    rows = [1] * G if body == "matvec" else [1 + (4 * i) % 7
+                                             for i in range(G)]
+    return ws, rows, g
+
+
+def _dispatch(ex, body, ws, rows, g):
+    acts = [torch.randn(m, int(w.shape[0]), generator=g).to(w.device,
+                                                            w.dtype)
+            for m, w in zip(rows, ws)]
+    if body == "matvec":
+        return acts, ex.matvec([a[0] for a in acts], ws)
+    return acts, ex.execute_problems(
+        list(zip(acts, ws)), [("m", id(w)) for w in ws],
+        shared_operand=body == "shared")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("body", ["grouped", "shared", "matvec"])
+def test_dispatch_replay_bitwise_equal_to_eager(cuda, body, dtype,
+                                                monkeypatch):
+    """The executor's dispatch bodies as CUDA graphs at G = 1, 2, 3, 8,
+    three calls of one key: each replay is bitwise the eager body (values
+    and strides) and agrees with the plain product; the hand-written kernel
+    launches from the replay: its wrapper is called only at the key's first
+    call (eagerly, then under capture), yet its counter rises by one a
+    call."""
+    from repro_torch.core import dispatch as tdispatch
+    calls = []
+    for fn in (cg.coalesced_gemm, gv.coalesced_gemv):
+        def spy(*a, _fn=fn, **k):
+            calls.append(_fn.__name__)
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(tdispatch, fn.__name__, spy)
+    rtol, atol = TOL[dtype]
+    for G in (1, 2, 3, 8):
+        # one vector on one weight is the shared GEMM path
+        kernel = gv.coalesced_gemv if body == "matvec" and G > 1 \
+            else cg.coalesced_gemm
+        ws, rows, g = _dispatch_problems(body, G, dtype, cuda, seed=G)
+        eager = SuperkernelExecutor(PlanCache(8, byte_capacity=1 << 30),
+                                    cuda_graphs=False)
+        graphed = SuperkernelExecutor(PlanCache(8, byte_capacity=1 << 30))
+        for step in range(3):
+            n0, c0 = kernel.launches, len(calls)
+            acts, got = _dispatch(graphed, body, ws, rows, g)
+            torch.cuda.synchronize()
+            assert kernel.launches == n0 + 1, (G, step)
+            assert len(calls) - c0 == (2 if step == 0 else 0), (G, step)
+            if body == "matvec":
+                want = eager.matvec([a[0] for a in acts], ws)
+            else:
+                want = eager.execute_problems(
+                    list(zip(acts, ws)), [("m", id(w)) for w in ws],
+                    shared_operand=body == "shared")
+            for o, e, a, w in zip(got, want, acts, ws):
+                assert torch.equal(o, e) and o.stride() == e.stride()
+                plain = (a.float() @ w.float()).to(dtype)
+                if body == "matvec":
+                    plain = plain[0]
+                torch.testing.assert_close(o, plain, rtol=rtol, atol=atol)
+        assert graphed.stats.graphs_by_kind()["dispatch"] == (1, 2)
+        assert len(graphed.graphs) == 1
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_dispatch_graphs_steady_state_on_card(cuda, stacked):
+    """A per-layer (every GEMM a dispatch) and a stacked (the unembed)
+    decode template, bf16, three streams: a second run over warm templates
+    captures no dispatch graph and builds no kernel, every dispatch a
+    replay; logits bitwise those of the eager JIT, launches the same."""
+    from repro_torch.core.jit import VLIWJit
+    m, p = _graph_model("gemma3-1b", torch.bfloat16, cuda)
+    g = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, m.cfg.vocab_size, (2, 12), generator=g)
+    _, cache = m.prefill(p, {"tokens": prompt.to(cuda)}, cache_len=32)
+    tok = torch.randint(0, m.cfg.vocab_size, (2, 1), generator=g).to(cuda)
+    tmpl = _graph_builder(m.cfg, stacked)(m, p, 2)
+
+    def progs():
+        return [tmpl.bind(stream_id=i, tokens=tok, cache=cache)
+                for i in range(3)]
+
+    vj = VLIWJit(max_group=8)
+    warm = vj.run(progs())
+    assert warm.dispatch.dispatch_graph_captures > 0
+    got = progs()
+    n0 = _counts()
+    steady = vj.run(got)
+    torch.cuda.synchronize()
+    graphed_launches = _count_delta(n0, _counts())
+    assert steady.dispatch.dispatch_graph_captures == 0
+    assert steady.dispatch.dispatch_graph_replays == \
+        steady.dispatch.dispatches - (steady.dispatch.graph_replays
+                                      + steady.dispatch.graph_captures)
+    assert steady.dispatch.retraces == 0
+    assert steady.dispatch.weight_hit_rate == 1.0
+    eager = VLIWJit(max_group=8, cuda_graphs=False)
+    eager.run(progs())
+    want = progs()
+    n0 = _counts()
+    eager.run(want)
+    torch.cuda.synchronize()
+    assert _count_delta(n0, _counts()) == graphed_launches
+    for a, b in zip(got, want):
+        assert torch.equal(a.env["logits"], b.env["logits"])
+
+
 def test_capture_after_every_graph_was_dropped(cuda):
     """An emptied weight cache drops every graph of the pool at once; the
     next captures go into the same pool (its keeper graph holds it live)
@@ -1013,7 +1134,8 @@ def test_capture_after_every_graph_was_dropped(cuda):
     tmpl = _graph_builder(m.cfg)(m, p, 4)
     vj = VLIWJit(max_group=8)
     first = _graph_decode(vj, tmpl, cache0, tok0)
-    n = len(vj.graphs)
+    n = vj.graphs.count("decode")
+    assert len(vj.graphs) == n + 1          # and the unembed's dispatch
     vj.weight_cache.clear()
     assert len(vj.graphs) == 0
     again = _graph_decode(vj, tmpl, cache0, tok0)
@@ -1021,6 +1143,7 @@ def test_capture_after_every_graph_was_dropped(cuda):
                          cache0, tok0)
     torch.cuda.synchronize()
     assert vj.executor.stats.graph_captures == 2 * n
+    assert vj.executor.stats.dispatch_graph_captures == 2
     for got in (first, again):
         for a, b in zip(got[0], want[0]):
             assert torch.equal(a, b)

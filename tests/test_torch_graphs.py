@@ -233,9 +233,11 @@ def test_replays_bitwise_equal_to_eager(models, family):
     got = _decode(graphed, template, cache, tok)
     _assert_same(*got, *want)
     n = len(_bodies(template))
-    assert len(graphs) == n
+    # the bodies' graphs, and the unembed's dispatch graph beside them
+    assert graphs.count("decode") == n and len(graphs) == n + 1
     st = graphed.executor.stats
     assert (st.graph_captures, st.graph_replays) == (n, 2 * n)
+    assert st.graphs_by_kind()["dispatch"] == (1, 2)
     assert eager.executor.stats.graph_captures == 0
     # and the per-layer path, the bitwise oracle
     oracle = _decode(tjit.VLIWJit(CostModel(TPUV5E)),
@@ -260,7 +262,7 @@ def test_tenants_sharing_a_graph_keep_each_others_caches(models, family):
     kept = {k: v.clone() for k, v in new_a["layers"].items()}
     pb = template.bind(stream_id=1, tokens=tok_b, cache=cache_b)
     jit.run([pb])
-    assert jit.executor.stats.graph_replays == 2 * len(graphs)
+    assert jit.executor.stats.graph_replays == 2 * graphs.count("decode")
     for leaf, t in new_a["layers"].items():
         assert torch.equal(t, kept[leaf]), leaf
         # a's cache is its own tensor: no static output of the graph
@@ -331,7 +333,7 @@ def test_eviction_and_invalidation_drop_the_graphs_reading_a_pack(
     jit = tjit.VLIWJit(CostModel(TPUV5E))
     graphs = _stand_in(jit)
     _decode(jit, template, cache, tok, steps=2)
-    n = len(graphs)
+    n = graphs.count("decode")
     assert n == len(_bodies(template))
     wc = jit.weight_cache
     biggest = max(wc.peek(k).nbytes for k in wc.keys())
@@ -342,7 +344,7 @@ def test_eviction_and_invalidation_drop_the_graphs_reading_a_pack(
     ref = weakref.ref(pack)
     del pack
     wc.invalidate(key)
-    assert len(graphs) == n - 1 and graphs.dropped == 1
+    assert graphs.count("decode") == n - 1 and graphs.dropped == 1
     gc.collect()
     assert ref() is None
     # a byte budget of the largest pack: the LRU churns every step, and

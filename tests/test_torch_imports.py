@@ -15,6 +15,11 @@ from repro_torch.models import Model
 from repro_torch.serving import ServingEngine
 
 SRC = Path(repro_torch.__file__).resolve().parents[1]
+ROOT = SRC.parent
+# the scripts that drive the port: its examples and the card's smoke run
+SCRIPTS = sorted(f"examples/{p.name}"
+                 for p in (ROOT / "examples").glob("torch_*.py")) \
+    + ["chip_smoke.py"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -99,3 +104,47 @@ def test_train_launcher_raises_without_a_device(monkeypatch):
         train.main(["--steps", "1", "--production"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mesh.make_host_mesh()
+
+
+_SCRIPT_PROBE = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("script", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(",".join(sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+                      or m == "repro" or m.startswith("repro."))))
+"""
+
+
+def test_the_scripts_are_the_four_examples_and_chip_smoke():
+    assert SCRIPTS == ["examples/torch_autotune_blocks.py",
+                       "examples/torch_multi_tenant_serving.py",
+                       "examples/torch_quickstart.py",
+                       "examples/torch_train_tiny.py", "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_script_loads_neither_jax_nor_the_jax_package(script):
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE,
+                          str(ROOT / script)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
+                              "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"loaded: {out.stdout.strip()}"
+    for line in (ROOT / script).read_text().splitlines():
+        s = line.strip()
+        assert not s.startswith(("import jax", "from jax", "import repro.",
+                                 "from repro.", "from repro import")), s
+
+
+@pytest.mark.parametrize("script", [s for s in SCRIPTS
+                                    if s.startswith("examples/")])
+def test_example_raises_without_a_device(script, monkeypatch):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("example", ROOT / script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])

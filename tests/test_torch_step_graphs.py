@@ -49,7 +49,7 @@ from repro.serving import ServingEngine as JaxEngine, Tenant as JaxTenant
 from repro_torch.configs import MoEConfig, smoke_config
 from repro_torch.core import jit as tjit
 from repro_torch.core.costmodel import CostModel, TPUV5E
-from repro_torch.core.graphs import GraphCache, _counters, _restore
+from repro_torch.core.graphs import KINDS, GraphCache, _counters, _restore
 from repro_torch.models import Model
 from repro_torch.models import moe as tmoe
 from repro_torch.models.convert import params_from_numpy
@@ -203,8 +203,7 @@ def test_prompt_bodies_shared_by_tenants_and_lengths_in_a_bucket(models):
     kinds = _kinds(reps[True].jit.dispatch)
     assert kinds["prefill"] == (2 * bodies, (len(lens) - 2) * bodies)
     assert kinds["monolithic"] == kinds["glue"] == (0, 0)
-    assert _kinds(reps[False].jit.dispatch) == {
-        k: (0, 0) for k in ("decode", "prefill", "glue", "monolithic")}
+    assert _kinds(reps[False].jit.dispatch) == {k: (0, 0) for k in KINDS}
 
 
 def test_prompt_body_replays_bitwise_equal_to_eager(models):
