@@ -250,6 +250,18 @@ Phases, each printing its own lines; a failing phase raises:
      train-ckpt  — two smoke training steps on the card (bf16 params),
                    checkpointed under ``build/``, restored on the CPU:
                    every leaf bitwise equal;
+     dryrun      — the dry-run's step accounting: the train phase's step
+                   at world 1, as it runs (3 steps after a warm-up) and
+                   once under ``launch/step_cost.py``'s counter on CUDA
+                   tensors, its dot FLOPs equal to a trace of the same
+                   step on meta tensors; its counted bytes, the least time
+                   at the H100's spec-sheet rates beside the measured ms a
+                   step, the counted step's ms beside the others, the
+                   counted and meta peaks beside ``max_memory_allocated``;
+                   then on the host, per chip (meta tensors, a fake world):
+                   gemma3-1b ``train_4k`` on 16 × 16 and grok-1-314b
+                   ``train_4k`` on 2 × 16 × 16 (FLOPs, bytes, each
+                   collective kind, peak, dominant term, trace seconds);
      train-cli   — one production step at world 1 on the card (nccl, the
                    1×1 ``DeviceMesh``; gemma3-1b and grok-1 smoke, bf16)
                    bitwise equal to the plain step; grok-1 smoke (fp32)
@@ -3443,6 +3455,114 @@ def phase_train_ckpt(torch, outdir):
     return dict(leaves=n)
 
 
+def phase_dryrun(torch, cg, gv, fa, uncounted=3):
+    """The dry-run's step accounting (``launch/step_cost.py``). On the
+    card: the ``train`` phase's step (gemma3-1b, bf16, remat, B 4, S 2048)
+    at world 1, three times as it runs, then once under the counter on
+    CUDA tensors: its dot FLOPs held equal to a trace of the same step on
+    meta tensors; its counted bytes and the least time at the H100's
+    spec-sheet rates beside the measured step; the counted and meta peaks
+    beside ``max_memory_allocated``. On the host: fake-world traces of
+    gemma3-1b ``train_4k`` on 16 × 16 and grok-1-314b ``train_4k`` on
+    2 × 16 × 16, per chip. No process group outlives the phase."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.dryrun import dryrun_one
+    from repro_torch.launch.hlo_analysis import HBM_BW, PEAK_FLOPS, roofline
+    from repro_torch.launch.step_cost import count_step
+    from repro_torch.models import Model
+    from repro_torch.training import (DataConfig, OptimizerConfig,
+                                      SyntheticLM, batch_to_device,
+                                      init_opt_state, make_train_step)
+    cfg = get_config("gemma3-1b")
+    B, S = 4, 2048
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=12)
+    meta = Model(cfg, param_dtype=torch.bfloat16, device="meta", remat=True)
+    mp = meta.abstract_params()
+    t0 = time.perf_counter()
+    _, m_tot, m_mem = count_step(make_train_step(meta, opt_cfg), mp,
+                                 init_opt_state(mp),
+                                 meta.input_specs(InputShape(
+                                     "train", S, B, "train")))
+    meta_s = time.perf_counter() - t0
+
+    model = Model(cfg, param_dtype=torch.bfloat16, device="cuda", remat=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt_state = init_opt_state(params)
+    step = make_train_step(model, opt_cfg)
+    data = iter(SyntheticLM(cfg, DataConfig(batch_size=B, seq_len=S,
+                                            seed=0)))
+    _zero_launches(cg, gv, fa)
+    ms, losses = [], []
+    for i in range(uncounted + 2):
+        batch = batch_to_device(next(data), model)
+        counted = i == uncounted + 1           # the first: warm-up
+        torch.cuda.synchronize()
+        if counted:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if counted:
+            (params, opt_state, m), c_tot, c_mem = count_step(
+                step, params, opt_state, batch)
+        else:
+            params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    max_alloc = torch.cuda.max_memory_allocated()
+    launches = _kernel_launches(cg, gv, fa)
+    step_ms = statistics.median(ms[1:-1])
+    terms = roofline(c_tot.flops, c_tot.bytes, 0.0, 1)
+    say("dryrun", where="card", arch=cfg.name, B=B, S=S, dtype="bfloat16",
+        remat=True, world=1, dot_flops=f"{c_tot.flops:.6e}",
+        meta_dot_flops=f"{m_tot.flops:.6e}",
+        card_vs_meta="equal" if c_tot.flops == m_tot.flops else "DIFFERENT",
+        counted_bytes=f"{c_tot.bytes:.6e}",
+        collective_bytes=f"{c_tot.collective_bytes:.0f}")
+    say("dryrun", where="card", rates=f"H100 spec sheet ({PEAK_FLOPS / 1e12:.0f}"
+        f" TFLOP/s bf16, {HBM_BW / 1e12:.2f} TB/s)",
+        compute_ms=f"{terms.compute_s * 1e3:.3f}",
+        memory_ms=f"{terms.memory_s * 1e3:.3f}",
+        bound_ms=f"{terms.bound_s * 1e3:.3f}", bound_by=terms.dominant,
+        measured_ms_per_step=f"{step_ms:.3f}",
+        bound_share=f"{terms.bound_s * 1e3 / step_ms:.4f}")
+    say("dryrun", where="card", counted_step_ms=f"{ms[-1]:.3f}",
+        uncounted_step_ms=",".join(f"{x:.3f}" for x in ms[1:-1]),
+        warmup_step_ms=f"{ms[0]:.3f}", meta_trace_s=f"{meta_s:.2f}")
+    say("dryrun", where="card", meta_peak_GiB=f"{m_mem['peak_bytes'] / GIB:.3f}",
+        counted_peak_GiB=f"{c_mem['peak_bytes'] / GIB:.3f}",
+        max_memory_allocated_GiB=f"{max_alloc / GIB:.3f}",
+        argument_GiB=f"{c_mem['argument_bytes'] / GIB:.3f}",
+        kernel_launches=launches)
+    assert c_tot.flops == m_tot.flops, (c_tot.flops, m_tot.flops)
+    assert c_tot.collective_bytes == 0 and c_tot.bytes > 0
+    assert all(math.isfinite(x) for x in losses), losses
+    assert not any(launches.values()), launches
+    del params, opt_state, step, batch
+    _free(torch)
+    out = {"card": dict(flops=c_tot.flops, bytes=c_tot.bytes, ms=step_ms,
+                        counted_ms=ms[-1], bound_ms=terms.bound_s * 1e3)}
+    for arch, multi in (("gemma3-1b", False), ("grok-1-314b", True)):
+        rec = dryrun_one(arch, "train_4k", multi, verbose=False)
+        r = rec["roofline"]
+        say("dryrun", where="host (meta tensors, fake world, per chip, "
+            "H100 spec-sheet rates)", arch=arch, shape="train_4k",
+            mesh=rec["mesh"], chips=rec["chips"],
+            flops=f"{rec['flops']:.6e}", bytes=f"{rec['bytes']:.6e}",
+            **{k.replace("-", "_"): f"{v:.6e}"
+               for k, v in rec["collectives"].items()},
+            peak_bytes=f"{rec['memory']['peak_bytes']:.6e}",
+            compute_s=f"{r['compute_s']:.4f}",
+            memory_s=f"{r['memory_s']:.4f}",
+            collective_s=f"{r['collective_s']:.4f}",
+            dominant=r["dominant"], trace_s=f"{rec['trace_s']:.2f}")
+        assert rec["collectives"].get("all-gather", 0) > 0, rec
+        out[arch] = rec
+    assert not dist.is_initialized()
+    return out
+
+
 def _production_step_bitwise(torch):
     """One production step at world 1 on the card (nccl, the (1, 1)
     DeviceMesh, DTensor params and optimizer state, each weight gathered at
@@ -3452,8 +3572,8 @@ def _production_step_bitwise(torch):
     import torch.distributed as dist
     from repro_torch.configs import smoke_config
     from repro_torch.distributed.hints import activation_sharding
-    from repro_torch.launch.mesh import ensure_process_group, make_host_mesh
-    from repro_torch.launch.train import _production_state
+    from repro_torch.launch.mesh import (ensure_process_group,
+                                         make_host_mesh, production_state)
     from repro_torch.models import Model
     from repro_torch.training import (DataConfig, OptimizerConfig,
                                       SyntheticLM, batch_to_device,
@@ -3474,7 +3594,7 @@ def _production_step_bitwise(torch):
             step = make_train_step(model, OptimizerConfig(
                 lr=1e-3, warmup_steps=1, total_steps=4))
             p1, s1, m1 = step(plain, init_opt_state(plain), batch)
-            dparams, dopt, hints = _production_state(model, params, mesh, 4)
+            dparams, dopt, hints = production_state(model, params, mesh, 4)
             with activation_sharding(hints):
                 p2, s2, m2 = step(dparams, dopt, batch)
             same = (torch.equal(m1["loss"], m2["loss"])
@@ -3742,6 +3862,8 @@ def main(argv=None) -> int:
     timed_phase("train", phase_train, torch, cg, gv, fa)
     timed_phase("train-vs-cpu", phase_train_vs_cpu, torch, cg, gv, fa)
     timed_phase("train-ckpt", phase_train_ckpt, torch, ROOT / "build")
+    # before train-cli and train-world, which start real process groups
+    timed_phase("dryrun", phase_dryrun, torch, cg, gv, fa)
     timed_phase("train-cli", phase_train_cli, torch)
     timed_phase("train-world", phase_train_world, torch, ROOT / "build")
     bad = [k for k in ("jax", "repro") if k in sys.modules]

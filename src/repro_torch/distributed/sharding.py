@@ -248,10 +248,20 @@ def cache_shardings(model, cache_shapes: Any, mesh: Any,
 
 def distribute(tree: Any, shardings: Any) -> Any:
     """Each tensor of ``tree`` as a DTensor placed by the matching
-    ``NamedSharding`` (on a ``DeviceMesh``)."""
-    from torch.distributed.tensor import distribute_tensor
-    return tree_map(lambda t, s: distribute_tensor(t, s.mesh, s.placements),
-                    tree, shardings)
+    ``NamedSharding`` (on a ``DeviceMesh``). A meta tensor (the dry-run)
+    has no data to scatter: its DTensor holds a new meta tensor of one
+    rank's block."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def place(t, s):
+        if t.is_meta:
+            block = torch.empty(s.shard_shape(tuple(t.shape)), dtype=t.dtype,
+                                device="meta")
+            return DTensor.from_local(block, s.mesh, s.placements,
+                                      run_check=False)
+        return distribute_tensor(t, s.mesh, s.placements)
+
+    return tree_map(place, tree, shardings)
 
 
 def gather_at_use(tree: Any, grad_axes: Tuple[str, ...] = ()) -> Any:

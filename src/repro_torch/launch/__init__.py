@@ -1,4 +1,7 @@
 """Command-line entry points of the port: ``serve`` (the serving engine),
-``train`` (smoke and production training), ``dryrun`` (per-chip bytes and
-roofline terms on the production meshes, without XLA); ``mesh`` builds
-the meshes and ``hlo_analysis`` holds the roofline formulas."""
+``train`` (smoke and production training), ``dryrun`` (each production
+step traced on meta tensors as one rank of the production meshes: per-chip
+FLOPs, bytes, collectives, memory and roofline terms, without XLA);
+``mesh`` builds the meshes (and a fake world of their size),
+``step_cost`` counts a step as it runs and ``hlo_analysis`` holds the
+roofline formulas."""

@@ -1,10 +1,10 @@
 """Roofline terms and model FLOPs: the counterpart of the JAX package's
 ``launch/hlo_analysis.py``, without its HLO parser.
 
-The reference parses the optimized XLA HLO text for collective bytes
-(``collective_bytes``); the port compiles no XLA program, so that function
-has no counterpart here (nor does ``launch/hlo_parse.py``, the reference's
-trip-count-aware HLO accounting). ``RooflineTerms``, ``roofline`` and
+The reference reads collective bytes from the optimized XLA HLO text
+(``collective_bytes``) and the rest of a step's cost from it too
+(``launch/hlo_parse.py``); the port counts them by tracing the step as it
+runs, in ``launch/step_cost.py``. ``RooflineTerms``, ``roofline`` and
 ``model_flops_for`` are copies; the peak rates are the port's ``H100``
 ``Device`` (NVIDIA's spec sheet: 989 TFLOP/s bf16 dense, 3.35 TB/s HBM3,
 450 GB/s NVLink each way), not the reference's TPU v5e constants.

@@ -15,15 +15,18 @@ caller passes one (``file://...``, ``tcp://...``), else from the
 environment as ``torchrun`` sets it (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``: ``env://``), else a world of 1 on an in-memory store (no
 rendezvous). A rank on ``cuda`` takes ``cuda:LOCAL_RANK``
-(``rank_device``).
+(``rank_device``). ``fake_world`` starts a world of any size in one
+process on torch's ``"fake"`` backend, whose collectives move nothing: the
+dry-run builds the production meshes on it and traces one rank's step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
 from datetime import timedelta
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -96,6 +99,27 @@ def ensure_process_group(device_type: str, init_method: Optional[str] = None,
     return True
 
 
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A process group of ``world_size`` ranks on torch's ``"fake"``
+    backend, this process rank 0, destroyed on exit: collectives return at
+    once and move nothing, so one process traces rank 0's step on a mesh of
+    the production size (``make_mesh(shape, "cpu")`` over it, DTensors
+    holding meta shards). Raises while a process group is live, so it never
+    shadows a real world."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already live")
+    # private API, imported here only: it registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def make_mesh(shape: Dict[str, int], device_type: Optional[str] = None):
     """A ``DeviceMesh`` of ``shape`` (axis name -> size: ("data", "model"),
     or ("pod", "data", "model")) over the current world, whose size must
@@ -117,6 +141,45 @@ def make_mesh(shape: Dict[str, int], device_type: Optional[str] = None):
     return init_device_mesh(device_type, sizes, mesh_dim_names=names)
 
 
+def production_hints(model, mesh, batch_size: int) -> Dict[str, Any]:
+    """The activation hints the reference's launcher and dry-run set: the
+    batch over the fsdp axes when it divides them (``"btd"``); for MoE one
+    token group a data shard (``"moe_groups"``) and, for an MoE whose
+    experts do not divide the fsdp axes (grok-1), the ZeRO-3 weight hints
+    the reference forces there, which name what ``gather_at_use`` does to
+    every weight here."""
+    from repro_torch.distributed.sharding import (NamedSharding, _fits,
+                                                  axis_sizes, fsdp_axes)
+    dp = fsdp_axes(mesh)
+    bspec = dp if _fits(mesh, batch_size, dp) else None
+    hints: Dict[str, Any] = {"btd": NamedSharding(mesh, (bspec, None, None))}
+    if model.cfg.has_moe:
+        hints["moe_groups"] = math.prod(axis_sizes(mesh)[a] for a in dp)
+        hints["moe_tokens"] = NamedSharding(mesh, (bspec, None, None))
+        if not _fits(mesh, model.cfg.moe.num_experts, dp):
+            hints["moe_w_col"] = NamedSharding(mesh, (None, None, "model"))
+            hints["moe_w_row"] = NamedSharding(mesh, (None, "model", None))
+            hints["moe_buf"] = NamedSharding(mesh, (dp, None, None, None))
+    return hints
+
+
+def production_state(model, params: Any, mesh, batch_size: int):
+    """Params and optimizer state placed on ``mesh`` by the sharding rules
+    (``sharding.distribute``: meta params become DTensors of meta shards),
+    and ``production_hints``. Returns (params, opt_state, hints)."""
+    from repro_torch.distributed.sharding import (distribute,
+                                                  opt_state_shardings,
+                                                  param_shardings)
+    from repro_torch.training.optimizer import OptState, init_opt_state
+    p_sh = param_shardings(model, mesh)
+    opt_sh = opt_state_shardings(p_sh, mesh)
+    opt = init_opt_state(params)
+    opt = OptState(step=opt.step, mu=distribute(opt.mu, opt_sh.mu),
+                   nu=distribute(opt.nu, opt_sh.nu))
+    params = distribute(params, p_sh)
+    return params, opt, production_hints(model, mesh, batch_size)
+
+
 def make_host_mesh(device_type: Optional[str] = None, *,
                    multi_pod: bool = False):
     """A (1, 1) ``DeviceMesh`` named ("data", "model") — (1, 1, 1) with
@@ -133,5 +196,6 @@ def make_host_mesh(device_type: Optional[str] = None, *,
 
 
 __all__ = ["AXES", "MULTI_POD_AXES", "MeshShape", "ensure_process_group",
+           "fake_world",
            "make_host_mesh", "make_mesh", "make_production_mesh",
-           "rank_device"]
+           "production_hints", "production_state", "rank_device"]

@@ -32,7 +32,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import math
 import time
 from typing import Any, Dict, List, Optional
 
@@ -41,39 +40,16 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config
 from repro_torch.distributed.hints import activation_sharding
-from repro_torch.distributed.sharding import (NamedSharding, _fits,
-                                              axis_sizes, distribute,
-                                              fsdp_axes,
-                                              opt_state_shardings,
-                                              param_shardings)
+from repro_torch.distributed.sharding import axis_sizes
 from repro_torch.launch.mesh import (AXES, MULTI_POD_AXES,
                                      ensure_process_group, make_mesh,
-                                     rank_device)
+                                     production_state, rank_device)
 from repro_torch.models import Model
-from repro_torch.training import (DataConfig, OptimizerConfig, OptState,
+from repro_torch.training import (DataConfig, OptimizerConfig,
                                   SyntheticLM, batch_to_device,
                                   init_opt_state, make_train_step,
                                   save_checkpoint)
 from repro_torch.tree import leaves
-
-
-def _production_state(model: Model, params: Any, mesh, batch_size: int):
-    """Params and optimizer state placed on ``mesh`` by the sharding
-    rules, and the activation hints the reference's launcher sets."""
-    p_sh = param_shardings(model, mesh)
-    opt_sh = opt_state_shardings(p_sh, mesh)
-    opt = init_opt_state(params)
-    opt = OptState(step=opt.step, mu=distribute(opt.mu, opt_sh.mu),
-                   nu=distribute(opt.nu, opt_sh.nu))
-    params = distribute(params, p_sh)
-    dp = fsdp_axes(mesh)
-    bspec = dp if _fits(mesh, batch_size, dp) else None
-    hints: Dict[str, Any] = {"btd": NamedSharding(mesh, (bspec, None, None))}
-    if model.cfg.has_moe:
-        sizes = axis_sizes(mesh)
-        hints["moe_groups"] = math.prod(sizes[a] for a in dp)
-        hints["moe_tokens"] = NamedSharding(mesh, (bspec, None, None))
-    return params, opt, hints
 
 
 def _mesh_shape(text: str, multi_pod: bool) -> Dict[str, int]:
@@ -144,7 +120,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         world, rank = 1, 0
         if args.production:
             mesh = make_mesh(shape, device.type)
-            params, opt_state, hints = _production_state(
+            params, opt_state, hints = production_state(
                 model, params, mesh, args.batch_size)
             mesh_desc = axis_sizes(mesh)
             world = torch.distributed.get_world_size()

@@ -181,9 +181,12 @@ def attention_full(params: Params, x: torch.Tensor, *, num_heads: int,
                    num_kv_heads: int, head_dim: int, rope_theta: float,
                    is_global: bool = True, window: int = 0,
                    causal: bool = True, use_rope: bool = True,
-                   positions: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
-    """Self-attention over the full sequence. x: [B, S, d] -> [B, S, d]."""
+                   positions: Optional[torch.Tensor] = None,
+                   return_kv: bool = False):
+    """Self-attention over the full sequence. x: [B, S, d] -> [B, S, d];
+    with ``return_kv`` also its k (after rope) and v [B, S, Hkv, hd], which
+    the prefill writes to the cache: projected once, where the JAX package
+    projects them again and leaves XLA to merge the two."""
     B, S, _ = x.shape
     G = num_heads // num_kv_heads
     q = _split_heads(x @ params["wq"], num_heads, head_dim)
@@ -198,14 +201,15 @@ def attention_full(params: Params, x: torch.Tensor, *, num_heads: int,
     if S >= CHUNKED_THRESHOLD and S % Q_CHUNK == 0:
         out = _attention_chunked(q, k, v, is_global=is_global,
                                  window=window, causal=causal,
-                                 head_dim=head_dim)
-        return out.to(x.dtype) @ params["wo"]
-    scores = qk_scores(q, k)
-    idx = torch.arange(S, device=x.device)
-    mask = locality_mask(idx, idx, is_global, window, causal)
-    out = _scores_to_out(scores, mask, v, head_dim)
-    out = out.reshape(B, S, num_heads * head_dim).to(x.dtype)
-    return out @ params["wo"]
+                                 head_dim=head_dim).to(x.dtype)
+    else:
+        scores = qk_scores(q, k)
+        idx = torch.arange(S, device=x.device)
+        mask = locality_mask(idx, idx, is_global, window, causal)
+        out = _scores_to_out(scores, mask, v, head_dim)
+        out = out.reshape(B, S, num_heads * head_dim).to(x.dtype)
+    y = out @ params["wo"]
+    return (y, k, v) if return_kv else y
 
 
 def attention_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
@@ -256,15 +260,31 @@ def attention_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
         vq, vs_new = quantize(v[:, 0], scale_dtype=v_scale.dtype)
         k_cache, v_cache = write(k_cache, kq), write(v_cache, vq)
         k_scale, v_scale = write(k_scale, ks_new), write(v_scale, vs_new)
-        kc = dequantize(k_cache, k_scale, dtype=x.dtype)
-        vc = dequantize(v_cache, v_scale, dtype=x.dtype)
     else:
         k_cache, v_cache = write(k_cache, k[:, 0]), write(v_cache, v[:, 0])
-        kc, vc = k_cache, v_cache
+    if 0 < window < S and not is_global:
+        # a local layer reads only its rows' last ``window`` entries, as
+        # the JAX package's banded decode does
+        start = (pos - window + 1).clamp(0, S - window)
+        cols = start[:, None] + torch.arange(window, device=x.device)
+
+        def band(c):
+            idx = cols[:, None, :, None].expand(B, c.shape[1], window,
+                                                c.shape[3])
+            return c.gather(2, idx)
+    else:
+        cols = torch.arange(S, device=x.device)[None, :]
+
+        def band(c):
+            return c
+    if quant:
+        kc = dequantize(band(k_cache), band(k_scale), dtype=x.dtype)
+        vc = dequantize(band(v_cache), band(v_scale), dtype=x.dtype)
+    else:
+        kc, vc = band(k_cache), band(v_cache)
     q = q.reshape(B, 1, num_kv_heads, G, head_dim)
     scores = torch.einsum("bshgd,bhtd->bhgst", q.to(kc.dtype), kc)
     scores = scores.float() / math.sqrt(head_dim)
-    cols = torch.arange(S, device=x.device)[None, :]
     ok = cols <= pos[:, None]
     if window > 0 and not is_global:
         ok = ok & (cols > pos[:, None] - window)

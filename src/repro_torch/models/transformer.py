@@ -35,7 +35,7 @@ from repro_torch.distributed.hints import carry, constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import Params, apply_rope, mlp, rmsnorm
+from repro_torch.models.layers import Params, mlp, rmsnorm
 
 Cache = Dict[str, Any]
 
@@ -58,18 +58,6 @@ def _unstack(stacked: Params) -> list:
         flat[k] = _unstack(v) if isinstance(v, dict) else v.unbind(0)
         n = len(flat[k])
     return [{k: v[l] for k, v in flat.items()} for l in range(n)]
-
-
-def _project_kv(p: Params, h: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    hd = cfg.resolved_head_dim
-    B, S = h.shape[0], h.shape[1]
-    k = (h @ p["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (h @ p["attn"]["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
-    if cfg.arch_type != "audio":
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return k.transpose(1, 2), v.transpose(1, 2)             # [B,Hkv,S,hd]
 
 
 def _ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -162,8 +150,6 @@ def stack_prefill(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
                   flags: Sequence[bool]) -> Tuple[torch.Tensor, Cache]:
     """Full forward emitting the per-layer decode cache: [L, B, Hkv, S, hd]
     k / v, and / or the SSM's conv window and state."""
-    S = x.shape[1]
-    positions = torch.arange(S, device=x.device)[None, :]
     out: Dict[str, list] = {}
     for l, is_global in enumerate(flags):
         p = _layer(stacked, l)
@@ -175,11 +161,11 @@ def stack_prefill(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
                 out.setdefault(k, []).append(st[k])
             x = x + y
             continue
-        k, v = _project_kv(p, h, cfg, positions)
-        out.setdefault("k", []).append(k)
-        out.setdefault("v", []).append(v)
-        a = attn.attention_full(p["attn"], h, causal=True,
-                                **_attn_kw(cfg, is_global))
+        a, k, v = attn.attention_full(p["attn"], h, causal=True,
+                                      return_kv=True,
+                                      **_attn_kw(cfg, is_global))
+        out.setdefault("k", []).append(k.transpose(1, 2))   # [B,Hkv,S,hd]
+        out.setdefault("v", []).append(v.transpose(1, 2))
         if cfg.arch_type == "hybrid":
             y, st = ssm_lib.ssd_chunked(p["mamba"], h, cfg.ssm,
                                         return_state=True)
@@ -265,20 +251,20 @@ def encdec_decoder_full(stacked: Params, x: torch.Tensor, mem: torch.Tensor,
     memory, [L, B, Hkv, S or T, hd]. ``remat`` applies without the cache
     only, as in the reference."""
     hd = cfg.resolved_head_dim
-    B, S = x.shape[0], x.shape[1]
     out: Dict[str, list] = {}
 
     def body(x, mem, p):
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        if with_cache:
-            k = (h @ p["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-            v = (h @ p["attn"]["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
-            out.setdefault("k", []).append(k.transpose(1, 2))
-            out.setdefault("v", []).append(v.transpose(1, 2))
-        x = x + attn.attention_full(
+        a = attn.attention_full(
             p["attn"], h, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=hd,
-            rope_theta=cfg.rope_theta, causal=True, use_rope=False)
+            rope_theta=cfg.rope_theta, causal=True, use_rope=False,
+            return_kv=with_cache)
+        if with_cache:
+            a, k, v = a
+            out.setdefault("k", []).append(k.transpose(1, 2))
+            out.setdefault("v", []).append(v.transpose(1, 2))
+        x = x + a
         hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
         km, vm = attn.project_memory_kv(p["cross"], mem,
                                         num_kv_heads=cfg.num_kv_heads,

@@ -168,7 +168,7 @@ def test_production_step_equals_plain_step(arch, world1):
     """DTensor params and optimizer state placed by the rules on the host
     mesh, each weight gathered at use: one step bitwise equal to the plain
     step from the same params and batch."""
-    from repro_torch.launch.train import _production_state
+    from repro_torch.launch.mesh import production_state
     cfg = smoke_config(arch)
     model = Model(cfg, param_dtype=torch.float32, device="cpu")
     batch = batch_to_device(next(iter(SyntheticLM(
@@ -179,7 +179,7 @@ def test_production_step_equals_plain_step(arch, world1):
                                                   total_steps=4))
     p1, s1, m1 = step(plain, init_opt_state(plain), batch)
     mesh = make_host_mesh("cpu")
-    dparams, dopt, hint = _production_state(model, params, mesh, 2)
+    dparams, dopt, hint = production_state(model, params, mesh, 2)
     want = tsh.param_shardings(model, mesh)
     for t, s in zip(leaves(dparams), leaves(want)):
         assert list(t.placements) == s.placements
@@ -216,17 +216,19 @@ def _ref_bytes(arch, multi, itemsize=None):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_dryrun_bytes_equal_reference_shard_sums(arch):
+    """The dry-run record's ``bytes_per_chip`` (``dryrun.shard_bytes``; a
+    whole record, trace included, is ``tests/test_torch_dryrun.py``'s)."""
     shape = next(s for s in INPUT_SHAPES if INPUT_SHAPES[s].kind == "train"
                  and pair_is_supported(arch, s))
+    model = Model(get_config(arch), param_dtype=torch.bfloat16,
+                  device="meta", remat=True)
     for multi in (False, True):
-        rec = dryrun.dryrun_one(arch, shape, multi, verbose=False)
-        by = rec["bytes_per_chip"]
+        mesh = make_production_mesh(multi_pod=multi)
+        by = dryrun.shard_bytes(model, INPUT_SHAPES[shape], mesh)
         assert by["params"] == _ref_bytes(arch, multi)
         # fp32 mu and nu follow the params' shards; the int32 step
         assert by["opt_state"] == 2 * _ref_bytes(arch, multi, 4) + 4
-        assert rec["chips"] == (512 if multi else 256)
-        assert rec["roofline"]["compute_s"] == pytest.approx(
-            rec["model_flops_per_chip"] / H100.peak_flops)
+        assert mesh.size == (512 if multi else 256)
 
 
 def test_model_flops_and_roofline_rates():

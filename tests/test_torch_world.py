@@ -114,8 +114,8 @@ def _rank_step(out: Path, arch: str, mesh_text: str, params_npz: str):
     from repro_torch.configs import smoke_config
     from repro_torch.distributed.hints import activation_sharding
     from repro_torch.distributed.sharding import full
-    from repro_torch.launch.mesh import AXES, MULTI_POD_AXES, make_mesh
-    from repro_torch.launch.train import _production_state
+    from repro_torch.launch.mesh import (AXES, MULTI_POD_AXES, make_mesh,
+                                         production_state)
     from repro_torch.models import Model
     from repro_torch.training import (OptimizerConfig, batch_to_device,
                                       loss_and_grads, make_train_step,
@@ -126,7 +126,7 @@ def _rank_step(out: Path, arch: str, mesh_text: str, params_npz: str):
     mesh = make_mesh(dict(zip(names, sizes)), "cpu")
     cfg = smoke_config(arch)
     model = Model(cfg, param_dtype=torch.float32, device="cpu", remat=True)
-    dparams, dopt, hints = _production_state(
+    dparams, dopt, hints = production_state(
         model, _load_params(Path(params_npz)), mesh, BATCH)
     batch = batch_to_device(_batch(arch), model)
     with activation_sharding(hints):
