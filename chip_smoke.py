@@ -260,8 +260,11 @@ Phases, each printing its own lines; a failing phase raises:
                    counted and meta peaks beside ``max_memory_allocated``;
                    then on the host, per chip (meta tensors, a fake world):
                    gemma3-1b ``train_4k`` on 16 × 16 and grok-1-314b
-                   ``train_4k`` on 2 × 16 × 16 (FLOPs, bytes, each
-                   collective kind, peak, dominant term, trace seconds);
+                   ``train_4k`` on 2 × 16 × 16, tensor-parallel over
+                   "model" (FLOPs, bytes, each collective kind, peak,
+                   dominant term, useful-FLOPs ratio, trace seconds), each
+                   beside the same record with every weight gathered whole
+                   (FLOPs, collective bytes, peak, useful ratio);
      train-cli   — one production step at world 1 on the card (nccl, the
                    1×1 ``DeviceMesh``; gemma3-1b and grok-1 smoke, bf16)
                    bitwise equal to the plain step; grok-1 smoke (fp32)
@@ -275,9 +278,12 @@ Phases, each printing its own lines; a failing phase raises:
                    nccl; its median ms a step of steps 2-5), both rc 0;
      train-world — the launcher's ``--production --smoke --dtype float32``
                    run on the CPU as four gloo ranks on (data 2, model 2),
-                   each a fresh interpreter, against the world-1 run: the
-                   3 losses within 2e-4 (``device=cpu ranks=4``: the card
-                   holds one rank);
+                   the FFN and the vocabulary tensor-parallel over
+                   "model", each a fresh interpreter, against the world-1
+                   run: the 3 losses within 2e-4 (``device=cpu ranks=4``:
+                   the card holds one rank); then ``--decode-steps 4``'s
+                   greedy tokens on the cache sequence-sharded over
+                   "model", identical to world 1;
  10. the kernel table as one JSON line, then the result line.
 
 Launch counts are set to 0 just before each path phase (4-9), and in
@@ -3455,6 +3461,24 @@ def phase_train_ckpt(torch, outdir):
     return dict(leaves=n)
 
 
+# the two host records of the dryrun phase as the port traced them with
+# every weight gathered whole (ZeRO-3 alone: "model" ranks repeating their
+# data block's step), from `python -m repro_torch.launch.dryrun --all` on an
+# H100 80GB HBM3 host, torch 2.11 (PERF.md, section 6)
+ZERO3_ONLY = {
+    "gemma3-1b": dict(flops=557632783908864.0,
+                      collective_bytes=604101940.0 + 129821184.0
+                      + 1395523584.0,
+                      peak_bytes=53645106704,
+                      useful_flops_ratio=0.044063710379696384),
+    "grok-1-314b": dict(flops=2.797240044434227e+16,
+                        collective_bytes=3249582180.0 + 336721870848.0
+                        + 947040288768.0,
+                        peak_bytes=1686651346956,
+                        useful_flops_ratio=0.03714685869372955),
+}
+
+
 def phase_dryrun(torch, cg, gv, fa, uncounted=3):
     """The dry-run's step accounting (``launch/step_cost.py``). On the
     card: the ``train`` phase's step (gemma3-1b, bf16, remat, B 4, S 2048)
@@ -3464,7 +3488,10 @@ def phase_dryrun(torch, cg, gv, fa, uncounted=3):
     spec-sheet rates beside the measured step; the counted and meta peaks
     beside ``max_memory_allocated``. On the host: fake-world traces of
     gemma3-1b ``train_4k`` on 16 × 16 and grok-1-314b ``train_4k`` on
-    2 × 16 × 16, per chip. No process group outlives the phase."""
+    2 × 16 × 16, per chip, tensor-parallel over "model", each beside the
+    same record traced with every weight gathered whole
+    (``ZERO3_ONLY``): FLOPs, collective bytes, peak, useful-FLOPs ratio.
+    No process group outlives the phase."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -3556,8 +3583,23 @@ def phase_dryrun(torch, cg, gv, fa, uncounted=3):
             compute_s=f"{r['compute_s']:.4f}",
             memory_s=f"{r['memory_s']:.4f}",
             collective_s=f"{r['collective_s']:.4f}",
+            useful_flops_ratio=f"{r['useful_flops_ratio']:.4f}",
             dominant=r["dominant"], trace_s=f"{rec['trace_s']:.2f}")
+        old = ZERO3_ONLY[arch]
+        coll = sum(rec["collectives"].values())
+        say("dryrun", where="host", arch=arch, compare="tensor-parallel "
+            "over model vs ZeRO-3 alone (the same trace before the "
+            "model-axis compute, H100 80GB HBM3 host, torch 2.11)",
+            flops=f"{rec['flops']:.6e}", flops_before=f"{old['flops']:.6e}",
+            flops_ratio=f"{rec['flops'] / old['flops']:.4f}",
+            collective_bytes=f"{coll:.6e}",
+            collective_bytes_before=f"{old['collective_bytes']:.6e}",
+            peak_bytes=f"{rec['memory']['peak_bytes']:.6e}",
+            peak_bytes_before=f"{old['peak_bytes']:.6e}",
+            useful_flops_ratio=f"{r['useful_flops_ratio']:.4f}",
+            useful_flops_ratio_before=f"{old['useful_flops_ratio']:.4f}")
         assert rec["collectives"].get("all-gather", 0) > 0, rec
+        assert rec["flops"] < old["flops"], (rec["flops"], old["flops"])
         out[arch] = rec
     assert not dist.is_initialized()
     return out
@@ -3689,14 +3731,17 @@ def phase_train_world(torch, outdir, world=4, timeout_s=300):
     """The launcher's --production --smoke run (gemma3-1b reduced config,
     fp32, remat) on the CPU as four gloo ranks on the (data 2, model 2)
     mesh, each a fresh interpreter in a session of its own with a
-    ``file://`` rendezvous under ``outdir``, against the same run at world
-    1: the 3 losses within 2e-4. The card holds one rank, so this world
-    runs on the host's cores."""
+    ``file://`` rendezvous under ``outdir``, the FFN and the vocabulary
+    tensor-parallel over "model", against the same run at world 1: the 3
+    losses within 2e-4; then the trained params served on each mesh
+    (``--decode-steps 4``: a prefill, then greedy steps on the cache
+    sequence-sharded over "model" at world 4), tokens identical. The card
+    holds one rank, so this world runs on the host's cores."""
     import shutil
     import signal
     base = ["-m", "repro_torch.launch.train", "--production", "--smoke",
             "--device", "cpu", "--dtype", "float32", "--steps", "3",
-            "--batch-size", "4", "--seq-len", "32"]
+            "--batch-size", "4", "--seq-len", "32", "--decode-steps", "4"]
     run_dir = Path(outdir) / "train_world"
     shutil.rmtree(run_dir, ignore_errors=True)
     run_dir.mkdir(parents=True)
@@ -3704,6 +3749,9 @@ def phase_train_world(torch, outdir, world=4, timeout_s=300):
     def losses(text):
         return [float(m) for m in re.findall(r"^step +\d+ loss (\S+)",
                                              text, re.M)]
+
+    def decoded(text):
+        return re.findall(r"^decode tokens=(\S+)$", text, re.M)
 
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
@@ -3749,11 +3797,20 @@ def phase_train_world(torch, outdir, world=4, timeout_s=300):
     err = max(abs(a - b) for a, b in zip(got, want))
     say("train-world", device="cpu", ranks=world, mesh="data=2,model=2",
         backend="gloo", dtype="float32", arch="gemma3-1b-smoke",
+        compute="ffn and vocab tensor-parallel over model",
         losses=",".join(f"{v:.6f}" for v in got),
         world_1=",".join(f"{v:.6f}" for v in want),
         max_abs_diff=f"{err:.2e}", tol="2e-4", seconds=f"{secs:.1f}")
     assert len(got) == len(want) == 3 and err <= 2e-4, (got, want)
-    return dict(losses=got, world_1=want, max_abs_diff=err)
+    toks, toks_1 = decoded(out0), decoded(one.stdout)
+    same = len(toks) == len(toks_1) == 1 and toks == toks_1
+    say("train-world", decode="prefill 16 + 4 greedy steps, batch 4, "
+        "cache 32 sequence-sharded over model (16 a rank)",
+        tokens=toks[0] if toks else "none",
+        decode_tokens_world_4_vs_1="identical" if same else "DIFFERENT")
+    assert same, (toks, toks_1)
+    return dict(losses=got, world_1=want, max_abs_diff=err,
+                decode_tokens=toks[0])
 
 
 # ---------------------------------------------------------------------------

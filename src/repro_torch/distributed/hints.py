@@ -12,7 +12,10 @@ tensors and gathers each weight at use (``sharding.gather_at_use``), so on
 that path the calls sit where the reference puts them (``_decoder_input``,
 ``stack_full``, ``_chunked_ce``) and leave the tensors as they are. There
 the ``"btd"`` hint also says which mesh axes split the batch: a plain
-activation is this rank's block over them (``sharding.batch_axes``).
+activation is this rank's block over them (``sharding.batch_axes``), and
+the ``"model"`` hint names the mesh whose "model" group the model code's
+tensor-parallel collectives run on (``sharding.model_axis``; without it,
+the plain path).
 """
 from __future__ import annotations
 

@@ -8,10 +8,17 @@ Mesh: (data, model) on one pod, (pod, data, model) across pods
 meshes, which touch no device) or a ``torch.distributed`` ``DeviceMesh``
 with ``mesh_dim_names``; the rules read only axis sizes.
 
-Past one rank the training step is ZeRO-3 over data-parallel ranks:
-``gather_at_use`` gathers each weight, every rank takes its block of the
-global batch (``batch_block``), and the gather's backward sums the
-gradients over the axes that split the batch (``batch_axes``).
+Past one rank the training step is ZeRO-3 over the data-parallel axes and
+tensor-parallel over "model", as the reference's GSPMD step computes it:
+``gather_at_use`` gathers each weight over its FSDP axes and keeps a leaf
+the rules shard on "model" as the rank's block, every rank takes its block
+of the global batch (``batch_block``), and the gather's backward sums the
+gradients over the axes that split the batch (``batch_axes``). The model
+code runs the Megatron pair on such a block (``model_block``,
+``copy_to_model`` / ``reduce_from_model``, over the ``"model"`` hint's
+group) and a decode on a sequence-sharded cache combines its softmax
+across the sequence's ranks (``seq_block``). A "model" axis of size 1
+keeps every leaf whole and issues no collective.
 
 Baseline scheme (uniform across all ten architectures, as the reference):
 
@@ -265,26 +272,39 @@ def distribute(tree: Any, shardings: Any) -> Any:
 
 
 def gather_at_use(tree: Any, grad_axes: Tuple[str, ...] = ()) -> Any:
-    """Every DTensor leaf gathered to a full local tensor, differentiably
-    (ZeRO-3's gather of the weights at use). Other leaves pass through.
+    """Every DTensor leaf gathered over its FSDP axes (ZeRO-3's gather of
+    the weights at use), differentiably, to a local tensor. A leaf sharded
+    on a "model" axis of size > 1 stays this rank's "model" block: the
+    tensor-parallel compute reads it as such (``model_block``). Other
+    leaves pass through.
 
     ``grad_axes``: the mesh axes whose ranks hold different blocks of the
     batch. The gathered weight's gradient is ``Partial`` on them, so the
     backward reduce-scatters (sums) the ranks' gradients into the weight's
-    own placements; it is ``Replicate`` on the other axes, whose ranks
-    compute the same block and so the same gradient (no sum there). With
-    no ``grad_axes`` every rank's gradient is taken as the whole one: right
-    only when every rank sees the whole batch."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    own placements; on "model" it is the rank's own block (or
+    ``Replicate``, the Megatron pair making every "model" rank's gradient
+    of a replicated weight the same), and ``Replicate`` on the other axes,
+    whose ranks compute the same block and so the same gradient (no sum
+    there). With no ``grad_axes`` every rank's gradient is taken as the
+    whole one: right only when every rank sees the whole batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     def gather(t):
         if not isinstance(t, DTensor):
             return t
-        if not grad_axes:
-            return t.full_tensor()
-        return t.full_tensor(grad_placements=[
-            Partial() if a in grad_axes else Replicate()
-            for a in t.device_mesh.mesh_dim_names])
+        mesh = t.device_mesh
+        names = mesh.mesh_dim_names
+        kept = [p if a == "model" and mesh.size(i) > 1 else Replicate()
+                for i, (a, p) in enumerate(zip(names, t.placements))]
+        if not any(isinstance(p, Shard) for p in kept):
+            if not grad_axes:
+                return t.full_tensor()
+            return t.full_tensor(grad_placements=[
+                Partial() if a in grad_axes else Replicate()
+                for a in names])
+        grad = [Partial() if a in grad_axes else p
+                for a, p in zip(names, kept)]
+        return t.redistribute(mesh, kept).to_local(grad_placements=grad)
 
     return tree_map(gather, tree)
 
@@ -326,15 +346,13 @@ def all_reduce_sum(t: torch.Tensor, mesh: Any, axes: Tuple[str, ...], *,
     axes are not added). ``differentiable``: through
     ``torch.distributed.nn``, whose backward all-reduces (sums) the
     incoming gradients; else on a copy, outside autograd."""
-    import torch.distributed as dist
     for a in axes:
         group = mesh.get_group(a)
         if differentiable:
             from torch.distributed.nn.functional import all_reduce
             t = all_reduce(t, group=group)
         else:
-            t = t.detach().clone()
-            dist.all_reduce(t, group=group)
+            t = _all_reduce(t.detach(), group)
     return t
 
 
@@ -361,6 +379,187 @@ def local_block(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     return t
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel compute over "model"
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The "model" axis of a ``DeviceMesh``: the group the Megatron
+    collectives run on, its size and this rank's coordinate on it."""
+    mesh: Any
+
+    @property
+    def size(self) -> int:
+        return axis_sizes(self.mesh)["model"]
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.get_local_rank("model")
+
+    @property
+    def group(self):
+        return self.mesh.get_group("model")
+
+
+def model_axis() -> Any:
+    """The ``ModelAxis`` of the ``"model"`` hint (``launch/mesh.
+    production_hints`` sets it on a ``DeviceMesh`` whose "model" axis is
+    larger than 1); None without it, and the model code takes the plain
+    path."""
+    from repro_torch.distributed.hints import static_hint
+    mesh = static_hint("model")
+    return None if mesh is None else ModelAxis(mesh)
+
+
+def model_block(t: torch.Tensor, dim: int, full: Any
+                ) -> Tuple[Any, int]:
+    """(the ``ModelAxis``, the offset of ``t``'s block) where ``t`` is this
+    rank's "model" block of a dimension ``full`` long at ``dim``
+    (``gather_at_use`` keeps the block of a leaf the rules shard on
+    "model"); (None, 0) where ``t`` holds the dimension whole (no hint, or
+    a ``_fits`` fallback that replicated it) or ``full`` is None: then no
+    collective runs."""
+    n = int(t.shape[dim])
+    if full is None or n == full:
+        return None, 0
+    ax = model_axis()
+    if ax is None or n * ax.size != full:
+        raise ValueError(f"a block of {n} of a dimension of {full} needs "
+                         f"the 'model' hint of a mesh whose model axis "
+                         f"splits it")
+    return ax, ax.rank * n
+
+
+def _all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+    t = t.clone()
+    dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
+    return t
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's *f*: identity forward, all-reduce over "model" backward
+    (at a column-parallel input, whose ranks each return the gradient of
+    their block's share)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's *g*: all-reduce over "model" forward, identity backward
+    (at a row-parallel output: every rank's output, so its gradient, is
+    the same). Not ``torch.distributed.nn``'s all-reduce, whose backward
+    all-reduces too and would return a replicated gradient M times over."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, ax: ModelAxis) -> torch.Tensor:
+    return _CopyToModel.apply(x, ax.group)
+
+
+def reduce_from_model(x: torch.Tensor, ax: ModelAxis) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, ax.group)
+
+
+def max_over_model(x: torch.Tensor, ax: ModelAxis) -> torch.Tensor:
+    """The elementwise max of ``x`` over the "model" ranks, outside
+    autograd."""
+    import torch.distributed as dist
+    return _all_reduce(x.detach(), ax.group, dist.ReduceOp.MAX)
+
+
+def gather_from_model(x: torch.Tensor, ax: ModelAxis,
+                      dim: int = -1) -> torch.Tensor:
+    """The "model" ranks' blocks of ``x`` concatenated along ``dim`` in
+    rank order, outside autograd (the logits a server takes its greedy
+    token from)."""
+    import torch.distributed as dist
+    x = x.detach().contiguous()
+    out = x.new_empty((ax.size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=ax.group)
+    return torch.cat(out.chunk(ax.size, dim=0), dim=dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqBlock:
+    """This rank's block of a decode cache's sequence dimension, sharded
+    over ``axes`` (major to minor) of ``mesh``: columns ``offset`` to
+    ``offset`` + the block's length of ``total``."""
+    mesh: Any
+    axes: Tuple[str, ...]
+    offset: int
+    total: int
+
+    def all_reduce(self, t: torch.Tensor, op=None) -> torch.Tensor:
+        """``t`` reduced over the ranks of ``axes`` (one all-reduce an
+        axis), outside autograd."""
+        for a in self.axes:
+            t = _all_reduce(t, self.mesh.get_group(a), op)
+        return t
+
+
+def seq_block(t: torch.Tensor, dim: int) -> Any:
+    """The ``SeqBlock`` of a DTensor cache leaf sharded on ``dim`` over
+    mesh axes of size > 1 (``cache_shardings``); None for a plain tensor
+    or a leaf that holds ``dim`` whole."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return None
+    mesh = t.device_mesh
+    axes = tuple(a for i, (a, p) in enumerate(zip(mesh.mesh_dim_names,
+                                                   t.placements))
+                 if isinstance(p, Shard) and p.dim == dim
+                 and mesh.size(i) > 1)
+    if not axes:
+        return None
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = axis_sizes(mesh)
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * sizes[a] + coord[a], n * sizes[a]
+    size = int(t.to_local().shape[dim])
+    return SeqBlock(mesh, axes, idx * size, size * n)
+
+
+def place_block(t: torch.Tensor, sharding: NamedSharding,
+                batch_dim: int) -> torch.Tensor:
+    """A DTensor placed by ``sharding`` from ``t``, this rank's block of
+    the batch (dimension ``batch_dim``) and whole on the others: ``t`` is
+    cut to the rank's block of every other sharded dimension (a prefill's
+    cache, kept as the decode's sequence-sharded cache)."""
+    from torch.distributed.tensor import DTensor
+    spec = list(sharding.spec) + [None] * (t.dim() - len(sharding.spec))
+    spec[batch_dim] = None
+    block = local_block(t, NamedSharding(sharding.mesh, tuple(spec)))
+    return DTensor.from_local(block.contiguous(), sharding.mesh,
+                              sharding.placements, run_check=False)
+
+
+def placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, this rank's block, as a DTensor placed as ``like`` where
+    ``like`` is one; ``t`` itself otherwise."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(like, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False)
+
+
 def local(t: torch.Tensor) -> torch.Tensor:
     """A DTensor's local shard; a plain tensor itself."""
     from torch.distributed.tensor import DTensor
@@ -374,8 +573,11 @@ def full(t: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
-    "NamedSharding", "all_reduce_sum", "axis_sizes", "batch_axes",
-    "batch_block", "batch_shardings", "cache_shardings", "distribute",
-    "fsdp_axes", "full", "gather_at_use", "local", "local_block",
-    "opt_state_shardings", "param_shardings", "to_placements",
+    "ModelAxis", "NamedSharding", "SeqBlock", "all_reduce_sum",
+    "axis_sizes", "batch_axes", "batch_block", "batch_shardings",
+    "cache_shardings", "copy_to_model", "distribute", "fsdp_axes", "full",
+    "gather_at_use", "gather_from_model", "local", "local_block",
+    "max_over_model", "model_axis", "model_block", "opt_state_shardings",
+    "param_shardings", "place_block", "placed_like", "reduce_from_model",
+    "seq_block", "to_placements",
 ]

@@ -11,7 +11,15 @@ record:
     sharding rules (``production_state``), under the reference's hints;
   * prefill / decode: ``Model.prefill`` / ``Model.decode_step`` on the
     rank's block of the batch and of the cache (``batch_shardings``,
-    ``cache_shardings``), each weight gathered at use.
+    ``cache_shardings``; the prefill keeps the rank's sequence block of
+    the cache it writes, the decode reads it as DTensors), each weight
+    gathered at use over its FSDP axes.
+
+Every step runs the port's compute over "model" as the reference's GSPMD
+step does (``distributed/sharding.py``): the FFN, the MoE experts' d_ff
+and the vocabulary (embedding, logits, the cross-entropy) tensor-parallel,
+and a decode on a sequence-sharded cache combining its softmax across the
+sequence's ranks.
 
 The record keeps the bytes of params, optimizer state, batch and cache a
 chip holds (``bytes_per_chip``) and the model FLOPs a chip does
@@ -21,9 +29,7 @@ chip holds (``bytes_per_chip``) and the model FLOPs a chip does
 on the reference's fusion-aware bytes), ``collectives`` (operand bytes of
 each kind that occurs), ``memory`` (arguments, outputs, temporaries and
 the peak of live storage) and ``roofline`` at the ``H100``'s spec-sheet
-rates (``launch/hlo_analysis.py``). A decode on a sequence-sharded cache
-attends over the rank's block of it: the port has no sequence-parallel
-decode, so the softmax's combine across "model" ranks is not in the trace.
+rates (``launch/hlo_analysis.py``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k --mesh single
@@ -41,6 +47,7 @@ import torch
 
 from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, get_config,
                                  pair_is_supported)
+from repro_torch.configs.base import InputShape
 from repro_torch.distributed.hints import activation_sharding
 from repro_torch.distributed.sharding import (batch_shardings, distribute,
                                               gather_at_use,
@@ -110,18 +117,24 @@ def trace_step(model: Model, shape, mesh
             _, totals, memory = count_step(step, params, opt, in_specs)
         return totals, memory
     params = distribute(p_shape, param_shardings(model, mesh))
-    block = _block(in_specs, batch_shardings(model, shape, mesh))
+    b_sh = batch_shardings(model, shape, mesh)
+    block = _block({k: v for k, v in in_specs.items() if k != "cache"},
+                   {k: v for k, v in b_sh.items() if k != "cache"})
     with activation_sharding(production_hints(model, mesh, B)):
         if shape.kind == "prefill":
+            decode = InputShape(shape.name, shape.seq_len, B, "decode")
+            c_sh = batch_shardings(model, decode, mesh)["cache"]
             _, totals, memory = count_step(
                 lambda p, b: model.prefill(gather_at_use(p), b,
-                                           cache_len=shape.seq_len),
+                                           cache_len=shape.seq_len,
+                                           cache_shardings=c_sh),
                 params, block)
         else:
+            cache = distribute(in_specs["cache"], b_sh["cache"])
             _, totals, memory = count_step(
                 lambda p, tok, cache: model.decode_step(gather_at_use(p),
                                                         tok, cache),
-                params, block["tokens"], block["cache"])
+                params, block["tokens"], cache)
     return totals, memory
 
 

@@ -147,12 +147,17 @@ def production_hints(model, mesh, batch_size: int) -> Dict[str, Any]:
     token group a data shard (``"moe_groups"``) and, for an MoE whose
     experts do not divide the fsdp axes (grok-1), the ZeRO-3 weight hints
     the reference forces there, which name what ``gather_at_use`` does to
-    every weight here."""
+    every weight here. On a ``DeviceMesh`` whose "model" axis is larger
+    than 1, ``"model"`` names the mesh whose "model" group the model code's
+    tensor-parallel collectives run on (``sharding.model_axis``); without
+    it the model code is the plain path."""
     from repro_torch.distributed.sharding import (NamedSharding, _fits,
                                                   axis_sizes, fsdp_axes)
     dp = fsdp_axes(mesh)
     bspec = dp if _fits(mesh, batch_size, dp) else None
     hints: Dict[str, Any] = {"btd": NamedSharding(mesh, (bspec, None, None))}
+    if hasattr(mesh, "get_group") and axis_sizes(mesh)["model"] > 1:
+        hints["model"] = mesh
     if model.cfg.has_moe:
         hints["moe_groups"] = math.prod(axis_sizes(mesh)[a] for a in dp)
         hints["moe_tokens"] = NamedSharding(mesh, (bspec, None, None))

@@ -10,13 +10,19 @@ model) with ``--multi-pod`` — over a world of that many processes, one a
 rank (``launch/mesh.py``: the world starts from ``--init-method`` or from
 ``torchrun``'s environment; by default it is one process on the (1, 1)
 mesh). Params and optimizer state are DTensors placed by
-``distributed/sharding.py``'s rules, each weight gathered at use (ZeRO-3),
-the hints set as the reference sets them. Every rank draws the same
-global batch from the seed and the step keeps its block over the fsdp
-axes, as the reference's ``P(bspec, None)`` (the whole batch when it does
-not divide them); the gradients are summed across those ranks
+``distributed/sharding.py``'s rules, each weight gathered at use over the
+data / pod axes (ZeRO-3) and the FFN and the vocabulary tensor-parallel
+over "model", the hints set as the reference sets them. Every rank draws
+the same global batch from the seed and the step keeps its block over the
+fsdp axes, as the reference's ``P(bspec, None)`` (the whole batch when it
+does not divide them); the gradients are summed across those ranks
 (``training/train_loop.py``). Rank 0 alone prints. ``--smoke`` runs
 production mode on the reduced config (the CPU tests' size).
+``--decode-steps N`` then serves the trained params on the same mesh: the
+first half of each row of the next batch as its prompt, prefilled into a
+cache of ``--seq-len`` positions that ``cache_shardings`` places (the
+sequence over "model"), and N greedy decode steps on it; rank 0 prints the
+tokens of the whole batch.
 
 Runs on the current CUDA device (``cuda:LOCAL_RANK`` in a world) unless
 ``--device`` names another; with neither a flag nor a GPU it raises.
@@ -90,6 +96,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16",
                     help="with --production: the params' dtype")
+    ap.add_argument("--decode-steps", type=int, default=0,
+                    help="with --production: greedy decode steps after "
+                         "training, on the mesh's sequence-sharded cache")
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device; "
@@ -148,9 +157,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     say(f"step {s:5d} loss {losses[-1]:.6f} "
                         f"lr {float(metrics['lr']):.2e} "
                         f"ms {step_ms[-1]:.1f}", flush=True)
-        wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0
+            decoded = None
+            if args.production and args.decode_steps:
+                prompts = batch_to_device(next(it), model)["tokens"]
+                decoded = serve_greedy(model, params, mesh, prompts[
+                    :, :args.seq_len // 2], args.seq_len, args.decode_steps)
         say(f"{args.steps} steps in {wall:.1f}s "
             f"({wall / args.steps * 1e3:.0f} ms/step host wall)")
+        if decoded is not None:
+            say("decode tokens=" + ",".join(
+                str(int(t)) for t in decoded.reshape(-1)), flush=True)
         if args.checkpoint:
             save_checkpoint(args.checkpoint,
                             {"params": params, "opt": opt_state},
@@ -160,7 +177,40 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         if started:
             torch.distributed.destroy_process_group()
     return {"losses": losses, "step_ms": step_ms, "wall_s": wall,
-            "params": params, "opt_state": opt_state}
+            "params": params, "opt_state": opt_state, "decoded": decoded}
+
+
+@torch.no_grad()
+def serve_greedy(model: Model, params: Any, mesh: Any,
+                 prompts: torch.Tensor, cache_len: int,
+                 steps: int) -> torch.Tensor:
+    """Greedy decoding of the global ``prompts`` [B, P] on ``mesh`` under
+    the production hints: each rank prefills its block of the batch into
+    the cache ``cache_shardings`` places (each "model" rank keeping its
+    sequence block), then ``steps`` decode steps on it, each weight
+    gathered at use. Returns every rank the whole batch's tokens [B, 1 +
+    steps] (the prefill's token first)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  gather_at_use, local_block)
+    B, P = prompts.shape
+    tok_sh = batch_shardings(model, InputShape("prompt", P, B, "prefill"),
+                             mesh)["tokens"]
+    c_sh = batch_shardings(model, InputShape("cache", cache_len, B,
+                                             "decode"), mesh)["cache"]
+    used = gather_at_use(params)
+    logits, cache = model.prefill(used, {"tokens": local_block(prompts,
+                                                               tok_sh)},
+                                  cache_len, cache_shardings=c_sh)
+    toks = [logits.argmax(-1)]
+    for _ in range(steps):
+        logits, cache = model.decode_step(used, toks[-1], cache)
+        toks.append(logits.argmax(-1))
+    block = torch.cat(toks, dim=1).contiguous()
+    return DTensor.from_local(block, mesh, tok_sh.placements,
+                              run_check=False).full_tensor()
 
 
 if __name__ == "__main__":

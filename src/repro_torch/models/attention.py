@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import SeqBlock
 from repro_torch.models.kvquant import dequantize, quantize
 from repro_torch.models.layers import Params, apply_rope
 
@@ -212,13 +213,31 @@ def attention_full(params: Params, x: torch.Tensor, *, num_heads: int,
     return (y, k, v) if return_kv else y
 
 
+def _combine_blocks(scores: torch.Tensor, v: torch.Tensor,
+                    seq: SeqBlock) -> torch.Tensor:
+    """Softmax · v over a sequence split across ranks, each holding a
+    block of the columns: masked fp32 scores [B, Hkv, G, s, T_block]
+    against v [B, Hkv, T_block, hd]. In fp32: the max over the ranks
+    (all-reduce), then the sum of the exps and the sum of the unnormalised
+    p·v (all-reduces); p·v runs in v's dtype, as the unsharded path's.
+    Returns [B, s, Hkv, G, hd] fp32."""
+    import torch.distributed as dist
+    m = seq.all_reduce(scores.amax(dim=-1, keepdim=True), dist.ReduceOp.MAX)
+    p = torch.exp(scores - m)
+    denom = seq.all_reduce(p.sum(dim=-1, keepdim=True))
+    out = seq.all_reduce(
+        torch.einsum("bhgst,bhtd->bshgd", p.to(v.dtype), v).float())
+    return out / denom.permute(0, 3, 1, 2, 4)
+
+
 def attention_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
                      num_heads: int, num_kv_heads: int, head_dim: int,
                      rope_theta: float, is_global: bool = True,
                      window: int = 0, use_rope: bool = True,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None) -> Tuple:
+                     v_scale: Optional[torch.Tensor] = None,
+                     seq: Optional[SeqBlock] = None) -> Tuple:
     """One-token decode against a KV cache.
 
     x: [B, 1, d]; k_cache/v_cache: [B, Hkv, S, hd]; pos: int [B] — the
@@ -230,10 +249,19 @@ def attention_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
     Precision follows the JAX package's serving policy: the QK and PV
     products run in the cache dtype (the compute dtype for an int8 cache,
     which is dequantized on read), only the softmax in fp32.
+
+    ``seq``: the cache (and its scales) is this rank's block of a cache
+    sequence-sharded over ``seq.axes`` (``sharding.seq_block``), columns
+    ``seq.offset`` on of ``seq.total``. The rank writes the new k / v only
+    where it holds ``pos`` (the clamp and the "past the cache writes
+    nothing" rule on the global columns), scores its block by global
+    column, masks a local layer's band over global columns (a band may
+    straddle two ranks) and combines the softmax across the ranks in fp32
+    (``_combine_blocks``).
     """
     quant = k_scale is not None
     B = x.shape[0]
-    S = k_cache.shape[2]
+    S = k_cache.shape[2] if seq is None else seq.total
     G = num_heads // num_kv_heads
     pos = torch.broadcast_to(pos, (B,)).long()
     q = _split_heads(x @ params["wq"], num_heads, head_dim)     # [B,1,H,hd]
@@ -248,6 +276,12 @@ def attention_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
     # advancing) writes nothing, as the JAX package's mask-select does
     wpos = pos.clamp(max=S - 1)
     keep = (pos < S)[:, None, None]
+    if seq is not None:
+        # the rank's block holds global columns offset .. offset + S_block
+        n = k_cache.shape[2]
+        wpos = wpos - seq.offset
+        keep = keep & ((wpos >= 0) & (wpos < n))[:, None, None]
+        wpos = wpos.clamp(0, n - 1)
 
     def write(cache, new):
         cache = cache.clone()
@@ -262,7 +296,15 @@ def attention_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
         k_scale, v_scale = write(k_scale, ks_new), write(v_scale, vs_new)
     else:
         k_cache, v_cache = write(k_cache, k[:, 0]), write(v_cache, v[:, 0])
-    if 0 < window < S and not is_global:
+    if seq is not None:
+        # the block's global columns; a local layer's band is the mask
+        # below
+        cols = seq.offset + torch.arange(k_cache.shape[2],
+                                         device=x.device)[None, :]
+
+        def band(c):
+            return c
+    elif 0 < window < S and not is_global:
         # a local layer reads only its rows' last ``window`` entries, as
         # the JAX package's banded decode does
         start = (pos - window + 1).clamp(0, S - window)
@@ -290,8 +332,11 @@ def attention_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
         ok = ok & (cols > pos[:, None] - window)
     scores = torch.where(ok[:, None, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bhtd->bshgd", p.to(vc.dtype), vc)
+    if seq is None:
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgst,bhtd->bshgd", p.to(vc.dtype), vc)
+    else:
+        out = _combine_blocks(scores, vc, seq)
     out = out.reshape(B, 1, num_heads * head_dim).to(x.dtype)
     y = out @ params["wo"]
     if quant:
@@ -301,16 +346,22 @@ def attention_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
 
 def attention_cross(params: Params, x: torch.Tensor, k_mem: torch.Tensor,
                     v_mem: torch.Tensor, *, num_heads: int,
-                    num_kv_heads: int, head_dim: int) -> torch.Tensor:
-    """Cross attention against precomputed memory K/V [B, Hkv, T, hd]."""
+                    num_kv_heads: int, head_dim: int,
+                    seq: Optional[SeqBlock] = None) -> torch.Tensor:
+    """Cross attention against precomputed memory K/V [B, Hkv, T, hd];
+    with ``seq`` the rank's block of a memory sequence-sharded across
+    ranks, the softmax combined across them (``_combine_blocks``)."""
     B, S, _ = x.shape
     G = num_heads // num_kv_heads
     q = _split_heads(x @ params["wq"], num_heads, head_dim)
     q = q.reshape(B, S, num_kv_heads, G, head_dim)
     scores = qk_scores(q, k_mem, k_heads_first=True)
     scores = scores / math.sqrt(head_dim)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bhtd->bshgd", p, v_mem.float())
+    if seq is None:
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgst,bhtd->bshgd", p, v_mem.float())
+    else:
+        out = _combine_blocks(scores, v_mem.float(), seq)
     out = out.reshape(B, S, num_heads * head_dim).to(x.dtype)
     return out @ params["wo"]
 

@@ -135,7 +135,20 @@ def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
-def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: Params, x: torch.Tensor,
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """The gated MLP. Where ``w_gate`` holds this rank's "model" block of
+    ``d_ff`` (``sharding.gather_at_use`` keeps it), the Megatron pair:
+    ``copy_to_model`` at the column-parallel input, the rank's d_ff block
+    of w_gate / w_up / w_down, ``reduce_from_model`` of the row-parallel
+    output. A whole weight (no hint, or d_ff replicated by a ``_fits``
+    fallback) is the plain MLP, with no collective."""
+    from repro_torch.distributed.sharding import (copy_to_model, model_block,
+                                                  reduce_from_model)
+    ax, _ = model_block(params["w_gate"], -1, d_ff)
+    if ax is not None:
+        x = copy_to_model(x, ax)
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
-    return silu_mul(gate, up) @ params["w_down"]
+    y = silu_mul(gate, up) @ params["w_down"]
+    return y if ax is None else reduce_from_model(y, ax)

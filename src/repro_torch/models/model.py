@@ -23,6 +23,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.distributed.hints import carry, constrain
+from repro_torch.distributed.sharding import (copy_to_model,
+                                              gather_from_model, local,
+                                              max_over_model, model_block,
+                                              place_block, placed_like,
+                                              reduce_from_model, seq_block)
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
@@ -136,17 +141,47 @@ class Model:
     # helpers
     # ------------------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """The scaled embedding of ``tokens``. On this rank's "model" block
+        of the vocabulary (``sharding.gather_at_use``), a vocab-parallel
+        lookup: tokens outside the block read zeros, and the ranks' rows
+        are summed (``reduce_from_model``)."""
+        emb = params["embed"]
+        ax, off = model_block(emb, 0, self.cfg.padded_vocab)
+        tok = tokens.long()
+        if ax is not None:
+            tok = tok - off
+            inside = (tok >= 0) & (tok < emb.shape[0])
+            tok = torch.where(inside, tok, torch.zeros_like(tok))
         # F.embedding, not indexing: its backward adds repeated tokens' rows
         # in a fixed order (indexing's accumulate is atomic on the CPU)
-        x = F.embedding(tokens.long(), params["embed"])
+        x = F.embedding(tok, emb)
+        if ax is not None:
+            x = reduce_from_model(x * inside[..., None].to(x.dtype), ax)
         return x * torch.tensor(math.sqrt(self.cfg.d_model),
                                 dtype=torch.float32).to(x.dtype)
 
+    def _unembed(self, params: Params) -> torch.Tensor:
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["unembed"])
+
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits of the final hidden states: on this rank's "model" block
+        of the vocabulary (tied ``embed`` on ``("model", None)``, or
+        ``unembed`` on ``(fsdp, "model")``), the rank's slice of them,
+        behind ``copy_to_model``; whole otherwise."""
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        if self.cfg.tie_embeddings:
-            return x @ params["embed"].T
-        return x @ params["unembed"]
+        w = self._unembed(params)
+        ax, _ = model_block(w, 1, self.cfg.padded_vocab)
+        if ax is not None:
+            x = copy_to_model(x, ax)
+        return x @ w
+
+    def _full_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """``_logits`` over the whole vocabulary: the ranks' slices
+        gathered over "model" (a server's greedy token reads them all)."""
+        logits = self._logits(params, x)
+        ax, _ = model_block(self._unembed(params), 1, self.cfg.padded_vocab)
+        return logits if ax is None else gather_from_model(logits, ax)
 
     def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """The whisper encoder over stubbed frame embeddings [B, T, d]."""
@@ -179,7 +214,7 @@ class Model:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits [B, S, V], moe_aux_loss)."""
         y, aux = self._hidden(params, batch)
-        return self._logits(params, y), aux
+        return self._full_logits(params, y), aux
 
     # sequence-chunk size for the CE loss: never materialize [B, S, V]
     LOSS_CHUNK = 512
@@ -207,8 +242,17 @@ class Model:
         logits live one [B, c, V] fp32 slab at a time, recomputed in the
         backward pass (a 262k vocabulary at B·c = 2048 is 2.15 GB a
         slab). ``logsumexp`` minus the gold logit, masked, summed; returns
-        (that sum, the mask's count)."""
+        (that sum, the mask's count).
+
+        On this rank's "model" block of the vocabulary, vocab-parallel, in
+        fp32: the max over the ranks (all-reduced, outside autograd), the
+        sum of the exps all-reduced, and the gold logit taken on the rank
+        that holds it and all-reduced (``reduce_from_model``: identity
+        backward, so each rank's gradient is its block's). Every rank
+        issues these collectives in the same order, in the forward and in
+        the recompute."""
         B, S, _ = y.shape
+        ax, off = model_block(self._unembed(params), 1, self.cfg.padded_vocab)
         c = min(self.LOSS_CHUNK, S)
         if S % c:
             c = S  # irregular smoke shapes: single chunk
@@ -217,8 +261,20 @@ class Model:
 
         def body(ych, lch, mch):
             logits = self._logits(params, constrain(ych, "btd")).float()
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, lch[..., None].long())[..., 0]
+            if ax is None:
+                logz = torch.logsumexp(logits, dim=-1)
+                gold = torch.gather(logits, -1,
+                                    lch[..., None].long())[..., 0]
+            else:
+                m = max_over_model(logits.amax(dim=-1, keepdim=True), ax)
+                sumexp = reduce_from_model(
+                    torch.exp(logits - m).sum(dim=-1), ax)
+                logz = torch.log(sumexp) + m[..., 0]
+                lab = lch.long() - off
+                inside = (lab >= 0) & (lab < logits.shape[-1])
+                lab = torch.where(inside, lab, torch.zeros_like(lab))
+                gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+                gold = reduce_from_model(gold * inside.float(), ax)
             nll = (logz - gold) * mch
             return torch.sum(nll), torch.sum(mch)
 
@@ -313,12 +369,20 @@ class Model:
         return {"pos": zeros((batch,), torch.int32), "layers": layers}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
-                cache_len: int) -> Tuple[torch.Tensor, Cache]:
+                cache_len: int, cache_shardings: Any = None
+                ) -> Tuple[torch.Tensor, Cache]:
         """Process the prompt (``tokens``, and ``patch_embeds`` [B, P, d]
         for vlm or ``frames`` [B, T, d] for audio); return (last-position
         logits [B, 1, V], the filled cache: k / v padded to ``cache_len``
         positions and quantized under ``kv_quant``, the SSM's conv window
-        and state after the prompt, whisper's cross k / v)."""
+        and state after the prompt, whisper's cross k / v).
+
+        ``cache_shardings`` (``sharding.cache_shardings`` on a
+        ``DeviceMesh``, for a batch of which ``batch`` is this rank's
+        block): the attention is data-parallel compute, as in the
+        reference, and the cache comes back as DTensors placed by them,
+        each rank keeping its sequence block of the k / v it wrote
+        (``sharding.place_block``), the decode's sequence-sharded cache."""
         cfg = self.cfg
         x = self._decoder_input(params, batch)
         B, S, _ = x.shape
@@ -338,33 +402,56 @@ class Model:
                     layers["k"], scale_dtype=self.dtype)
                 layers["v"], layers["v_scale"] = quantize(
                     layers["v"], scale_dtype=self.dtype)
-        logits = self._logits(params, y[:, -1:])
+        logits = self._full_logits(params, y[:, -1:])
         cache = {"pos": torch.full((B,), S, dtype=torch.int32,
                                    device=x.device),
                  "layers": layers}
+        if cache_shardings is not None:
+            cache = {"pos": place_block(cache["pos"], cache_shardings["pos"],
+                                        0),
+                     "layers": {k: place_block(v, cache_shardings["layers"][k],
+                                               1)
+                                for k, v in layers.items()}}
         return logits, cache
 
     def decode_step(self, params: Params, tokens: torch.Tensor, cache: Cache
                     ) -> Tuple[torch.Tensor, Cache]:
-        """One decode step. tokens: [B, 1] -> (logits [B, 1, V], new cache)."""
+        """One decode step. tokens: [B, 1] -> (logits [B, 1, V], new cache).
+
+        A cache of DTensors (``prefill(cache_shardings=)``, or placed by
+        ``sharding.cache_shardings``) is read as this rank's blocks:
+        ``tokens`` is the rank's block of the batch, a k / v cache sharded
+        on its sequence attends over its block with the softmax combined
+        across the ranks (``sharding.seq_block``), and the new cache comes
+        back placed as the old one. A plain cache is today's path."""
         cfg = self.cfg
+        seq = seq_block(cache["layers"]["k"], 3) \
+            if "k" in cache["layers"] else None
+        cross_seq = seq_block(cache["layers"]["cross_k"], 3) \
+            if "cross_k" in cache["layers"] else None
+        pos = local(cache["pos"])
+        cache_layers = {k: local(v) for k, v in cache["layers"].items()}
         x = self._embed(params, tokens)
-        pos = cache["pos"]
         if cfg.is_encdec:
             # each row's new token at its absolute sinusoidal position (an
             # index past the table clamps to its end, as a JAX gather does)
-            S = int(cache["layers"]["k"].shape[3])
+            S = int(cache_layers["k"].shape[3]) if seq is None else seq.total
             table = sinusoidal_positions(S, cfg.d_model, x.device)
             posv = torch.broadcast_to(pos, (tokens.shape[0],)).long()
             x = x + table[posv.clamp(0, S - 1)][:, None].to(x.dtype)
             y, layers = tfm.encdec_decoder_decode(params["blocks"], x,
-                                                  cache["layers"], pos, cfg)
+                                                  cache_layers, pos, cfg,
+                                                  seq=seq,
+                                                  cross_seq=cross_seq)
         else:
             y, layers = tfm.stack_decode(params["blocks"], x,
-                                         cache["layers"], pos, cfg,
-                                         cfg.global_layer_flags())
-        logits = self._logits(params, y)
-        return logits, {"pos": pos + 1, "layers": layers}
+                                         cache_layers, pos, cfg,
+                                         cfg.global_layer_flags(), seq=seq)
+        logits = self._full_logits(params, y)
+        return logits, {
+            "pos": placed_like(pos + 1, cache["pos"]),
+            "layers": {k: placed_like(v, cache["layers"][k])
+                       for k, v in layers.items()}}
 
     # ------------------------------------------------------------------
     # dry-run input specs (meta-device stand-ins; no allocation)

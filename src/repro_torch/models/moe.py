@@ -159,7 +159,7 @@ def expert_ffn_weights(moe_params: Params, e: int
 
 
 def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
-            groups: Optional[int] = None
+            groups: Optional[int] = None, d_ff: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN of one layer. x: [T, d] -> (y [T, d], aux_loss scalar).
 
@@ -171,9 +171,17 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
     hint counts the groups of the whole batch: a rank that holds a block
     of it (``sharding.batch_axes``) routes the groups of its block, the
     hint over the ranks of those axes (one group, T/D of the batch's
-    tokens, when the hint is the data ranks D)."""
+    tokens, when the hint is the data ranks D).
+
+    Where the expert weights hold this rank's "model" block of ``d_ff``
+    (``sharding.gather_at_use``), the expert einsums are the Megatron
+    pair within each expert: ``copy_to_model`` of the dispatched buffer,
+    the rank's d_ff block, ``reduce_from_model`` of the expert outputs.
+    Routing, capacity and the groups are every "model" rank's alike."""
     from repro_torch.distributed.hints import static_hint
-    from repro_torch.distributed.sharding import _axis_size, batch_axes
+    from repro_torch.distributed.sharding import (_axis_size, batch_axes,
+                                                  copy_to_model, model_block,
+                                                  reduce_from_model)
     T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     if groups is not None:
@@ -200,9 +208,14 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
     buf = torch.stack(bufs)                                  # [G, E, C, d]
 
     # the expert GEMMs: plain einsums here, as in the JAX package
+    ax, _ = model_block(params["w_gate"], -1, d_ff)
+    if ax is not None:
+        buf = copy_to_model(buf, ax)
     gate = F.silu(torch.einsum("gecd,edf->gecf", buf, params["w_gate"]))
     up = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
     out_buf = torch.einsum("gecf,efd->gecd", gate * up, params["w_down"])
+    if ax is not None:
+        out_buf = reduce_from_model(out_buf, ax)
 
     y = torch.stack([combine_tokens(out_buf[g], wg[g].reshape(-1), metas[g],
                                     Tg, d) for g in range(G)])

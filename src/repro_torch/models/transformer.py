@@ -25,13 +25,14 @@ scan body): the backward recomputes the layer from its input.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.hints import carry, constrain
+from repro_torch.distributed.sharding import SeqBlock
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -65,9 +66,10 @@ def _ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     the B·S tokens as one group, or the gated MLP."""
     if cfg.has_moe and cfg.arch_type != "hybrid":
         B, S, d = h2.shape
-        y, _aux = moe_lib.moe_ffn(p["moe"], h2.reshape(B * S, d), cfg.moe)
+        y, _aux = moe_lib.moe_ffn(p["moe"], h2.reshape(B * S, d), cfg.moe,
+                                  d_ff=cfg.d_ff)
         return y.reshape(B, S, d)
-    return mlp(p["mlp"], h2)
+    return mlp(p["mlp"], h2, cfg.d_ff)
 
 
 def _attn_kw(cfg: ModelConfig, is_global: bool) -> Dict[str, Any]:
@@ -122,10 +124,11 @@ def block_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.has_moe and cfg.arch_type != "hybrid":
         B, S, d = h2.shape
-        y, aux = moe_lib.moe_ffn(p["moe"], h2.reshape(B * S, d), cfg.moe)
+        y, aux = moe_lib.moe_ffn(p["moe"], h2.reshape(B * S, d), cfg.moe,
+                                 d_ff=cfg.d_ff)
         y = y.reshape(B, S, d)
     else:
-        y = mlp(p["mlp"], h2)
+        y = mlp(p["mlp"], h2, cfg.d_ff)
     return x + y, aux
 
 
@@ -181,10 +184,12 @@ def stack_prefill(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def stack_decode(stacked: Params, x: torch.Tensor, cache: Cache,
                  pos: torch.Tensor, cfg: ModelConfig,
-                 flags: Sequence[bool]) -> Tuple[torch.Tensor, Cache]:
+                 flags: Sequence[bool], seq: Optional[SeqBlock] = None
+                 ) -> Tuple[torch.Tensor, Cache]:
     """One-token decode through all layers; returns the new layer cache
     (new tensors, in the input cache's dtypes — the input cache is left as
-    it was)."""
+    it was). ``seq``: the k / v cache is this rank's block of a
+    sequence-sharded cache (``attention.attention_decode``)."""
     out: Dict[str, list] = {k: [] for k in cache}
     for l, is_global in enumerate(flags):
         p = _layer(stacked, l)
@@ -201,11 +206,12 @@ def stack_decode(stacked: Params, x: torch.Tensor, cache: Cache,
             if "k_scale" in c:         # int8 KV cache
                 a, nk, nv, nks, nvs = attn.attention_decode(
                     p["attn"], h, c["k"], c["v"], pos,
-                    k_scale=c["k_scale"], v_scale=c["v_scale"], **kw)
+                    k_scale=c["k_scale"], v_scale=c["v_scale"], seq=seq,
+                    **kw)
                 new["k_scale"], new["v_scale"] = nks, nvs
             else:
                 a, nk, nv = attn.attention_decode(
-                    p["attn"], h, c["k"], c["v"], pos, **kw)
+                    p["attn"], h, c["k"], c["v"], pos, seq=seq, **kw)
             new["k"], new["v"] = nk, nv
             if cfg.arch_type == "hybrid":
                 y, st = ssm_lib.ssd_decode_step(
@@ -235,7 +241,7 @@ def encoder_stack(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta, causal=False, use_rope=False)
         h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + mlp(p["mlp"], h2)
+        return x + mlp(p["mlp"], h2, cfg.d_ff)
 
     body = _maybe_remat(body, remat)
     for p in _unstack(stacked):
@@ -277,7 +283,7 @@ def encdec_decoder_full(stacked: Params, x: torch.Tensor, mem: torch.Tensor,
                                      num_kv_heads=cfg.num_kv_heads,
                                      head_dim=hd)
         h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + mlp(p["mlp"], h2)
+        return x + mlp(p["mlp"], h2, cfg.d_ff)
 
     body = _maybe_remat(body, remat and not with_cache)
     for p in _unstack(stacked):
@@ -288,10 +294,14 @@ def encdec_decoder_full(stacked: Params, x: torch.Tensor, mem: torch.Tensor,
 
 
 def encdec_decoder_decode(stacked: Params, x: torch.Tensor, cache: Cache,
-                          pos: torch.Tensor, cfg: ModelConfig
+                          pos: torch.Tensor, cfg: ModelConfig,
+                          seq: Optional[SeqBlock] = None,
+                          cross_seq: Optional[SeqBlock] = None
                           ) -> Tuple[torch.Tensor, Cache]:
     """One-token whisper decode; the cache holds self k / v (updated) and
-    cross_k / cross_v (fixed, passed through)."""
+    cross_k / cross_v (fixed, passed through). ``seq`` / ``cross_seq``:
+    the self / cross cache is this rank's block of a sequence-sharded
+    one."""
     hd = cfg.resolved_head_dim
     ks, vs = [], []
     for l in range(cfg.num_layers):
@@ -300,7 +310,8 @@ def encdec_decoder_decode(stacked: Params, x: torch.Tensor, cache: Cache,
         a, nk, nv = attn.attention_decode(
             p["attn"], h, cache["k"][l], cache["v"][l], pos,
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            head_dim=hd, rope_theta=cfg.rope_theta, use_rope=False)
+            head_dim=hd, rope_theta=cfg.rope_theta, use_rope=False,
+            seq=seq)
         ks.append(nk)
         vs.append(nv)
         x = x + a
@@ -309,8 +320,8 @@ def encdec_decoder_decode(stacked: Params, x: torch.Tensor, cache: Cache,
                                      cache["cross_v"][l],
                                      num_heads=cfg.num_heads,
                                      num_kv_heads=cfg.num_kv_heads,
-                                     head_dim=hd)
+                                     head_dim=hd, seq=cross_seq)
         h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp(p["mlp"], h2)
+        x = x + mlp(p["mlp"], h2, cfg.d_ff)
     return x, {"k": torch.stack(ks), "v": torch.stack(vs),
                "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}

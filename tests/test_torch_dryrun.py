@@ -7,15 +7,27 @@ dry-run (``launch/dryrun.py``), on the CPU.
     twelve cases (smoke configs, B 2, S 64, fp32, remat on train), but
     for the rows of ``COUNTING_DIFFERENCES``, each with its closed form;
   * collectives: the gemma3-1b and grok-1 smoke train steps, traced as
-    rank 0 of fake worlds of 4 (data 2, model 2) and 8 (pod 2, data 2,
-    model 2) ranks, move the operand bytes of each kind that closed forms
-    computed from ``param_shardings`` give;
-  * compute split: the dense step's per-chip dot FLOPs on (2, 2) are half
-    the world-1 count and on (4, 1) a quarter ("model" ranks repeat it);
+    rank 0 of fake worlds of (data 2, model 2), (pod 2, data 2, model 2),
+    (data 1, model 4) and (data 4, model 1), move the operand bytes of
+    each kind that closed forms computed from ``param_shardings`` give:
+    the ZeRO-3 gathers over the FSDP axes only, the gradients' reductions,
+    and the Megatron and vocab-parallel all-reduces over "model";
+  * compute split: per-chip dot FLOPs on (2, 2) and (1, 4) for gemma3-1b
+    train / prefill / decode and grok-1 train equal the reference's GSPMD
+    count (its step jitted under its shardings on 4 forced host devices,
+    in one subprocess) less the rows of ``GSPMD_DIFFERENCES``, GSPMD's
+    choices beyond the documented rule, each in closed form; within 5 %
+    of it but for gemma3-1b decode on (2, 2);
+  * the Megatron pair's collectives (one all-reduce: *f* backward, *g*
+    forward) and ``gather_at_use`` keeping a leaf's "model" block;
   * ``fake_world`` starts and destroys its group, and refuses to start
     while one is live; no test leaves a group live;
   * ``StepCounter`` on small functions (FLOPs, bytes, live storage, the
     five collective kinds, a sixth raising) and one full-config record.
+
+Run as a script (``python tests/test_torch_dryrun.py gspmd`` with
+``XLA_FLAGS=--xla_force_host_platform_device_count=4``) it prints the
+reference's GSPMD counts as one JSON line.
 """
 import math
 
@@ -41,6 +53,7 @@ from repro_torch.launch.mesh import (MeshShape, fake_world, make_mesh,
                                      make_production_mesh)
 from repro_torch.launch.step_cost import COLLECTIVE_OPS, count_step
 from repro_torch.models import Model
+from repro_torch.models.moe import capacity
 from repro_torch.training import (OptimizerConfig, init_opt_state,
                                   make_train_step)
 from repro_torch.tree import leaves
@@ -137,28 +150,46 @@ def _axes_of(spec, sizes):
 
 
 def _closed_form(model, sizes, batch):
-    """Operand bytes of each kind in one ZeRO-3 train step of ``model``
-    (fp32 params) as rank 0 of a mesh of ``sizes``, from the sharding
+    """Operand bytes of each kind in one train step of ``model`` (fp32
+    params, remat) as rank 0 of a mesh of ``sizes``, ZeRO-3 over the
+    data / pod axes and tensor-parallel over "model", from the sharding
     rules:
 
-      * the gather at use: one all-gather a mesh axis that shards a leaf,
-        the last axis first, each of the block gathered so far (once a
-        step: the gather is outside the remat bodies);
-      * the gradient back to the leaf's placements: over each axis that
-        splits the batch, in mesh order, a reduce-scatter where that axis
-        shards the leaf, else an all-reduce, of the gradient as it stands;
+      * the gather at use, over the FSDP axes only: one all-gather a data
+        or pod axis that shards a leaf, the last axis first, each of the
+        block gathered so far, starting from the rank's shard (a leaf
+        sharded on "model" stays its "model" block); once a step, outside
+        the remat bodies;
+      * the gradient back to the leaf's placements, starting from the
+        leaf's "model" block: over each axis that splits the batch, in mesh
+        order, a reduce-scatter where that axis shards the leaf, else an
+        all-reduce, of the gradient as it stands; for a leaf that keeps a
+        "model" shard, DTensor's planner all-reduces over every batch axis
+        but the last that shards it (pod before data) and reduce-scatters
+        over that last, each of the gradient unsliced;
       * the gradient norm: an fp32 scalar all-reduce a sharding axis a
-        leaf; the loss: its target count and its value, an fp32 scalar
-        each, one all-reduce a batch axis;
+        leaf ("model" included); the loss: its target count and its value,
+        an fp32 scalar each, one all-reduce a batch axis;
       * MoE: ``frac`` and ``mean_p`` ([E] fp32) all-reduced a batch axis
         in the forward and again in the remat recompute, and ``mean_p``'s
-        gradient once, each layer.
+        gradient once, each layer;
+      * the Megatron collectives over "model", when it is larger than 1,
+        each of the rank's T tokens (its block of the batch) in fp32: the
+        vocab-parallel embedding's all-reduce of [T, d] (outside remat);
+        each dense layer's *f* backward and *g* forward, [T, d] each (the
+        recompute stops before *g*: nothing saved for the backward
+        follows it); each MoE layer's *f* backward and *g* forward and
+        recompute of the expert buffer [E, C, d] (the combine after *g*
+        saves it); the cross-entropy's max, sum of exps and gold logit, T
+        fp32 each, in the forward and in the recompute, and its *f*
+        backward of [T, d].
     """
     mesh = MeshShape(dict(sizes))
     dp = fsdp_axes(mesh)
     split = math.prod(sizes[a] for a in dp)
     batch_axes = [a for a in dp if sizes[a] > 1] if batch % split == 0 \
         else []
+    M = sizes["model"]
     want = dict.fromkeys(COLLECTIVE_OPS, 0)
     for t, sh in zip(leaves(model.abstract_params()),
                      leaves(param_shardings(model, mesh))):
@@ -166,12 +197,13 @@ def _closed_form(model, sizes, batch):
         item = t.element_size()
         cur = math.prod(sh.shard_shape(tuple(t.shape))) * item
         for a in reversed(list(sizes)):
-            if a in axes:
+            if a in axes and a != "model":
                 want["all-gather"] += cur
                 cur *= sizes[a]
-        cur = t.numel() * item
+        cur = t.numel() * item // (M if "model" in axes else 1)
+        sharding = [a for a in batch_axes if a in axes]
         for a in batch_axes:
-            if a in axes:
+            if a in axes and ("model" not in axes or a == sharding[-1]):
                 want["reduce-scatter"] += cur
                 cur //= sizes[a]
             else:
@@ -182,6 +214,16 @@ def _closed_form(model, sizes, batch):
     if cfg.has_moe:
         want["all-reduce"] += (cfg.num_layers * 5 * 4 * cfg.moe.num_experts
                                * len(batch_axes))
+    if M > 1:
+        T = batch // (split if batch_axes else 1) * S
+        act = T * cfg.d_model * 4
+        want["all-reduce"] += act
+        if cfg.has_moe:
+            buf = cfg.moe.num_experts * capacity(T, cfg.moe) * cfg.d_model
+            want["all-reduce"] += cfg.num_layers * 3 * 4 * buf
+        else:
+            want["all-reduce"] += cfg.num_layers * 2 * act
+        want["all-reduce"] += 2 * 3 * 4 * T + act
     return want
 
 
@@ -191,30 +233,239 @@ def _fake_trace(model, sizes, batch, kind="train"):
                                  make_mesh(sizes, "cpu"))
 
 
-MESHES = [{"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 2}]
+MESHES = [{"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 2},
+          {"data": 1, "model": 4}, {"data": 4, "model": 1}]
 
 
-@pytest.mark.parametrize("sizes", MESHES, ids=["2x2", "2x2x2"])
+@pytest.mark.parametrize("sizes", MESHES, ids=["2x2", "2x2x2", "1x4", "4x1"])
 @pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b"])
 def test_collective_bytes_equal_closed_form(arch, sizes):
+    """Every kind's bytes equal the closed form; a "model" axis of 1 adds
+    no Megatron collective, and one of 4 with data 1 moves only
+    all-reduces (nothing to gather, no batch to sum over)."""
     model = Model(smoke_config(arch), param_dtype=torch.float32,
                   device="meta", remat=True)
     totals, _ = _fake_trace(model, sizes, batch=4)
     want = _closed_form(model, sizes, batch=4)
     assert totals.per_collective == want
     assert totals.collective_bytes == sum(want.values())
-    assert want["all-gather"] and want["reduce-scatter"] and \
-        want["all-reduce"]
+    if sizes["data"] > 1:
+        assert want["all-gather"] and want["reduce-scatter"]
+    else:
+        assert want["all-gather"] == want["reduce-scatter"] == 0
+    assert want["all-reduce"]
 
 
-def test_model_ranks_repeat_the_compute():
-    model = Model(smoke_config("gemma3-1b"), param_dtype=torch.float32,
-                  device="meta", remat=True)
-    world1 = _port_totals(model, "train", InputShape("t", S, 4, "train"))
-    for sizes, share in (({"data": 2, "model": 2}, 2),
-                         ({"data": 4, "model": 1}, 4)):
-        totals, _ = _fake_trace(model, sizes, batch=4)
-        assert totals.flops * share == world1.flops
+# ---------------------------------------------------------------------------
+# per-chip dot FLOPs against the reference's GSPMD step
+# ---------------------------------------------------------------------------
+
+GSPMD_B = 4
+GSPMD_CASES = [("gemma3-1b", "train"), ("gemma3-1b", "prefill"),
+               ("gemma3-1b", "decode"), ("grok-1-314b", "train")]
+GSPMD_MESHES = [(2, 2), (1, 4)]
+
+
+def _gspmd_flops(arch, kind, sizes):
+    """The reference's per-chip dot FLOPs on a (data, model) mesh of
+    ``sizes`` over 4 forced host devices: ``jax.jit`` of its train step,
+    ``prefill`` or ``decode_step`` with ``in_shardings`` from
+    ``param_shardings`` / ``batch_shardings`` / ``cache_shardings`` (the
+    train step's optimizer state from ``opt_state_shardings``), under the
+    ``"btd"`` hint, smoke config, fp32, B 4, S 64, remat on train, then
+    ``analyze_hlo`` of the compiled module. Run in a process of its own
+    (``XLA_FLAGS`` must name 4 devices before jax starts)."""
+    import numpy as np
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from repro.distributed.hints import activation_sharding
+    from repro.distributed.sharding import (batch_shardings, fsdp_axes,
+                                            opt_state_shardings,
+                                            param_shardings)
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(sizes),
+                ("data", "model"))
+    model = JaxModel(jax_smoke_config(arch), param_dtype=jnp.float32,
+                     remat=(kind == "train"))
+    shape = JaxInputShape(f"{kind}_gspmd", S, GSPMD_B, kind)
+    dp = fsdp_axes(mesh)
+    bspec = dp if GSPMD_B % sizes[0] == 0 else None
+    hints = {"btd": NamedSharding(mesh, P(bspec, None, None))}
+    rng = jax.random.PRNGKey(0)
+    with mesh, activation_sharding(hints):
+        p_sh = param_shardings(model, mesh, rng)
+        params = jax.eval_shape(model.init, rng)
+        specs = model.input_specs(shape)
+        b_sh = batch_shardings(model, shape, mesh)
+        if kind == "train":
+            o_sh = opt_state_shardings(p_sh, mesh)
+            step = jax.jit(jax_train_step(model, JaxOptimizerConfig()),
+                           in_shardings=(p_sh, o_sh, b_sh),
+                           out_shardings=(p_sh, o_sh, None))
+            lowered = step.lower(params, jax.eval_shape(jax_init_opt_state,
+                                                        params), specs)
+        elif kind == "prefill":
+            lowered = jax.jit(lambda p, b: model.prefill(p, b, cache_len=S),
+                              in_shardings=(p_sh, b_sh)).lower(params, specs)
+        else:
+            lowered = jax.jit(model.decode_step,
+                              in_shardings=(p_sh, b_sh["tokens"],
+                                            b_sh["cache"]),
+                              out_shardings=(None, b_sh["cache"])).lower(
+                params, specs["tokens"], specs["cache"])
+        return analyze_hlo(lowered.compile().as_text()).flops
+
+
+@pytest.fixture(scope="module")
+def gspmd_flops():
+    """Every case's reference count, from one subprocess (this file run
+    as a script with 4 forced host devices)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "gspmd"], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rows = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {(a, k, tuple(m)): f for a, k, m, f in rows}
+
+
+def _attention_widths(cfg):
+    """Output widths of wq, wk, wv, wo (wo's input width is wq's)."""
+    hd = cfg.resolved_head_dim
+    return cfg.num_heads * hd, cfg.num_kv_heads * hd
+
+
+def _gspmd_wgrad_split(cfg, kind, sizes):
+    """GSPMD, train, data > 1: the weight gradients of the attention
+    projections (replicated over "model", FSDP-sharded over "data") are
+    split across the "model" ranks that hold one data block, each
+    computing 1/M of the rows (the collective-permutes in its HLO move
+    them to their data ranks); the port computes each rank's whole
+    gradient, as the rule's data-parallel compute does, and reduces it
+    over "data". Less by L · (1 − 1/M) · 2 · T · d · (q + k + v + o
+    widths), T the chip's tokens."""
+    D, M = sizes
+    if kind != "train" or D == 1:
+        return 0
+    q, kv = _attention_widths(cfg)
+    T = GSPMD_B // D * S
+    return -int(cfg.num_layers * (1 - 1 / M) * 2 * T * cfg.d_model
+                * (2 * q + 2 * kv))
+
+
+def _gspmd_qkv_split(cfg, kind, sizes):
+    """GSPMD, decode, data > 1: the q / k / v projections keep their
+    FSDP-sharded weights stationary (each chip contracts its data block of
+    d_model) and split the rows over "model" (permutes in, an all-reduce
+    out); the port gathers the weights and projects the rank's rows whole.
+    Less by L · (1 − 1/M) · 2 · B · d · (q + k + v widths), B the chip's
+    rows."""
+    D, M = sizes
+    if kind != "decode" or D == 1:
+        return 0
+    q, kv = _attention_widths(cfg)
+    B = GSPMD_B // D
+    return -int(cfg.num_layers * (1 - 1 / M) * 2 * B * cfg.d_model
+                * (q + 2 * kv))
+
+
+def _gspmd_band_whole(cfg, kind, sizes):
+    """GSPMD, decode: a local layer gathers its ``window`` band from the
+    sequence-sharded cache and scores it whole on every chip; the port
+    masks the band over the rank's block of S/M columns and combines
+    across the ranks. More by 2 · 2 · B · H · hd · (window − S/M) a
+    local layer (q·kᵀ and p·v) where the block is shorter than the
+    window."""
+    D, M = sizes
+    if kind != "decode" or cfg.window_size <= S // M:
+        return 0
+    flags = cfg.global_layer_flags()
+    local = sum(1 for g in flags if not g)
+    B = GSPMD_B // D
+    return (local * 2 * 2 * B * cfg.num_heads * cfg.resolved_head_dim
+            * (cfg.window_size - S // M))
+
+
+# The reference's GSPMD count less the port's, each a GSPMD choice beyond
+# the documented rule (FFN + vocab tensor-parallel over "model", attention
+# data-parallel, the decode cache sequence-sharded), in closed form.
+GSPMD_DIFFERENCES = {
+    "attention weight gradients split over model": _gspmd_wgrad_split,
+    "decode q / k / v weight-stationary, rows over model": _gspmd_qkv_split,
+    "decode local band read whole": _gspmd_band_whole,
+}
+# gemma3-1b decode on (2, 2) is 12 % over the reference: the
+# weight-stationary q / k / v projections are GSPMD's own choice on that
+# mesh (it does not make it on (1, 4)), not the rule; the 5 % bound holds
+# for the other seven cases
+OUTSIDE_THE_BOUND = {("gemma3-1b", "decode", (2, 2))}
+
+
+@pytest.mark.parametrize("sizes", GSPMD_MESHES, ids=["2x2", "1x4"])
+@pytest.mark.parametrize("arch,kind", GSPMD_CASES)
+def test_per_chip_dot_flops_match_gspmd(arch, kind, sizes, gspmd_flops):
+    """The port's per-chip dot FLOPs on a fake (data, model) world equal
+    the reference's GSPMD count less the named differences, exactly, and
+    lie within 5 % of it (but the case named above)."""
+    model = Model(smoke_config(arch), param_dtype=torch.float32,
+                  device="meta", remat=(kind == "train"))
+    totals, _ = _fake_trace(model, {"data": sizes[0], "model": sizes[1]},
+                            GSPMD_B, kind)
+    want = gspmd_flops[(arch, kind, sizes)]
+    extra = sum(f(model.cfg, kind, sizes)
+                for f in GSPMD_DIFFERENCES.values())
+    assert totals.flops + extra == want
+    if (arch, kind, sizes) not in OUTSIDE_THE_BOUND:
+        assert abs(totals.flops - want) <= 0.05 * want
+
+
+def test_megatron_pair_collectives():
+    """On a fake (data 2, model 2) world: *f* (``copy_to_model``) issues
+    nothing forward and one all-reduce of the gradient over "model"
+    backward; *g* (``reduce_from_model``) one all-reduce forward and
+    nothing backward (its gradient passes as it is)."""
+    from repro_torch.distributed.sharding import (ModelAxis, copy_to_model,
+                                                  reduce_from_model)
+    x = torch.empty(8, 4, device="meta")
+    with fake_world(4):
+        ax = ModelAxis(make_mesh({"data": 2, "model": 2}, "cpu"))
+        assert (ax.size, ax.rank) == (2, 0)
+        for fn, fwd, bwd in ((copy_to_model, 0, 128), (reduce_from_model,
+                                                       128, 0)):
+            xg = x.clone().requires_grad_()
+            y, tf, _ = count_step(lambda t: fn(t, ax), xg)
+            _, tb, _ = count_step(lambda y: torch.autograd.grad(
+                y.sum(), [xg]), y)
+            assert tf.per_collective["all-reduce"] == fwd
+            assert tb.per_collective["all-reduce"] == bwd
+            assert tf.collective_bytes == fwd and tb.collective_bytes == bwd
+
+
+def test_gather_keeps_the_model_block():
+    """``gather_at_use`` on (data 2, model 2) gathers over "data" only: a
+    leaf sharded on "model" comes back as the rank's block, one replicated
+    over "model" whole; on (data 4, model 1) every leaf comes back
+    whole."""
+    from repro_torch.distributed.sharding import (NamedSharding, distribute,
+                                                  gather_at_use)
+    tree = {"w_gate": torch.empty(16, 32, device="meta"),
+            "wq": torch.empty(16, 8, device="meta")}
+    for sizes, want in (({"data": 2, "model": 2}, (16, 16)),
+                        ({"data": 4, "model": 1}, (16, 32))):
+        with fake_world(4):
+            mesh = make_mesh(sizes, "cpu")
+            placed = distribute(tree, {
+                "w_gate": NamedSharding(mesh, ("data", "model")),
+                "wq": NamedSharding(mesh, ("data", None))})
+            used = gather_at_use(placed)
+        assert tuple(used["w_gate"].shape) == want
+        assert tuple(used["wq"].shape) == (16, 8)
 
 
 def test_fake_world_lifecycle():
@@ -296,3 +547,19 @@ def test_full_config_record():
     mem = rec["memory"]
     assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
     assert mem["argument_bytes"] >= rec["bytes_per_chip"]["params"]
+
+
+def _main(argv):
+    """``test_torch_dryrun.py gspmd``: every GSPMD case's count as one
+    JSON line of [arch, kind, [data, model], flops]."""
+    import json
+    assert argv == ["gspmd"], argv
+    assert len(jax.devices()) >= 4, jax.devices()
+    print(json.dumps([[a, k, list(m), _gspmd_flops(a, k, m)]
+                      for a, k in GSPMD_CASES for m in GSPMD_MESHES]))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(_main(sys.argv[1:]))

@@ -14,15 +14,22 @@ with their stderr.
 
   * the fault: ``gather_at_use``'s gradient on a world of 2 whose ranks
     hold different inputs is the sum of the ranks' gradients;
-  * dense (gemma3-1b smoke, fp32): world 4 on (data 2, model 2) and on
-    (pod 2, data 2, model 1): the first step's loss within 2e-4 and each
-    gathered gradient leaf within 1e-3 × its max-abs + 1e-6 of the JAX
-    package's one-device loss and gradients and of the port's plain
-    one-process step, on the global batch; the launcher's losses over 3
-    steps at world 4 within 2e-4 of a world-1 run;
-  * MoE (grok-1 smoke, fp32): world 4 on (2, 2) against the JAX package's
-    one-device loss and gradients under ``moe_groups = 2``, same
-    tolerances;
+  * dense (gemma3-1b smoke, fp32): world 4 on (data 2, model 2), the
+    FFN and the vocabulary tensor-parallel over "model", and on (pod 2,
+    data 2, model 1): the first step's loss within 2e-4 and each gathered
+    gradient leaf within 1e-3 × its max-abs + 1e-6 of the JAX package's
+    one-device loss and gradients and of the port's plain one-process
+    step, on the global batch; the ranks' ``global_norm`` of their DTensor
+    gradients equal to the norm of the gathered ones; then, on the same
+    ranks, a prefill of 30-token prompts into the 64-position cache
+    ``cache_shardings`` places (sequence over "model": 32 positions a
+    rank on (2, 2), the local layers' 32-token band straddling them) and
+    4 greedy decode steps: tokens identical to one process and to the
+    JAX package, the last step's logits within 2e-4; the launcher's
+    losses over 3 steps at world 4 within 2e-4 of a world-1 run;
+  * MoE (grok-1 smoke, fp32): world 4 on (2, 2), each expert's d_ff
+    tensor-parallel, against the JAX package's one-device loss and
+    gradients under ``moe_groups = 2``, same tolerances;
   * the checkpoint of a world-4 step restores at world 1 bitwise to the
     params the ranks gathered.
 
@@ -49,6 +56,9 @@ PG_TIMEOUT_S = 60
 RUN_TIMEOUT_S = 120
 LOSS_TOL = 2e-4
 BATCH, SEQ = 4, 32
+# the served prompt and cache: gemma3-1b smoke's 32-token window straddles
+# the two "model" ranks' 32-position blocks from position 32 on
+PROMPT, CACHE_LEN, DECODE_STEPS = 30, 64, 4
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +130,7 @@ def _rank_step(out: Path, arch: str, mesh_text: str, params_npz: str):
     from repro_torch.training import (OptimizerConfig, batch_to_device,
                                       loss_and_grads, make_train_step,
                                       save_checkpoint)
+    from repro_torch.training.optimizer import global_norm
     from repro_torch.tree import flatten_with_path, path_key
     sizes = [int(n) for n in mesh_text.split(",")]
     names = MULTI_POD_AXES if len(sizes) == 3 else AXES
@@ -129,10 +140,13 @@ def _rank_step(out: Path, arch: str, mesh_text: str, params_npz: str):
     dparams, dopt, hints = production_state(
         model, _load_params(Path(params_npz)), mesh, BATCH)
     batch = batch_to_device(_batch(arch), model)
+    served = _rank_decode(model, dparams, mesh, hints, batch) \
+        if arch == "gemma3-1b" else {}
     with activation_sharding(hints):
-        loss, grads = loss_and_grads(model, dparams, batch)
+        loss, dgrads = loss_and_grads(model, dparams, batch)
+        norm = global_norm(dgrads)
         grads = {path_key(p): full(g).numpy()
-                 for p, g in flatten_with_path(grads)}
+                 for p, g in flatten_with_path(dgrads)}
         step = make_train_step(model, OptimizerConfig(
             lr=1e-3, warmup_steps=1, total_steps=4))
         dparams, dopt, _ = step(dparams, dopt, batch)
@@ -141,8 +155,47 @@ def _rank_step(out: Path, arch: str, mesh_text: str, params_npz: str):
     save_checkpoint(str(out / "ckpt.npz"), {"params": dparams, "opt": dopt},
                     step=1)
     np.savez(out / f"rank{dist.get_rank()}.npz", loss=loss.numpy(),
+             grad_norm=norm.numpy(), **served,
              **{f"grad/{k}": v for k, v in grads.items()},
              **{f"param/{k}": v for k, v in stepped.items()})
+
+
+def _rank_decode(model, dparams, mesh, hints, batch):
+    """The rank's block of ``_greedy``'s prompts prefilled into the cache
+    ``cache_shardings`` places (sequence over "model"), then
+    ``DECODE_STEPS`` greedy steps on it: the tokens, the last step's
+    logits and the global rows of the block."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.hints import activation_sharding
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  gather_at_use, local_block)
+    prefill = batch_shardings(model, InputShape("p", PROMPT, BATCH,
+                                                "prefill"), mesh)["tokens"]
+    c_sh = batch_shardings(model, InputShape("d", CACHE_LEN, BATCH,
+                                             "decode"), mesh)["cache"]
+    rows = local_block(torch.arange(BATCH)[:, None], prefill)[:, 0]
+    prompts = local_block(batch["tokens"][:, :PROMPT], prefill)
+    with torch.no_grad(), activation_sharding(hints):
+        tokens, logits, cache = _greedy(model, gather_at_use(dparams),
+                                        prompts, cache_shardings=c_sh)
+    return {"decode_tokens": tokens.numpy(), "decode_logits": logits.numpy(),
+            "decode_rows": rows.numpy(),
+            "decode_block": np.int64(cache["layers"]["k"].to_local()
+                                     .shape[3])}
+
+
+def _greedy(model, params, prompts, **kw):
+    """Prefill ``prompts`` into a cache of ``CACHE_LEN`` positions, then
+    ``DECODE_STEPS`` greedy decode steps: (the prefill's token and the
+    steps', [B, 1 + DECODE_STEPS]; the last step's logits [B, 1, V]; the
+    cache)."""
+    logits, cache = model.prefill(params, {"tokens": prompts}, CACHE_LEN,
+                                  **kw)
+    toks = [logits.argmax(-1)]
+    for _ in range(DECODE_STEPS):
+        logits, cache = model.decode_step(params, toks[-1], cache)
+        toks.append(logits.argmax(-1))
+    return torch.cat(toks, dim=1), logits, cache
 
 
 def _batch(arch):
@@ -350,35 +403,93 @@ def _run_dense(out: Path, mesh_text: str) -> list:
     try:
         _jax_loss_and_grads("gemma3-1b")
         _dense_plain()
+        _jax_greedy()
+        _plain_greedy()
     finally:
         _wait_ranks(ranks)
     return _ranks_npz(out, 4)
 
 
+def _norm(grads: dict) -> float:
+    return float(np.sqrt(sum(np.sum(np.square(g.astype(np.float64)))
+                             for g in grads.values())))
+
+
 def _assert_ranks_equal_plain(ranks, loss, grads):
+    """Each rank's loss and gathered gradients against ``loss`` and
+    ``grads``; its ``global_norm`` of the DTensor gradients (each "model"
+    block counted once) against the norm of its gathered ones, and within
+    1e-4 of the norm of ``grads``."""
     for r, got in enumerate(ranks):
         assert abs(float(got["loss"]) - loss) <= LOSS_TOL, (r, got["loss"],
                                                            loss)
-        _assert_grads_close(grads, _by_prefix(got, "grad/"))
+        mine = _by_prefix(got, "grad/")
+        _assert_grads_close(grads, mine)
         # every rank gathers the same bits
-        for k, v in _by_prefix(got, "grad/").items():
+        for k, v in mine.items():
             np.testing.assert_array_equal(v, ranks[0][f"grad/{k}"])
+        np.testing.assert_allclose(float(got["grad_norm"]), _norm(mine),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(float(got["grad_norm"]), _norm(grads),
+                                   rtol=1e-4)
 
 
-def _assert_dense_ranks(ranks):
+@functools.lru_cache(maxsize=None)
+def _jax_greedy():
+    """The JAX package's gemma3-1b prefill of ``_greedy``'s prompts and
+    its decode steps, one device: (tokens, the last step's logits)."""
+    import jax.numpy as jnp
+    jm, jp, _ = _jax_model("gemma3-1b")
+    prompts = jnp.asarray(_batch("gemma3-1b")["tokens"][:, :PROMPT])
+    logits, cache = jm.prefill(jp, {"tokens": prompts}, CACHE_LEN)
+    toks = [jnp.argmax(logits, axis=-1)]
+    for _ in range(DECODE_STEPS):
+        logits, cache = jm.decode_step(jp, toks[-1], cache)
+        toks.append(jnp.argmax(logits, axis=-1))
+    return np.asarray(jnp.concatenate(toks, axis=1)), np.asarray(logits)
+
+
+@functools.lru_cache(maxsize=1)
+def _plain_greedy():
+    model, params, _ = _dense_plain()
+    prompts = torch.from_numpy(_batch("gemma3-1b")["tokens"][:, :PROMPT])
+    with torch.no_grad():
+        toks, logits, _ = _greedy(model, params, prompts)
+    return toks.numpy(), logits.numpy()
+
+
+def _assert_decode_ranks(ranks, model_ranks):
+    """The ranks' greedy tokens on the cache sequence-sharded over
+    ``model_ranks``, read back in batch order, identical to one process
+    and to the JAX package; the last step's logits within 2e-4 of both."""
+    for got in ranks:
+        assert int(got["decode_block"]) == CACHE_LEN // model_ranks
+    toks = np.zeros((BATCH, 1 + DECODE_STEPS), np.int64)
+    logits = np.zeros((BATCH,) + ranks[0]["decode_logits"].shape[1:],
+                      np.float32)
+    for got in ranks:
+        toks[got["decode_rows"]] = got["decode_tokens"]
+        logits[got["decode_rows"]] = got["decode_logits"]
+    for want_toks, want_logits in (_plain_greedy(), _jax_greedy()):
+        np.testing.assert_array_equal(toks, want_toks)
+        np.testing.assert_allclose(logits, want_logits, rtol=0, atol=2e-4)
+
+
+def _assert_dense_ranks(ranks, model_ranks):
     """Against the JAX package's one-device step and the port's plain
-    one-process step."""
+    one-process step; the served tokens against both."""
     _assert_ranks_equal_plain(ranks, *_jax_loss_and_grads("gemma3-1b"))
     _assert_ranks_equal_plain(ranks, *_dense_plain()[2])
+    _assert_decode_ranks(ranks, model_ranks)
 
 
 def test_dense_world_4_equals_one_process(dense_world):
-    _assert_dense_ranks(dense_world[1])
+    _assert_dense_ranks(dense_world[1], model_ranks=2)
 
 
 def test_dense_multi_pod_world_4_equals_one_process(tmp_path):
     """(pod 2, data 2, model 1): the batch over pod × data, pod-major."""
-    _assert_dense_ranks(_run_dense(tmp_path, "2,2,1"))
+    _assert_dense_ranks(_run_dense(tmp_path, "2,2,1"), model_ranks=1)
 
 
 def test_world_4_checkpoint_restores_at_world_1_bitwise(dense_world):
@@ -418,26 +529,33 @@ def test_launcher_world_4_losses_equal_world_1(tmp_path):
     """``--production --smoke --device cpu --dtype float32`` (remat) on
     (2, 2) as four ranks: rank 0 alone prints, its first line names the
     mesh and the world, and its 3 losses are the world-1 run's within
-    2e-4. (In bf16 the ranks' gradients are summed in bf16 by the
-    reduce-scatter, one rounding more than one process takes.)"""
+    2e-4; its greedy tokens after them (``--decode-steps 4``, on the cache
+    sequence-sharded over "model") are the world-1 run's. (In bf16 the
+    ranks' gradients are summed in bf16 by the reduce-scatter, one
+    rounding more than one process takes.)"""
     from repro_torch.launch import train as launcher
     argv = ["--production", "--smoke", "--device", "cpu", "--dtype",
             "float32", "--steps", "3", "--batch-size", str(BATCH),
-            "--seq-len", str(SEQ)]
+            "--seq-len", str(SEQ), "--decode-steps", "4"]
     ranks = _start_ranks(tmp_path, 4, [
         "-m", "repro_torch.launch.train", *argv, "--mesh", "2,2",
         "--init-method", (tmp_path / "pg").as_uri(),
         "--pg-timeout-s", str(PG_TIMEOUT_S)])
     try:
-        want = launcher.main(argv)["losses"]
+        one = launcher.main(argv)
     finally:
         outs = _wait_ranks(ranks)
+    want = one["losses"]
     assert "mesh={'data': 2, 'model': 2} world=4" in outs[0].splitlines()[0]
     assert not any(outs[1:]), outs[1:]
     got = _step_losses(outs[0])
     assert len(got) == len(want) == 3
     for a, b in zip(got, want):
         assert abs(a - b) <= LOSS_TOL, (got, want)
+    tokens = re.findall(r"^decode tokens=(\S+)$", outs[0], re.M)
+    assert tokens == [",".join(str(int(t))
+                               for t in one["decoded"].reshape(-1))]
+    assert one["decoded"].shape == (BATCH, 5)
 
 
 # ---------------------------------------------------------------------------
