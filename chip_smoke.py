@@ -259,12 +259,17 @@ Phases, each printing its own lines; a failing phase raises:
                    step, the counted step's ms beside the others, the
                    counted and meta peaks beside ``max_memory_allocated``;
                    then on the host, per chip (meta tensors, a fake world):
-                   gemma3-1b ``train_4k`` on 16 × 16 and grok-1-314b
-                   ``train_4k`` on 2 × 16 × 16, tensor-parallel over
-                   "model" (FLOPs, bytes, each collective kind, peak,
-                   dominant term, useful-FLOPs ratio, trace seconds), each
-                   beside the same record with every weight gathered whole
-                   (FLOPs, collective bytes, peak, useful ratio);
+                   gemma3-1b ``train_4k`` on 16 × 16, grok-1-314b
+                   ``train_4k`` on 2 × 16 × 16 and llama4-maverick
+                   ``train_4k`` on both, tensor-parallel over "model",
+                   each layer gathered inside its remat body, llama4's
+                   experts parallel over the data axes (FLOPs, bytes,
+                   each collective kind, peak, dominant term, useful-FLOPs
+                   ratio, trace seconds), each beside the same record with
+                   the whole tree gathered first and the experts gathered
+                   (FLOPs, each kind, peak, useful ratio; the peak held
+                   lower, llama4's all-to-all held > 0), gemma3-1b and
+                   grok-1 also beside every weight gathered whole;
      train-cli   — one production step at world 1 on the card (nccl, the
                    1×1 ``DeviceMesh``; gemma3-1b and grok-1 smoke, bf16)
                    bitwise equal to the plain step; grok-1 smoke (fp32)
@@ -279,11 +284,17 @@ Phases, each printing its own lines; a failing phase raises:
      train-world — the launcher's ``--production --smoke --dtype float32``
                    run on the CPU as four gloo ranks on (data 2, model 2),
                    the FFN and the vocabulary tensor-parallel over
-                   "model", each a fresh interpreter, against the world-1
+                   "model", each layer gathered inside its remat body,
+                   each rank a fresh interpreter, against the world-1
                    run: the 3 losses within 2e-4 (``device=cpu ranks=4``:
                    the card holds one rank); then ``--decode-steps 4``'s
                    greedy tokens on the cache sequence-sharded over
-                   "model", identical to world 1;
+                   "model", identical to world 1; then the MoE step with
+                   the experts parallel over "data" and the tokens traded
+                   by all-to-all (``--arch grok-1-314b`` on (2, 2),
+                   ``--arch llama4-maverick-400b-a17b`` on (4, 1)), the 3
+                   losses within 2e-4 of one process's plain steps under
+                   ``moe_groups`` = the data ranks;
  10. the kernel table as one JSON line, then the result line.
 
 Launch counts are set to 0 just before each path phase (4-9), and in
@@ -3461,10 +3472,39 @@ def phase_train_ckpt(torch, outdir):
     return dict(leaves=n)
 
 
-# the two host records of the dryrun phase as the port traced them with
-# every weight gathered whole (ZeRO-3 alone: "model" ranks repeating their
-# data block's step), from `python -m repro_torch.launch.dryrun --all` on an
-# H100 80GB HBM3 host, torch 2.11 (PERF.md, section 6)
+# the host records of the dryrun phase as the port traced them with the
+# whole tree gathered before the forward and every MoE expert gathered
+# (tensor-parallel over "model"), from `python -m repro_torch.launch.dryrun
+# --all` on an H100 80GB HBM3 host, torch 2.11 (PERF.md, section 6)
+WHOLE_TREE = {
+    ("gemma3-1b", "single"): dict(
+        flops=129362804342784.0, peak_bytes=11219135244,
+        useful_flops_ratio=0.18994153391476487,
+        collectives={"all-reduce": 8193170740.0, "all-gather": 14436864.0,
+                     "reduce-scatter": 230989824.0}),
+    ("grok-1-314b", "multi"): dict(
+        flops=4025037191380992.0, peak_bytes=147207561228,
+        useful_flops_ratio=0.2581558274431469,
+        collectives={"all-reduce": 233064673380.0,
+                     "all-gather": 26578255872.0,
+                     "reduce-scatter": 55666802688.0}),
+    ("llama4-maverick-400b-a17b", "single"): dict(
+        flops=3068582334300160.0, peak_bytes=275276111884,
+        useful_flops_ratio=0.08940012386977578,
+        collectives={"all-reduce": 122396084284.0,
+                     "all-gather": 6425374720.0,
+                     "reduce-scatter": 102805995520.0}),
+    ("llama4-maverick-400b-a17b", "multi"): dict(
+        flops=1534291167150080.0, peak_bytes=319610652684,
+        useful_flops_ratio=0.08940012386977578,
+        collectives={"all-reduce": 158348808292.0,
+                     "all-gather": 54615685120.0,
+                     "reduce-scatter": 105825894400.0}),
+}
+
+# the gemma3-1b and grok-1 records as the port traced them with every
+# weight gathered whole (ZeRO-3 alone: "model" ranks repeating their data
+# block's step), from the same command, same host
 ZERO3_ONLY = {
     "gemma3-1b": dict(flops=557632783908864.0,
                       collective_bytes=604101940.0 + 129821184.0
@@ -3487,15 +3527,19 @@ def phase_dryrun(torch, cg, gv, fa, uncounted=3):
     meta tensors; its counted bytes and the least time at the H100's
     spec-sheet rates beside the measured step; the counted and meta peaks
     beside ``max_memory_allocated``. On the host: fake-world traces of
-    gemma3-1b ``train_4k`` on 16 × 16 and grok-1-314b ``train_4k`` on
-    2 × 16 × 16, per chip, tensor-parallel over "model", each beside the
-    same record traced with every weight gathered whole
-    (``ZERO3_ONLY``): FLOPs, collective bytes, peak, useful-FLOPs ratio.
-    No process group outlives the phase."""
+    gemma3-1b ``train_4k`` on 16 × 16, grok-1-314b ``train_4k`` on
+    2 × 16 × 16 and llama4-maverick ``train_4k`` on both, per chip,
+    tensor-parallel over "model", each layer gathered inside its remat
+    body and llama4's experts parallel over the data axes (tokens traded
+    by all-to-all), each beside the same record traced with the whole
+    tree gathered before the forward and the experts gathered
+    (``WHOLE_TREE``): FLOPs, every collective kind's bytes, peak,
+    useful-FLOPs ratio; gemma3-1b and grok-1 also beside every weight
+    gathered whole (``ZERO3_ONLY``). No process group outlives the
+    phase."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
-    from repro_torch.launch.dryrun import dryrun_one
     from repro_torch.launch.hlo_analysis import HBM_BW, PEAK_FLOPS, roofline
     from repro_torch.launch.step_cost import count_step
     from repro_torch.models import Model
@@ -3570,7 +3614,20 @@ def phase_dryrun(torch, cg, gv, fa, uncounted=3):
     _free(torch)
     out = {"card": dict(flops=c_tot.flops, bytes=c_tot.bytes, ms=step_ms,
                         counted_ms=ms[-1], bound_ms=terms.bound_s * 1e3)}
-    for arch, multi in (("gemma3-1b", False), ("grok-1-314b", True)):
+    out.update(_dryrun_host_records())
+    assert not dist.is_initialized()
+    return out
+
+
+def _dryrun_host_records():
+    """The dryrun phase's host records (meta tensors, a fake world), each
+    beside its whole-tree twin (``WHOLE_TREE``) and, for gemma3-1b and
+    grok-1, beside every weight gathered whole (``ZERO3_ONLY``)."""
+    from repro_torch.launch.dryrun import dryrun_one
+    out = {}
+    for arch, multi in (("gemma3-1b", False), ("grok-1-314b", True),
+                        ("llama4-maverick-400b-a17b", False),
+                        ("llama4-maverick-400b-a17b", True)):
         rec = dryrun_one(arch, "train_4k", multi, verbose=False)
         r = rec["roofline"]
         say("dryrun", where="host (meta tensors, fake world, per chip, "
@@ -3585,6 +3642,30 @@ def phase_dryrun(torch, cg, gv, fa, uncounted=3):
             collective_s=f"{r['collective_s']:.4f}",
             useful_flops_ratio=f"{r['useful_flops_ratio']:.4f}",
             dominant=r["dominant"], trace_s=f"{rec['trace_s']:.2f}")
+        whole = WHOLE_TREE[(arch, rec["mesh"])]
+        kinds = sorted(set(rec["collectives"]) | set(whole["collectives"]))
+        say("dryrun", where="host", arch=arch, mesh=rec["mesh"],
+            compare="gathered a layer at a time, experts parallel over the "
+            "data axes where they divide them, vs the whole tree gathered "
+            "(the same trace before, H100 80GB HBM3 host, torch 2.11)",
+            flops=f"{rec['flops']:.6e}",
+            flops_before=f"{whole['flops']:.6e}",
+            **{f"{k.replace('-', '_')}": f"{rec['collectives'].get(k, 0):.6e}"
+               for k in kinds},
+            **{f"{k.replace('-', '_')}_before":
+               f"{whole['collectives'].get(k, 0):.6e}" for k in kinds},
+            peak_bytes=f"{rec['memory']['peak_bytes']:.6e}",
+            peak_bytes_before=f"{whole['peak_bytes']:.6e}",
+            useful_flops_ratio=f"{r['useful_flops_ratio']:.4f}",
+            useful_flops_ratio_before=f"{whole['useful_flops_ratio']:.4f}")
+        assert rec["memory"]["peak_bytes"] < whole["peak_bytes"], rec
+        out[(arch, rec["mesh"])] = rec
+        if arch.startswith("llama4"):
+            # 128 experts divide the data axes: the tokens go to them
+            assert rec["collectives"].get("all-to-all", 0) > 0, rec
+            assert rec["collectives"]["reduce-scatter"] < \
+                whole["collectives"]["reduce-scatter"], rec
+            continue
         old = ZERO3_ONLY[arch]
         coll = sum(rec["collectives"].values())
         say("dryrun", where="host", arch=arch, compare="tensor-parallel "
@@ -3599,23 +3680,25 @@ def phase_dryrun(torch, cg, gv, fa, uncounted=3):
             useful_flops_ratio=f"{r['useful_flops_ratio']:.4f}",
             useful_flops_ratio_before=f"{old['useful_flops_ratio']:.4f}")
         assert rec["collectives"].get("all-gather", 0) > 0, rec
+        assert "all-to-all" not in rec["collectives"], rec
         assert rec["flops"] < old["flops"], (rec["flops"], old["flops"])
-        out[arch] = rec
-    assert not dist.is_initialized()
     return out
 
 
 def _production_step_bitwise(torch):
     """One production step at world 1 on the card (nccl, the (1, 1)
     DeviceMesh, DTensor params and optimizer state, each weight gathered at
-    use) against the plain step from the same params and batch: loss,
-    grad norm, every stepped param and second moment bitwise equal.
-    gemma3-1b and grok-1 smoke, bf16 params."""
+    use, a layer's inside its remat body) against the plain step from the
+    same params and batch: loss, grad norm, every stepped param and second
+    moment bitwise equal. gemma3-1b and grok-1 smoke, bf16 params. The
+    step runs under ``step_cost``'s counter: a data axis of 1 holds every
+    expert, so it issues no all-to-all (0 bytes of that kind)."""
     import torch.distributed as dist
     from repro_torch.configs import smoke_config
     from repro_torch.distributed.hints import activation_sharding
     from repro_torch.launch.mesh import (ensure_process_group,
                                          make_host_mesh, production_state)
+    from repro_torch.launch.step_cost import count_step
     from repro_torch.models import Model
     from repro_torch.training import (DataConfig, OptimizerConfig,
                                       SyntheticLM, batch_to_device,
@@ -3638,7 +3721,9 @@ def _production_step_bitwise(torch):
             p1, s1, m1 = step(plain, init_opt_state(plain), batch)
             dparams, dopt, hints = production_state(model, params, mesh, 4)
             with activation_sharding(hints):
-                p2, s2, m2 = step(dparams, dopt, batch)
+                (p2, s2, m2), counted, _ = count_step(step, dparams, dopt,
+                                                      batch)
+            coll = counted.per_collective
             same = (torch.equal(m1["loss"], m2["loss"])
                     and torch.equal(m1["grad_norm"], m2["grad_norm"])
                     and all(torch.equal(a, b.full_tensor()) for a, b in
@@ -3647,8 +3732,11 @@ def _production_step_bitwise(torch):
             say("train-cli", check="production_step_world_1", arch=arch,
                 dtype="bfloat16", backend="nccl",
                 loss=f"{float(m2['loss']):.6f}",
-                vs_plain_step="bitwise_equal" if same else "DIFFERENT")
+                vs_plain_step="bitwise_equal" if same else "DIFFERENT",
+                all_to_all_bytes=f"{coll['all-to-all']:.0f}",
+                collective_bytes=f"{counted.collective_bytes:.0f}")
             assert same, arch
+            assert coll["all-to-all"] == 0, coll
     finally:
         if started:
             dist.destroy_process_group()
@@ -3727,51 +3815,21 @@ def phase_train_cli(torch):
     return out
 
 
-def phase_train_world(torch, outdir, world=4, timeout_s=300):
-    """The launcher's --production --smoke run (gemma3-1b reduced config,
-    fp32, remat) on the CPU as four gloo ranks on the (data 2, model 2)
-    mesh, each a fresh interpreter in a session of its own with a
-    ``file://`` rendezvous under ``outdir``, the FFN and the vocabulary
-    tensor-parallel over "model", against the same run at world 1: the 3
-    losses within 2e-4; then the trained params served on each mesh
-    (``--decode-steps 4``: a prefill, then greedy steps on the cache
-    sequence-sharded over "model" at world 4), tokens identical. The card
-    holds one rank, so this world runs on the host's cores."""
-    import shutil
+def _world_ranks(cmd, run_dir, env, world, timeout_s):
+    """``cmd`` as ``world`` fresh interpreters (gloo ranks of a
+    ``file://`` rendezvous under ``run_dir``), each in a session of its
+    own: rank 0's stdout once all exit 0 (the others print nothing). Past
+    ``timeout_s`` their sessions are killed."""
     import signal
-    base = ["-m", "repro_torch.launch.train", "--production", "--smoke",
-            "--device", "cpu", "--dtype", "float32", "--steps", "3",
-            "--batch-size", "4", "--seq-len", "32", "--decode-steps", "4"]
-    run_dir = Path(outdir) / "train_world"
-    shutil.rmtree(run_dir, ignore_errors=True)
-    run_dir.mkdir(parents=True)
-
-    def losses(text):
-        return [float(m) for m in re.findall(r"^step +\d+ loss (\S+)",
-                                             text, re.M)]
-
-    def decoded(text):
-        return re.findall(r"^decode tokens=(\S+)$", text, re.M)
-
-    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
-               CUDA_VISIBLE_DEVICES="")
-    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
-              "LOCAL_RANK"):
-        env.pop(k, None)
-    t0 = time.perf_counter()
-    one = subprocess.run([sys.executable, *base], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=timeout_s)
-    assert one.returncode == 0, one.stderr[-4000:]
-    want = losses(one.stdout)
-    cmd = base + ["--mesh", "2,2", "--init-method",
-                  (run_dir / "pg").as_uri(), "--pg-timeout-s", "60"]
     procs, logs = [], []
     for r in range(world):
         so, se = run_dir / f"rank{r}.out", run_dir / f"rank{r}.err"
         logs.append((so, se))
         with open(so, "w") as fo, open(se, "w") as fe:
             procs.append(subprocess.Popen(
-                [sys.executable, *cmd], cwd=ROOT, stdout=fo, stderr=fe,
+                [sys.executable, *cmd, "--init-method",
+                 (run_dir / "pg").as_uri(), "--pg-timeout-s", "60"],
+                cwd=ROOT, stdout=fo, stderr=fe,
                 stdin=subprocess.DEVNULL, start_new_session=True,
                 env=dict(env, RANK=str(r), WORLD_SIZE=str(world),
                          LOCAL_RANK=str(r))))
@@ -3784,20 +3842,96 @@ def phase_train_world(torch, outdir, world=4, timeout_s=300):
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
-    secs = time.perf_counter() - t0
     rcs = [p.returncode for p in procs]
     errs = "".join(se.read_text()[-2000:] for _, se in logs)
     assert rcs == [0] * world, (rcs, errs)
-    out0 = logs[0][0].read_text()
     assert not any(so.read_text() for so, _ in logs[1:])
+    return logs[0][0].read_text()
+
+
+def _step_losses(text):
+    return [float(m) for m in re.findall(r"^step +\d+ loss (\S+)", text,
+                                         re.M)]
+
+
+def _moe_one_process(torch, arch, groups, steps, batch_size, seq_len):
+    """The launcher's ``--production --smoke --dtype float32`` steps of
+    ``arch`` (its init, data, optimizer and remat) in this process on the
+    CPU, the plain step under ``moe_groups = groups`` (the token groups
+    the ranks route): the losses."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.hints import activation_sharding
+    from repro_torch.models import Model
+    from repro_torch.training import (DataConfig, OptimizerConfig,
+                                      SyntheticLM, batch_to_device,
+                                      init_opt_state, make_train_step)
+    cfg = smoke_config(arch)
+    model = Model(cfg, param_dtype=torch.float32, device="cpu", remat=True)
+    params = model.init(torch.Generator(device="cpu").manual_seed(0))
+    opt = init_opt_state(params)
+    step = make_train_step(model, OptimizerConfig(
+        lr=1e-3, warmup_steps=max(steps // 10, 1), total_steps=steps))
+    it = iter(SyntheticLM(cfg, DataConfig(batch_size=batch_size,
+                                          seq_len=seq_len)))
+    losses = []
+    with activation_sharding({"moe_groups": groups}):
+        for _ in range(steps):
+            params, opt, m = step(params, opt,
+                                  batch_to_device(next(it), model))
+            losses.append(float(m["loss"]))
+    return losses
+
+
+def phase_train_world(torch, outdir, world=4, timeout_s=300):
+    """The launcher's --production --smoke run (gemma3-1b reduced config,
+    fp32, remat) on the CPU as four gloo ranks on the (data 2, model 2)
+    mesh, each a fresh interpreter in a session of its own with a
+    ``file://`` rendezvous under ``outdir``, the FFN and the vocabulary
+    tensor-parallel over "model", each layer gathered inside its remat
+    body, against the same run at world 1: the 3 losses within 2e-4; then
+    the trained params served on each mesh (``--decode-steps 4``: a
+    prefill, then greedy steps on the cache sequence-sharded over "model"
+    at world 4), tokens identical. Then the MoE production step with the
+    experts parallel over "data", the dispatched tokens traded by
+    all-to-all: grok-1 smoke on (2, 2) (4 experts, 2 a rank) and llama4
+    smoke on (4, 1) (1 a rank), four ranks each, the 3 losses within 2e-4
+    of one process's plain steps under ``moe_groups`` = the data ranks
+    (``_moe_one_process``). The card holds one rank, so these worlds run
+    on the host's cores."""
+    import shutil
+    base = ["-m", "repro_torch.launch.train", "--production", "--smoke",
+            "--device", "cpu", "--dtype", "float32", "--steps", "3",
+            "--batch-size", "4", "--seq-len", "32"]
+    run_dir = Path(outdir) / "train_world"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+
+    def decoded(text):
+        return re.findall(r"^decode tokens=(\S+)$", text, re.M)
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+              "LOCAL_RANK"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    dense = base + ["--decode-steps", "4"]
+    one = subprocess.run([sys.executable, *dense], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout_s)
+    assert one.returncode == 0, one.stderr[-4000:]
+    want = _step_losses(one.stdout)
+    out0 = _world_ranks(dense + ["--mesh", "2,2"], run_dir, env, world,
+                        timeout_s)
+    secs = time.perf_counter() - t0
     first = out0.splitlines()[0]
     print(f"    {first}", flush=True)
     assert "mesh={'data': 2, 'model': 2} world=4" in first, first
-    got = losses(out0)
+    got = _step_losses(out0)
     err = max(abs(a - b) for a, b in zip(got, want))
     say("train-world", device="cpu", ranks=world, mesh="data=2,model=2",
         backend="gloo", dtype="float32", arch="gemma3-1b-smoke",
-        compute="ffn and vocab tensor-parallel over model",
+        compute="ffn and vocab tensor-parallel over model, each layer "
+        "gathered in its remat body",
         losses=",".join(f"{v:.6f}" for v in got),
         world_1=",".join(f"{v:.6f}" for v in want),
         max_abs_diff=f"{err:.2e}", tol="2e-4", seconds=f"{secs:.1f}")
@@ -3809,8 +3943,34 @@ def phase_train_world(torch, outdir, world=4, timeout_s=300):
         tokens=toks[0] if toks else "none",
         decode_tokens_world_4_vs_1="identical" if same else "DIFFERENT")
     assert same, (toks, toks_1)
-    return dict(losses=got, world_1=want, max_abs_diff=err,
-                decode_tokens=toks[0])
+    out = dict(losses=got, world_1=want, max_abs_diff=err,
+               decode_tokens=toks[0])
+    for arch, sizes in (("grok-1-314b", (2, 2)),
+                        ("llama4-maverick-400b-a17b", (4, 1))):
+        moe_dir = run_dir / arch
+        moe_dir.mkdir()
+        t0 = time.perf_counter()
+        out0 = _world_ranks(base + ["--arch", arch, "--mesh",
+                                    f"{sizes[0]},{sizes[1]}"],
+                            moe_dir, env, world, timeout_s)
+        secs = time.perf_counter() - t0
+        mesh = f"data={sizes[0]},model={sizes[1]}"
+        assert f"mesh={{'data': {sizes[0]}, 'model': {sizes[1]}}} world=4" \
+            in out0.splitlines()[0], out0
+        got = _step_losses(out0)
+        want = _moe_one_process(torch, arch, sizes[0], 3, 4, 32)
+        err = max(abs(a - b) for a, b in zip(got, want))
+        say("train-world", device="cpu", ranks=world, mesh=mesh,
+            backend="gloo", dtype="float32", arch=f"{arch}-smoke",
+            compute=f"experts parallel over data ({sizes[0]} ranks, "
+            "tokens by all-to-all), d_ff over model",
+            losses=",".join(f"{v:.6f}" for v in got),
+            one_process_moe_groups=",".join(f"{v:.6f}" for v in want),
+            moe_groups=sizes[0], max_abs_diff=f"{err:.2e}", tol="2e-4",
+            seconds=f"{secs:.1f}")
+        assert len(got) == len(want) == 3 and err <= 2e-4, (got, want)
+        out[arch] = dict(losses=got, one_process=want, max_abs_diff=err)
+    return out
 
 
 # ---------------------------------------------------------------------------

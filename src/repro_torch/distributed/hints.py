@@ -8,14 +8,17 @@ mesh-agnostic. Here the context holds ``NamedSharding`` values
 outside the context, for a kind the context does not name, and for a plain
 tensor; given a DTensor inside it, it redistributes the DTensor to the
 hint's placements. The port's training step keeps activations as plain
-tensors and gathers each weight at use (``sharding.gather_at_use``), so on
+tensors and gathers each weight at use (``sharding.gather_at_use``, a
+layer's inside the layer's body), so on
 that path the calls sit where the reference puts them (``_decoder_input``,
 ``stack_full``, ``_chunked_ce``) and leave the tensors as they are. There
 the ``"btd"`` hint also says which mesh axes split the batch: a plain
 activation is this rank's block over them (``sharding.batch_axes``), and
 the ``"model"`` hint names the mesh whose "model" group the model code's
 tensor-parallel collectives run on (``sharding.model_axis``; without it,
-the plain path).
+the plain path). The MoE experts a rank holds a block of are sharded over
+the ``"btd"`` hint's axes, whose group the token exchange runs on
+(``sharding.expert_block``).
 """
 from __future__ import annotations
 

@@ -8,17 +8,22 @@ Mesh: (data, model) on one pod, (pod, data, model) across pods
 meshes, which touch no device) or a ``torch.distributed`` ``DeviceMesh``
 with ``mesh_dim_names``; the rules read only axis sizes.
 
-Past one rank the training step is ZeRO-3 over the data-parallel axes and
-tensor-parallel over "model", as the reference's GSPMD step computes it:
-``gather_at_use`` gathers each weight over its FSDP axes and keeps a leaf
-the rules shard on "model" as the rank's block, every rank takes its block
-of the global batch (``batch_block``), and the gather's backward sums the
-gradients over the axes that split the batch (``batch_axes``). The model
-code runs the Megatron pair on such a block (``model_block``,
-``copy_to_model`` / ``reduce_from_model``, over the ``"model"`` hint's
-group) and a decode on a sequence-sharded cache combines its softmax
-across the sequence's ranks (``seq_block``). A "model" axis of size 1
-keeps every leaf whole and issues no collective.
+Past one rank the training step is ZeRO-3 over the data-parallel axes,
+expert-parallel over them and tensor-parallel over "model", as the
+reference's GSPMD step computes it: ``gather_at_use`` gathers each weight
+over its FSDP axes where it is used (a layer's leaves inside the layer's
+body, ``models/transformer.py``) and keeps a leaf the rules shard on
+"model" as the rank's block, and an MoE expert weight sharded over the
+axes that split the batch as the rank's block of experts; every rank
+takes its block of the global batch (``batch_block``), and the gather's
+backward sums the gradients over the axes that split the batch
+(``batch_axes``). The model code runs the Megatron pair on a "model"
+block (``model_block``, ``copy_to_model`` / ``reduce_from_model``, over
+the ``"model"`` hint's group), trades the dispatched tokens with the
+ranks that hold their experts (``expert_block``, ``exchange_experts``:
+one all-to-all each way) and a decode on a sequence-sharded cache
+combines its softmax across the sequence's ranks (``seq_block``). Axes of
+size 1 keep every leaf whole and issue no collective.
 
 Baseline scheme (uniform across all ten architectures, as the reference):
 
@@ -271,30 +276,63 @@ def distribute(tree: Any, shardings: Any) -> Any:
     return tree_map(place, tree, shardings)
 
 
-def gather_at_use(tree: Any, grad_axes: Tuple[str, ...] = ()) -> Any:
+_EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+def _expert_axes(path, t, grad_axes) -> Tuple[str, ...]:
+    """The mesh axes (of size > 1, not "model") over which the DTensor
+    ``t`` at ``path``, an MoE expert weight ([L, E, a, b] or one layer's
+    [E, a, b]), shards its expert dimension, where each of them splits
+    the batch (``grad_axes``): the rank then keeps its block of experts
+    and trades tokens with the others (``moe.moe_ffn``). () for any other
+    leaf, and where the batch is whole on those ranks (the experts are
+    gathered)."""
+    from torch.distributed.tensor import Shard
+    if not path or path[-1] not in _EXPERT_WEIGHTS or "moe" not in path:
+        return ()
+    mesh = t.device_mesh
+    dim = t.dim() - 3
+    axes = tuple(a for i, (a, p) in enumerate(zip(mesh.mesh_dim_names,
+                                                  t.placements))
+                 if isinstance(p, Shard) and p.dim == dim
+                 and a != "model" and mesh.size(i) > 1)
+    return axes if axes and set(axes) <= set(grad_axes) else ()
+
+
+def gather_at_use(tree: Any, grad_axes: Any = None) -> Any:
     """Every DTensor leaf gathered over its FSDP axes (ZeRO-3's gather of
     the weights at use), differentiably, to a local tensor. A leaf sharded
     on a "model" axis of size > 1 stays this rank's "model" block: the
-    tensor-parallel compute reads it as such (``model_block``). Other
-    leaves pass through.
+    tensor-parallel compute reads it as such (``model_block``). An MoE
+    expert weight whose experts are sharded over axes that each split the
+    batch stays this rank's block of experts (``_expert_axes``; the model
+    code reads it with ``expert_block``). Other leaves pass through.
 
     ``grad_axes``: the mesh axes whose ranks hold different blocks of the
-    batch. The gathered weight's gradient is ``Partial`` on them, so the
+    batch; by default the ``"btd"`` hint's (``batch_axes``), () outside
+    it. The gathered weight's gradient is ``Partial`` on them, so the
     backward reduce-scatters (sums) the ranks' gradients into the weight's
     own placements; on "model" it is the rank's own block (or
     ``Replicate``, the Megatron pair making every "model" rank's gradient
     of a replicated weight the same), and ``Replicate`` on the other axes,
     whose ranks compute the same block and so the same gradient (no sum
-    there). With no ``grad_axes`` every rank's gradient is taken as the
-    whole one: right only when every rank sees the whole batch."""
+    there). A block of experts keeps its ``Shard`` on its axes: the
+    token exchange brought every rank's tokens to it, so its gradient is
+    already the whole batch's (a sum over those axes would count each
+    token once a rank). With no batch axes every rank's gradient is taken
+    as the whole one: right only when every rank sees the whole batch."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if grad_axes is None:
+        grad_axes = batch_axes()[1]
 
-    def gather(t):
+    def gather(path, t):
         if not isinstance(t, DTensor):
             return t
         mesh = t.device_mesh
         names = mesh.mesh_dim_names
-        kept = [p if a == "model" and mesh.size(i) > 1 else Replicate()
+        experts = _expert_axes(path, t, grad_axes)
+        kept = [p if (a == "model" or a in experts) and mesh.size(i) > 1
+                else Replicate()
                 for i, (a, p) in enumerate(zip(names, t.placements))]
         if not any(isinstance(p, Shard) for p in kept):
             if not grad_axes:
@@ -302,11 +340,11 @@ def gather_at_use(tree: Any, grad_axes: Tuple[str, ...] = ()) -> Any:
             return t.full_tensor(grad_placements=[
                 Partial() if a in grad_axes else Replicate()
                 for a in names])
-        grad = [Partial() if a in grad_axes else p
+        grad = [Partial() if a in grad_axes and a not in experts else p
                 for a, p in zip(names, kept)]
         return t.redistribute(mesh, kept).to_local(grad_placements=grad)
 
-    return tree_map(gather, tree)
+    return map_with_path(gather, tree)
 
 
 def batch_axes() -> Tuple[Any, Tuple[str, ...]]:
@@ -429,6 +467,105 @@ def model_block(t: torch.Tensor, dim: int, full: Any
                          f"the 'model' hint of a mesh whose model axis "
                          f"splits it")
     return ax, ax.rank * n
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertAxes:
+    """The mesh axes over which an MoE layer's experts are sharded (and
+    the batch with them), major to minor: the group the token exchange
+    runs on (one group of the flattened axes within this rank's "model"
+    index), its size and this rank's index in it, pod-major as
+    ``local_block`` counts it."""
+    mesh: Any
+    axes: Tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        return _axis_size(self.mesh, self.axes)
+
+    @property
+    def rank(self) -> int:
+        sizes = axis_sizes(self.mesh)
+        idx = 0
+        for a in self.axes:
+            idx = idx * sizes[a] + self.mesh.get_local_rank(a)
+        return idx
+
+    @property
+    def group(self):
+        if len(self.axes) == 1:
+            return self.mesh.get_group(self.axes[0])
+        return _flat_group(self.mesh, self.axes)
+
+
+def _flat_group(mesh: Any, axes: Tuple[str, ...]):
+    """The process group of this rank and the ranks that differ from it
+    only on ``axes``, in pod-major order: made once a mesh, every rank
+    making every such group in the same order (as ``new_group`` asks),
+    and kept on the mesh. Not ``DeviceMesh._flatten``: a flattened mesh
+    registered there changes how DTensor plans every later redistribution
+    over those axes, so a step's gathers would depend on whether an MoE
+    layer ran before them."""
+    import torch.distributed as dist
+    cache = mesh.__dict__.setdefault("_flat_groups", {})
+    if axes not in cache:
+        names = list(mesh.mesh_dim_names)
+        inner = [names.index(a) for a in axes]
+        outer = [i for i in range(len(names)) if i not in inner]
+        ranks = mesh.mesh.permute(*outer, *inner).reshape(
+            -1, _axis_size(mesh, axes)).tolist()
+        cache[axes] = dist.new_subgroups_by_enumeration(ranks)[0]
+    return cache[axes]
+
+
+def expert_block(t: torch.Tensor, dim: int, full: Any
+                 ) -> Tuple[Any, int]:
+    """(the ``ExpertAxes``, the index of ``t``'s first expert) where ``t``
+    is this rank's block of experts of an expert dimension ``full`` long
+    at ``dim`` (``gather_at_use`` keeps the block where the experts are
+    sharded over the axes that split the batch, which the ``"btd"`` hint
+    names); (None, 0) where ``t`` holds every expert (no hint, or a
+    ``_fits`` fallback): then no collective runs."""
+    n = int(t.shape[dim])
+    if full is None or n == full:
+        return None, 0
+    mesh, axes = batch_axes()
+    ax = ExpertAxes(mesh, axes) if axes else None
+    if ax is None or n * ax.size != full:
+        raise ValueError(f"a block of {n} of {full} experts needs the "
+                         f"'btd' hint of a mesh whose batch axes split "
+                         f"them")
+    return ax, ax.rank * n
+
+
+class _ExchangeExperts(torch.autograd.Function):
+    """The all-to-all of the token exchange: block j of dimension 0 to
+    rank j of the group, block i of the result from rank i. With equal
+    blocks it is its own inverse, so its backward is the same exchange of
+    the gradient (each block returns to the rank that sent it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def exchange_experts(x: torch.Tensor, ax: ExpertAxes) -> torch.Tensor:
+    """``x`` [ax.size, ...]: its block j sent to expert rank j; returns
+    the blocks the ranks sent this one, in their rank order."""
+    return _ExchangeExperts.apply(x, ax.group)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
 
 
 def _all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
@@ -573,9 +710,10 @@ def full(t: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
-    "ModelAxis", "NamedSharding", "SeqBlock", "all_reduce_sum",
-    "axis_sizes", "batch_axes", "batch_block", "batch_shardings",
-    "cache_shardings", "copy_to_model", "distribute", "fsdp_axes", "full",
+    "ExpertAxes", "ModelAxis", "NamedSharding", "SeqBlock",
+    "all_reduce_sum", "axis_sizes", "batch_axes", "batch_block",
+    "batch_shardings", "cache_shardings", "copy_to_model", "distribute",
+    "exchange_experts", "expert_block", "fsdp_axes", "full",
     "gather_at_use", "gather_from_model", "local", "local_block",
     "max_over_model", "model_axis", "model_block", "opt_state_shardings",
     "param_shardings", "place_block", "placed_like", "reduce_from_model",

@@ -13,13 +13,14 @@ record:
     rank's block of the batch and of the cache (``batch_shardings``,
     ``cache_shardings``; the prefill keeps the rank's sequence block of
     the cache it writes, the decode reads it as DTensors), each weight
-    gathered at use over its FSDP axes.
+    gathered at use over its FSDP axes, a layer's where the layer runs.
 
 Every step runs the port's compute over "model" as the reference's GSPMD
 step does (``distributed/sharding.py``): the FFN, the MoE experts' d_ff
 and the vocabulary (embedding, logits, the cross-entropy) tensor-parallel,
-and a decode on a sequence-sharded cache combining its softmax across the
-sequence's ranks.
+the experts parallel over the data axes where they divide them (tokens
+traded by all-to-all), and a decode on a sequence-sharded cache combining
+its softmax across the sequence's ranks.
 
 The record keeps the bytes of params, optimizer state, batch and cache a
 chip holds (``bytes_per_chip``) and the model FLOPs a chip does
@@ -50,7 +51,6 @@ from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, get_config,
 from repro_torch.configs.base import InputShape
 from repro_torch.distributed.hints import activation_sharding
 from repro_torch.distributed.sharding import (batch_shardings, distribute,
-                                              gather_at_use,
                                               opt_state_shardings,
                                               param_shardings)
 from repro_torch.launch.hlo_analysis import model_flops_for, roofline
@@ -125,16 +125,13 @@ def trace_step(model: Model, shape, mesh
             decode = InputShape(shape.name, shape.seq_len, B, "decode")
             c_sh = batch_shardings(model, decode, mesh)["cache"]
             _, totals, memory = count_step(
-                lambda p, b: model.prefill(gather_at_use(p), b,
-                                           cache_len=shape.seq_len,
+                lambda p, b: model.prefill(p, b, cache_len=shape.seq_len,
                                            cache_shardings=c_sh),
                 params, block)
         else:
             cache = distribute(in_specs["cache"], b_sh["cache"])
-            _, totals, memory = count_step(
-                lambda p, tok, cache: model.decode_step(gather_at_use(p),
-                                                        tok, cache),
-                params, block["tokens"], cache)
+            _, totals, memory = count_step(model.decode_step, params,
+                                           block["tokens"], cache)
     return totals, memory
 
 

@@ -20,7 +20,8 @@ SPMD module gives it.
     the reference's fusion-aware count, not that count.
   * ``collective_bytes`` / ``per_collective``: the operand bytes of every
     ``_c10d_functional`` / ``c10d`` collective (DTensor's redistributions,
-    ``dist.all_reduce``, ``torch.distributed.nn``'s all-reduce), by the
+    ``dist.all_reduce``, the MoE token exchange's
+    ``dist.all_to_all_single``), by the
     reference's five kinds (``COLLECTIVE_OPS``). A collective of another
     kind raises: no record leaves a term out.
   * ``memory``: the step's arguments plus every storage it allocates, each

@@ -11,12 +11,13 @@ rank (``launch/mesh.py``: the world starts from ``--init-method`` or from
 ``torchrun``'s environment; by default it is one process on the (1, 1)
 mesh). Params and optimizer state are DTensors placed by
 ``distributed/sharding.py``'s rules, each weight gathered at use over the
-data / pod axes (ZeRO-3) and the FFN and the vocabulary tensor-parallel
-over "model", the hints set as the reference sets them. Every rank draws
-the same global batch from the seed and the step keeps its block over the
-fsdp axes, as the reference's ``P(bspec, None)`` (the whole batch when it
-does not divide them); the gradients are summed across those ranks
-(``training/train_loop.py``). Rank 0 alone prints. ``--smoke`` runs
+data / pod axes (ZeRO-3, a layer at a time), the MoE experts parallel
+over those axes where they divide them, and the FFN and the vocabulary
+tensor-parallel over "model", the hints set as the reference sets them.
+Every rank draws the same global batch from the seed and the step keeps
+its block over the fsdp axes, as the reference's ``P(bspec, None)`` (the
+whole batch when it does not divide them); the gradients are summed
+across those ranks (``training/train_loop.py``). Rank 0 alone prints. ``--smoke`` runs
 production mode on the reduced config (the CPU tests' size).
 ``--decode-steps N`` then serves the trained params on the same mesh: the
 first half of each row of the next batch as its prompt, prefilled into a
@@ -188,25 +189,25 @@ def serve_greedy(model: Model, params: Any, mesh: Any,
     the production hints: each rank prefills its block of the batch into
     the cache ``cache_shardings`` places (each "model" rank keeping its
     sequence block), then ``steps`` decode steps on it, each weight
-    gathered at use. Returns every rank the whole batch's tokens [B, 1 +
-    steps] (the prefill's token first)."""
+    gathered at use (a layer's where the layer runs). Returns every rank
+    the whole batch's tokens [B, 1 + steps] (the prefill's token
+    first)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed.sharding import (batch_shardings,
-                                                  gather_at_use, local_block)
+                                                  local_block)
     B, P = prompts.shape
     tok_sh = batch_shardings(model, InputShape("prompt", P, B, "prefill"),
                              mesh)["tokens"]
     c_sh = batch_shardings(model, InputShape("cache", cache_len, B,
                                              "decode"), mesh)["cache"]
-    used = gather_at_use(params)
-    logits, cache = model.prefill(used, {"tokens": local_block(prompts,
-                                                               tok_sh)},
+    logits, cache = model.prefill(params, {"tokens": local_block(prompts,
+                                                                 tok_sh)},
                                   cache_len, cache_shardings=c_sh)
     toks = [logits.argmax(-1)]
     for _ in range(steps):
-        logits, cache = model.decode_step(used, toks[-1], cache)
+        logits, cache = model.decode_step(params, toks[-1], cache)
         toks.append(logits.argmax(-1))
     block = torch.cat(toks, dim=1).contiguous()
     return DTensor.from_local(block, mesh, tok_sh.placements,

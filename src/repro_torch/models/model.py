@@ -24,6 +24,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.distributed.hints import carry, constrain
 from repro_torch.distributed.sharding import (copy_to_model,
+                                              gather_at_use,
                                               gather_from_model, local,
                                               max_over_model, model_block,
                                               place_block, placed_like,
@@ -140,6 +141,19 @@ class Model:
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
+    # the layer stacks, which gather a layer at a time where it runs
+    # (models/transformer.py)
+    STACKS = ("blocks", "enc_blocks")
+
+    def _gather_top(self, params: Params) -> Params:
+        """``params`` with the leaves outside the layer stacks (embedding,
+        unembedding, final norms, vlm's patch scale) gathered at use
+        (``sharding.gather_at_use``): once a step, at its entry, since the
+        embedding and the tied unembedding are one leaf. The stacks stay
+        as they are. Plain tensors pass through."""
+        return {k: (v if k in self.STACKS else gather_at_use(v))
+                for k, v in params.items()}
+
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """The scaled embedding of ``tokens``. On this rank's "model" block
         of the vocabulary (``sharding.gather_at_use``), a vocab-parallel
@@ -213,6 +227,7 @@ class Model:
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits [B, S, V], moe_aux_loss)."""
+        params = self._gather_top(params)
         y, aux = self._hidden(params, batch)
         return self._full_logits(params, y), aux
 
@@ -307,6 +322,7 @@ class Model:
         of the batch divides its sum by the global count
         (``training/train_loop.py``)."""
         cfg = self.cfg
+        params = self._gather_top(params)
         y, aux = self._hidden(params, batch)
         labels = batch["labels"]
         mask = batch.get("loss_mask")
@@ -384,6 +400,7 @@ class Model:
         each rank keeping its sequence block of the k / v it wrote
         (``sharding.place_block``), the decode's sequence-sharded cache."""
         cfg = self.cfg
+        params = self._gather_top(params)
         x = self._decoder_input(params, batch)
         B, S, _ = x.shape
         if cfg.is_encdec:
@@ -431,6 +448,7 @@ class Model:
             if "cross_k" in cache["layers"] else None
         pos = local(cache["pos"])
         cache_layers = {k: local(v) for k, v in cache["layers"].items()}
+        params = self._gather_top(params)
         x = self._embed(params, tokens)
         if cfg.is_encdec:
             # each row's new token at its absolute sinusoidal position (an

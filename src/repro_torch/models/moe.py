@@ -177,10 +177,20 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
     (``sharding.gather_at_use``), the expert einsums are the Megatron
     pair within each expert: ``copy_to_model`` of the dispatched buffer,
     the rank's d_ff block, ``reduce_from_model`` of the expert outputs.
-    Routing, capacity and the groups are every "model" rank's alike."""
+    Routing, capacity and the groups are every "model" rank's alike.
+
+    Where they hold this rank's block of the experts (expert parallelism
+    over the axes that split the batch, ``sharding.expert_block``), the
+    dispatched buffer [G, E, C, d] goes out by expert block, rank j
+    getting ``buf[:, block j]`` (``sharding.exchange_experts``, one
+    all-to-all); the rank runs its E/D experts on the [D·G, E/D, C, d]
+    the D ranks sent it, and a second exchange sends each rank's slots
+    back before the combine: the reference's [G, E, C, d] all-to-all."""
     from repro_torch.distributed.hints import static_hint
     from repro_torch.distributed.sharding import (_axis_size, batch_axes,
-                                                  copy_to_model, model_block,
+                                                  copy_to_model,
+                                                  exchange_experts,
+                                                  expert_block, model_block,
                                                   reduce_from_model)
     T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
@@ -206,6 +216,13 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
         bufs.append(buf)
         metas.append(meta)
     buf = torch.stack(bufs)                                  # [G, E, C, d]
+    ex, _ = expert_block(params["w_gate"], 0, E)
+    if ex is not None:
+        # [G, D, E/D, C, d] -> [D, G, ...]: block j to expert rank j
+        D = ex.size
+        buf = exchange_experts(buf.reshape(G, D, E // D, C, d)
+                               .transpose(0, 1), ex)
+        buf = buf.reshape(D * G, E // D, C, d)
 
     # the expert GEMMs: plain einsums here, as in the JAX package
     ax, _ = model_block(params["w_gate"], -1, d_ff)
@@ -216,6 +233,9 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
     out_buf = torch.einsum("gecf,efd->gecd", gate * up, params["w_down"])
     if ax is not None:
         out_buf = reduce_from_model(out_buf, ax)
+    if ex is not None:
+        out_buf = exchange_experts(out_buf.reshape(D, G, E // D, C, d), ex)
+        out_buf = out_buf.transpose(0, 1).reshape(G, E, C, d)
 
     y = torch.stack([combine_tokens(out_buf[g], wg[g].reshape(-1), metas[g],
                                     Tg, d) for g in range(G)])

@@ -22,6 +22,11 @@ training stack (``stack_full``, ``block_full``) pins its activations with
 an ``activation_sharding`` context). ``remat=True`` runs each layer body
 under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
 scan body): the backward recomputes the layer from its input.
+
+Placed params (DTensors, ``launch/mesh.production_state``) are gathered a
+layer at a time where the layer runs (``sharding.gather_at_use``, ZeRO-3):
+inside the layer's remat body, so the recompute gathers again and no
+gathered layer outlives its use. Plain tensors pass through as they are.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.hints import carry, constrain
-from repro_torch.distributed.sharding import SeqBlock
+from repro_torch.distributed.sharding import SeqBlock, gather_at_use
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -41,24 +46,34 @@ from repro_torch.models.layers import Params, mlp, rmsnorm
 Cache = Dict[str, Any]
 
 
-def _layer(stacked: Params, l: int) -> Params:
-    """Layer ``l``'s params as views into the stacked tree."""
-    return {k: (_layer(v, l) if isinstance(v, dict) else v[l])
-            for k, v in stacked.items()}
-
-
 def _unstack(stacked: Params) -> list:
     """Every layer's params as views into the stacked tree, from one
     ``unbind`` a leaf. Under autograd the stacked gradient is then one
     stack of the layers' gradients, as the reference's scan writes each
     layer's into its slot; a separate ``v[l]`` a layer would zero-fill
-    the whole [L, ...] gradient and add it once a layer (O(L²) bytes)."""
+    the whole [L, ...] gradient and add it once a layer (O(L²) bytes).
+    A DTensor leaf unbinds its local block, each layer wrapped back as a
+    DTensor of the leaf's placements one dimension down (the rules never
+    shard the layer axis)."""
     n = None
     flat = {}
     for k, v in stacked.items():
-        flat[k] = _unstack(v) if isinstance(v, dict) else v.unbind(0)
+        flat[k] = _unstack(v) if isinstance(v, dict) else _unbind(v)
         n = len(flat[k])
     return [{k: v[l] for k, v in flat.items()} for l in range(n)]
+
+
+def _unbind(v: torch.Tensor) -> Sequence[torch.Tensor]:
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(v, DTensor):
+        return v.unbind(0)
+    if any(isinstance(p, Shard) and p.dim == 0 for p in v.placements):
+        raise ValueError(f"a stacked leaf sharded on its layer axis: "
+                         f"{v.placements}")
+    down = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+            for p in v.placements]
+    return [DTensor.from_local(t, v.device_mesh, down, run_check=False)
+            for t in v.to_local().unbind(0)]
 
 
 def _ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -141,7 +156,8 @@ def stack_full(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
     layers = _unstack(stacked)
     for l, is_global in enumerate(flags):
         def body(x, p=layers[l], is_global=is_global):
-            y, a = block_full(p, constrain(x, "btd"), cfg, is_global)
+            y, a = block_full(gather_at_use(p), constrain(x, "btd"), cfg,
+                              is_global)
             return constrain(y, "btd"), a
 
         x, a = _maybe_remat(body, remat)(x)
@@ -154,8 +170,9 @@ def stack_prefill(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
     """Full forward emitting the per-layer decode cache: [L, B, Hkv, S, hd]
     k / v, and / or the SSM's conv window and state."""
     out: Dict[str, list] = {}
+    layers = _unstack(stacked)
     for l, is_global in enumerate(flags):
-        p = _layer(stacked, l)
+        p = gather_at_use(layers[l])
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         if cfg.arch_type == "ssm":
             y, st = ssm_lib.ssd_chunked(p["mamba"], h, cfg.ssm,
@@ -191,8 +208,9 @@ def stack_decode(stacked: Params, x: torch.Tensor, cache: Cache,
     it was). ``seq``: the k / v cache is this rank's block of a
     sequence-sharded cache (``attention.attention_decode``)."""
     out: Dict[str, list] = {k: [] for k in cache}
+    layers = _unstack(stacked)
     for l, is_global in enumerate(flags):
-        p = _layer(stacked, l)
+        p = gather_at_use(layers[l])
         c = {k: v[l] for k, v in cache.items()}
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         new: Dict[str, torch.Tensor] = {}
@@ -235,6 +253,7 @@ def encoder_stack(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
                   remat: bool = False) -> torch.Tensor:
     """The whisper encoder over frame embeddings [B, T, d] (no cache)."""
     def body(x, p):
+        p = gather_at_use(p)
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         x = x + attn.attention_full(
             p["attn"], h, num_heads=cfg.num_heads,
@@ -260,6 +279,7 @@ def encdec_decoder_full(stacked: Params, x: torch.Tensor, mem: torch.Tensor,
     out: Dict[str, list] = {}
 
     def body(x, mem, p):
+        p = gather_at_use(p)
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         a = attn.attention_full(
             p["attn"], h, num_heads=cfg.num_heads,
@@ -304,8 +324,9 @@ def encdec_decoder_decode(stacked: Params, x: torch.Tensor, cache: Cache,
     one."""
     hd = cfg.resolved_head_dim
     ks, vs = [], []
+    layers = _unstack(stacked)
     for l in range(cfg.num_layers):
-        p = _layer(stacked, l)
+        p = gather_at_use(layers[l])
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         a, nk, nv = attn.attention_decode(
             p["attn"], h, cache["k"][l], cache["v"][l], pos,

@@ -6,8 +6,9 @@ opt_state, metrics) function: the loss and its gradients
 (``loss_and_grads``, by ``torch.autograd.grad`` over the param leaves: the
 reference's ``jax.value_and_grad``), then ``adamw_update`` under
 ``no_grad``, in place (the reference's ``donate_argnums``). The step runs
-eagerly. With DTensor params (``--production``) each weight is gathered at
-use and its gradient comes back in the param's placements.
+eagerly. With DTensor params (``--production``) the model gathers each
+weight at use, a layer's inside the layer's body (``models/transformer.
+py``), and its gradient comes back in the param's placements.
 
 The step takes the global batch on every rank. On a mesh whose ranks
 split the batch (the ``"btd"`` hint's axes, ``sharding.batch_axes``) each
@@ -28,8 +29,7 @@ import torch
 
 from repro_torch import DeviceLike
 from repro_torch.distributed.sharding import (_axis_size, all_reduce_sum,
-                                              batch_axes, batch_block,
-                                              gather_at_use)
+                                              batch_axes, batch_block)
 from repro_torch.models.model import Model
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.optimizer import (OptimizerConfig, OptState,
@@ -82,9 +82,8 @@ def loss_and_grads(model: Model, params: Any, batch: Dict[str, torch.Tensor]
         for p in flat:
             p.requires_grad_(True)
         try:
-            used = gather_at_use(params, grad_axes=axes)
-            loss = (_rank_loss(model, used, batch, mesh, axes) if axes
-                    else model.loss(used, batch))
+            loss = (_rank_loss(model, params, batch, mesh, axes) if axes
+                    else model.loss(params, batch))
             # a leaf the family never reads (an SSM layer's ln2) gets
             # zeros, as under jax.grad
             grads_flat = torch.autograd.grad(loss, flat, allow_unused=True)

@@ -6,20 +6,27 @@ dry-run (``launch/dryrun.py``), on the CPU.
     compiled step (``hlo_parse.analyze_hlo``) for ``test_dryrun_small``'s
     twelve cases (smoke configs, B 2, S 64, fp32, remat on train), but
     for the rows of ``COUNTING_DIFFERENCES``, each with its closed form;
-  * collectives: the gemma3-1b and grok-1 smoke train steps, traced as
-    rank 0 of fake worlds of (data 2, model 2), (pod 2, data 2, model 2),
-    (data 1, model 4) and (data 4, model 1), move the operand bytes of
-    each kind that closed forms computed from ``param_shardings`` give:
-    the ZeRO-3 gathers over the FSDP axes only, the gradients' reductions,
-    and the Megatron and vocab-parallel all-reduces over "model";
+  * collectives: the gemma3-1b, grok-1 and llama4 smoke train steps,
+    traced as rank 0 of fake worlds of (data 2, model 2), (pod 2, data 2,
+    model 2), (data 1, model 4) and (data 4, model 1), move the operand
+    bytes of each kind that closed forms computed from ``param_shardings``
+    give: the ZeRO-3 gathers over the FSDP axes only, a layer's inside its
+    remat body (so again in the recompute), the gradients' reductions, the
+    Megatron and vocab-parallel all-reduces over "model", and the MoE
+    token exchange (all-to-all) where the experts divide the data axes,
+    whose expert weights then move nothing else;
   * compute split: per-chip dot FLOPs on (2, 2) and (1, 4) for gemma3-1b
-    train / prefill / decode and grok-1 train equal the reference's GSPMD
-    count (its step jitted under its shardings on 4 forced host devices,
-    in one subprocess) less the rows of ``GSPMD_DIFFERENCES``, GSPMD's
-    choices beyond the documented rule, each in closed form; within 5 %
-    of it but for gemma3-1b decode on (2, 2);
+    train / prefill / decode and grok-1 train, and on (4, 1) for llama4
+    train under ``moe_groups`` = 4, equal the reference's GSPMD count (its
+    step jitted under its shardings on 4 forced host devices, in one
+    subprocess) less the rows of ``GSPMD_DIFFERENCES``, GSPMD's choices
+    beyond the documented rule, each in closed form; within 5 % of it but
+    for gemma3-1b decode on (2, 2); on that llama4 step the reference's
+    compiled module moves all-to-all bytes too;
   * the Megatron pair's collectives (one all-reduce: *f* backward, *g*
-    forward) and ``gather_at_use`` keeping a leaf's "model" block;
+    forward), ``gather_at_use`` keeping a leaf's "model" block and an
+    expert leaf's block of experts (its gradient moved by nothing), and
+    the layer-wise gather's peak below the whole tree's;
   * ``fake_world`` starts and destroys its group, and refuses to start
     while one is live; no test leaves a group live;
   * ``StepCounter`` on small functions (FLOPs, bytes, live storage, the
@@ -27,7 +34,7 @@ dry-run (``launch/dryrun.py``), on the CPU.
 
 Run as a script (``python tests/test_torch_dryrun.py gspmd`` with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``) it prints the
-reference's GSPMD counts as one JSON line.
+reference's GSPMD counts (FLOPs, collective bytes) as one JSON line.
 """
 import math
 
@@ -149,30 +156,50 @@ def _axes_of(spec, sizes):
     return {a for a in out if sizes[a] > 1}
 
 
+def _expert_axes(path, spec, sizes, batch_axes):
+    """The mesh axes over which an MoE expert leaf at ``path`` keeps its
+    block of experts: those (of size > 1) that shard its expert dimension,
+    when each splits the batch; () for any other leaf."""
+    if path[-1] not in ("w_gate", "w_up", "w_down") or "moe" not in path:
+        return set()
+    ax = spec[len(spec) - 3]
+    axes = {a for a in ((ax,) if isinstance(ax, str) else ax or ())
+            if sizes[a] > 1}
+    return axes if axes and axes <= set(batch_axes) else set()
+
+
 def _closed_form(model, sizes, batch):
     """Operand bytes of each kind in one train step of ``model`` (fp32
     params, remat) as rank 0 of a mesh of ``sizes``, ZeRO-3 over the
-    data / pod axes and tensor-parallel over "model", from the sharding
-    rules:
+    data / pod axes, expert-parallel over them and tensor-parallel over
+    "model", from the sharding rules:
 
       * the gather at use, over the FSDP axes only: one all-gather a data
         or pod axis that shards a leaf, the last axis first, each of the
         block gathered so far, starting from the rank's shard (a leaf
-        sharded on "model" stays its "model" block); once a step, outside
-        the remat bodies;
+        sharded on "model" stays its "model" block, an expert leaf whose
+        experts the batch axes shard stays its block of experts: no
+        gather); a layer's leaves inside the layer's remat body, so twice
+        (the forward and the recompute), the others once a step;
       * the gradient back to the leaf's placements, starting from the
         leaf's "model" block: over each axis that splits the batch, in mesh
         order, a reduce-scatter where that axis shards the leaf, else an
         all-reduce, of the gradient as it stands; for a leaf that keeps a
         "model" shard, DTensor's planner all-reduces over every batch axis
         but the last that shards it (pod before data) and reduce-scatters
-        over that last, each of the gradient unsliced;
+        over that last, each of the gradient unsliced; none for a block
+        of experts (its gradient already holds every rank's tokens);
       * the gradient norm: an fp32 scalar all-reduce a sharding axis a
         leaf ("model" included); the loss: its target count and its value,
         an fp32 scalar each, one all-reduce a batch axis;
       * MoE: ``frac`` and ``mean_p`` ([E] fp32) all-reduced a batch axis
         in the forward and again in the remat recompute, and ``mean_p``'s
         gradient once, each layer;
+      * the token exchange, where the experts are blocks: the rank's
+        expert buffer [E, C, d] (one group, C the capacity of its T
+        tokens) all-to-all to the experts' ranks and back, in the
+        forward, again in the recompute (the combine saves what follows
+        it) and in the backward: six a layer;
       * the Megatron collectives over "model", when it is larger than 1,
         each of the rank's T tokens (its block of the batch) in fp32: the
         vocab-parallel embedding's all-reduce of [T, d] (outside remat);
@@ -184,6 +211,7 @@ def _closed_form(model, sizes, batch):
         fp32 each, in the forward and in the recompute, and its *f*
         backward of [T, d].
     """
+    from repro_torch.tree import flatten_with_path
     mesh = MeshShape(dict(sizes))
     dp = fsdp_axes(mesh)
     split = math.prod(sizes[a] for a in dp)
@@ -191,18 +219,24 @@ def _closed_form(model, sizes, batch):
         else []
     M = sizes["model"]
     want = dict.fromkeys(COLLECTIVE_OPS, 0)
-    for t, sh in zip(leaves(model.abstract_params()),
-                     leaves(param_shardings(model, mesh))):
+    experts_split = False
+    for (path, t), sh in zip(flatten_with_path(model.abstract_params()),
+                             leaves(param_shardings(model, mesh))):
         axes = _axes_of(sh.spec, sizes)
+        experts = _expert_axes(path, sh.spec, sizes, batch_axes)
+        experts_split = experts_split or bool(experts)
+        gathers = 2 if path[0] in ("blocks", "enc_blocks") else 1
         item = t.element_size()
         cur = math.prod(sh.shard_shape(tuple(t.shape))) * item
         for a in reversed(list(sizes)):
-            if a in axes and a != "model":
-                want["all-gather"] += cur
+            if a in axes and a != "model" and a not in experts:
+                want["all-gather"] += gathers * cur
                 cur *= sizes[a]
         cur = t.numel() * item // (M if "model" in axes else 1)
         sharding = [a for a in batch_axes if a in axes]
         for a in batch_axes:
+            if experts:
+                break
             if a in axes and ("model" not in axes or a == sharding[-1]):
                 want["reduce-scatter"] += cur
                 cur //= sizes[a]
@@ -211,15 +245,17 @@ def _closed_form(model, sizes, batch):
         want["all-reduce"] += 4 * len(axes)
     want["all-reduce"] += 2 * 4 * len(batch_axes)
     cfg = model.cfg
+    T = batch // (split if batch_axes else 1) * S
     if cfg.has_moe:
         want["all-reduce"] += (cfg.num_layers * 5 * 4 * cfg.moe.num_experts
                                * len(batch_axes))
+        buf = cfg.moe.num_experts * capacity(T, cfg.moe) * cfg.d_model
+        if experts_split:
+            want["all-to-all"] += cfg.num_layers * 6 * 4 * buf
     if M > 1:
-        T = batch // (split if batch_axes else 1) * S
         act = T * cfg.d_model * 4
         want["all-reduce"] += act
         if cfg.has_moe:
-            buf = cfg.moe.num_experts * capacity(T, cfg.moe) * cfg.d_model
             want["all-reduce"] += cfg.num_layers * 3 * 4 * buf
         else:
             want["all-reduce"] += cfg.num_layers * 2 * act
@@ -238,11 +274,15 @@ MESHES = [{"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 2},
 
 
 @pytest.mark.parametrize("sizes", MESHES, ids=["2x2", "2x2x2", "1x4", "4x1"])
-@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b",
+                                  "llama4-maverick-400b-a17b"])
 def test_collective_bytes_equal_closed_form(arch, sizes):
     """Every kind's bytes equal the closed form; a "model" axis of 1 adds
     no Megatron collective, and one of 4 with data 1 moves only
-    all-reduces (nothing to gather, no batch to sum over)."""
+    all-reduces (nothing to gather, no batch to sum over). The smoke
+    MoEs' 4 experts divide every data axis here, so with data > 1 they
+    trade tokens by all-to-all and their expert weights are neither
+    gathered nor reduce-scattered."""
     model = Model(smoke_config(arch), param_dtype=torch.float32,
                   device="meta", remat=True)
     totals, _ = _fake_trace(model, sizes, batch=4)
@@ -253,6 +293,8 @@ def test_collective_bytes_equal_closed_form(arch, sizes):
         assert want["all-gather"] and want["reduce-scatter"]
     else:
         assert want["all-gather"] == want["reduce-scatter"] == 0
+    assert bool(want["all-to-all"]) == (model.cfg.has_moe
+                                        and sizes["data"] > 1)
     assert want["all-reduce"]
 
 
@@ -264,17 +306,23 @@ GSPMD_B = 4
 GSPMD_CASES = [("gemma3-1b", "train"), ("gemma3-1b", "prefill"),
                ("gemma3-1b", "decode"), ("grok-1-314b", "train")]
 GSPMD_MESHES = [(2, 2), (1, 4)]
+# llama4 smoke's 4 experts over data 4, one token group a data rank: the
+# reference's [G, E, C, d] all-to-all
+GSPMD_EXPERTS = ("llama4-maverick-400b-a17b", "train", (4, 1))
 
 
-def _gspmd_flops(arch, kind, sizes):
-    """The reference's per-chip dot FLOPs on a (data, model) mesh of
-    ``sizes`` over 4 forced host devices: ``jax.jit`` of its train step,
-    ``prefill`` or ``decode_step`` with ``in_shardings`` from
-    ``param_shardings`` / ``batch_shardings`` / ``cache_shardings`` (the
-    train step's optimizer state from ``opt_state_shardings``), under the
-    ``"btd"`` hint, smoke config, fp32, B 4, S 64, remat on train, then
-    ``analyze_hlo`` of the compiled module. Run in a process of its own
-    (``XLA_FLAGS`` must name 4 devices before jax starts)."""
+def _gspmd_count(arch, kind, sizes):
+    """The reference's per-chip dot FLOPs and collective operand bytes by
+    kind on a (data, model) mesh of ``sizes`` over 4 forced host devices:
+    ``jax.jit`` of its train step, ``prefill`` or ``decode_step`` with
+    ``in_shardings`` from ``param_shardings`` / ``batch_shardings`` /
+    ``cache_shardings`` (the train step's optimizer state from
+    ``opt_state_shardings``), under the ``"btd"`` hint (for an MoE, also
+    ``moe_groups`` = the data ranks and ``moe_tokens``, as its dry-run
+    sets them), smoke config, fp32, B 4, S 64, remat on train, then
+    ``analyze_hlo`` and ``collective_bytes`` of the compiled module. Run
+    in a process of its own (``XLA_FLAGS`` must name 4 devices before jax
+    starts)."""
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -282,14 +330,18 @@ def _gspmd_flops(arch, kind, sizes):
     from repro.distributed.sharding import (batch_shardings, fsdp_axes,
                                             opt_state_shardings,
                                             param_shardings)
+    from repro.launch.hlo_analysis import collective_bytes
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(sizes),
                 ("data", "model"))
-    model = JaxModel(jax_smoke_config(arch), param_dtype=jnp.float32,
-                     remat=(kind == "train"))
+    cfg = jax_smoke_config(arch)
+    model = JaxModel(cfg, param_dtype=jnp.float32, remat=(kind == "train"))
     shape = JaxInputShape(f"{kind}_gspmd", S, GSPMD_B, kind)
     dp = fsdp_axes(mesh)
     bspec = dp if GSPMD_B % sizes[0] == 0 else None
     hints = {"btd": NamedSharding(mesh, P(bspec, None, None))}
+    if cfg.has_moe and arch == GSPMD_EXPERTS[0]:
+        hints["moe_groups"] = sizes[0]
+        hints["moe_tokens"] = NamedSharding(mesh, P(dp, None, None))
     rng = jax.random.PRNGKey(0)
     with mesh, activation_sharding(hints):
         p_sh = param_shardings(model, mesh, rng)
@@ -312,11 +364,12 @@ def _gspmd_flops(arch, kind, sizes):
                                             b_sh["cache"]),
                               out_shardings=(None, b_sh["cache"])).lower(
                 params, specs["tokens"], specs["cache"])
-        return analyze_hlo(lowered.compile().as_text()).flops
+        text = lowered.compile().as_text()
+        return analyze_hlo(text).flops, collective_bytes(text)
 
 
 @pytest.fixture(scope="module")
-def gspmd_flops():
+def gspmd_counts():
     """Every case's reference count, from one subprocess (this file run
     as a script with 4 forced host devices)."""
     import json
@@ -332,7 +385,7 @@ def gspmd_flops():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     rows = json.loads(proc.stdout.strip().splitlines()[-1])
-    return {(a, k, tuple(m)): f for a, k, m, f in rows}
+    return {(a, k, tuple(m)): (f, c) for a, k, m, f, c in rows}
 
 
 def _attention_widths(cfg):
@@ -409,7 +462,7 @@ OUTSIDE_THE_BOUND = {("gemma3-1b", "decode", (2, 2))}
 
 @pytest.mark.parametrize("sizes", GSPMD_MESHES, ids=["2x2", "1x4"])
 @pytest.mark.parametrize("arch,kind", GSPMD_CASES)
-def test_per_chip_dot_flops_match_gspmd(arch, kind, sizes, gspmd_flops):
+def test_per_chip_dot_flops_match_gspmd(arch, kind, sizes, gspmd_counts):
     """The port's per-chip dot FLOPs on a fake (data, model) world equal
     the reference's GSPMD count less the named differences, exactly, and
     lie within 5 % of it (but the case named above)."""
@@ -417,12 +470,34 @@ def test_per_chip_dot_flops_match_gspmd(arch, kind, sizes, gspmd_flops):
                   device="meta", remat=(kind == "train"))
     totals, _ = _fake_trace(model, {"data": sizes[0], "model": sizes[1]},
                             GSPMD_B, kind)
-    want = gspmd_flops[(arch, kind, sizes)]
+    want = gspmd_counts[(arch, kind, sizes)][0]
     extra = sum(f(model.cfg, kind, sizes)
                 for f in GSPMD_DIFFERENCES.values())
     assert totals.flops + extra == want
     if (arch, kind, sizes) not in OUTSIDE_THE_BOUND:
         assert abs(totals.flops - want) <= 0.05 * want
+
+
+def test_expert_parallel_step_trades_tokens_as_the_reference(
+        gspmd_counts):
+    """llama4 smoke train on (data 4, model 1), one token group a data
+    rank: the reference's compiled step and the port's trace both move
+    all-to-all bytes (the port's equal to the closed form; XLA counts its
+    remat scan body once, so the two byte counts differ), and the port's
+    per-chip dot FLOPs equal the reference's less the named
+    differences."""
+    arch, kind, sizes = GSPMD_EXPERTS
+    flops, coll = gspmd_counts[GSPMD_EXPERTS]
+    model = Model(smoke_config(arch), param_dtype=torch.float32,
+                  device="meta", remat=True)
+    mesh = {"data": sizes[0], "model": sizes[1]}
+    totals, _ = _fake_trace(model, mesh, GSPMD_B, kind)
+    assert coll["all-to-all"] > 0, coll
+    want = _closed_form(model, mesh, GSPMD_B)["all-to-all"]
+    assert totals.per_collective["all-to-all"] == want > 0
+    extra = sum(f(model.cfg, kind, sizes)
+                for f in GSPMD_DIFFERENCES.values())
+    assert totals.flops + extra == flops
 
 
 def test_megatron_pair_collectives():
@@ -466,6 +541,89 @@ def test_gather_keeps_the_model_block():
             used = gather_at_use(placed)
         assert tuple(used["w_gate"].shape) == want
         assert tuple(used["wq"].shape) == (16, 8)
+
+
+def test_gather_keeps_the_expert_block():
+    """On a fake (data 4, model 1) world, llama4 smoke's stacked expert
+    weights (4 experts over data 4) come back from ``gather_at_use`` as
+    the rank's block of one expert, [L, 1, ...], moved by no collective
+    either way: their gradient keeps its ``Shard`` on "data" (a
+    ``Partial`` would be reduce-scattered). With 2 experts (grok-style:
+    they do not divide data 4, so the rules shard d_model instead) the
+    leaf is gathered whole and its gradient reduce-scattered."""
+    import dataclasses
+
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import MoEConfig
+    from repro_torch.distributed.sharding import distribute, gather_at_use
+    base = smoke_config("llama4-maverick-400b-a17b")
+    for E, block in ((4, 1), (2, 2)):
+        cfg = dataclasses.replace(base, moe=MoEConfig(num_experts=E,
+                                                      top_k=1))
+        model = Model(cfg, param_dtype=torch.float32, device="meta")
+        moe = model.abstract_params()["blocks"]["moe"]
+        with fake_world(4):
+            mesh = make_mesh({"data": 4, "model": 1}, "cpu")
+            sh = param_shardings(model, mesh)["blocks"]["moe"]
+            placed = {k: v.requires_grad_() for k, v in distribute(
+                moe, sh).items()}
+            used, fwd, _ = count_step(lambda t: gather_at_use(
+                {"blocks": {"moe": t}}, ("data",))["blocks"]["moe"], placed)
+            loss = sum(used[k].sum() for k in ("w_gate", "w_up", "w_down"))
+            grads, bwd, _ = count_step(lambda l: dict(zip(
+                ("w_gate", "w_up", "w_down"), torch.autograd.grad(
+                    l, [placed[k] for k in ("w_gate", "w_up", "w_down")]))),
+                loss)
+        for k in ("w_gate", "w_up", "w_down"):
+            L, _, a, b = moe[k].shape
+            assert tuple(used[k].shape) == (L, block, a, b), (E, k)
+            assert grads[k].placements == placed[k].placements
+        if block == 1:
+            assert placed["w_gate"].placements[0] == Shard(1)
+            assert fwd.collective_bytes == bwd.collective_bytes == 0
+        else:
+            assert fwd.per_collective["all-gather"] > 0
+            assert bwd.per_collective["reduce-scatter"] > 0
+        assert tuple(used["router"].shape) == tuple(moe["router"].shape)
+
+
+def test_layer_gather_lowers_the_peak():
+    """gemma3-1b smoke at 4 layers, train step on a fake (data 4, model 1)
+    world: the peak of the step that gathers a layer inside its remat
+    body lies below the peak of the same step fed the whole tree gathered
+    up front by at least 3 (L − 1) layers' gathered bytes."""
+    import dataclasses
+
+    from repro_torch.distributed.hints import activation_sharding
+    from repro_torch.distributed.sharding import batch_block, gather_at_use
+    from repro_torch.launch.mesh import production_state
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(smoke_config("gemma3-1b"), num_layers=4)
+    model = Model(cfg, param_dtype=torch.float32, device="meta", remat=True)
+    specs = model.input_specs(InputShape("train", S, 4, "train"))
+    peaks = {}
+    with fake_world(4):
+        mesh = make_mesh({"data": 4, "model": 1}, "cpu")
+        params, _, hints = production_state(model, model.abstract_params(),
+                                            mesh, 4)
+        with activation_sharding(hints):
+            for whole in (False, True):
+                def grads(p, b):
+                    flat = leaves(p)
+                    for t in flat:
+                        t.requires_grad_(True)
+                    used = gather_at_use(p) if whole else p
+                    loss = model.loss(used, batch_block(b))
+                    return torch.autograd.grad(loss, flat)
+
+                peaks[whole] = count_step(grads, params, specs)[2][
+                    "peak_bytes"]
+    layer = sum(t.numel() * t.element_size()
+                for t in leaves(model.abstract_params()["blocks"])
+                ) // cfg.num_layers
+    assert peaks[False] + (cfg.num_layers - 1) * layer <= peaks[True], (
+        peaks, layer)
 
 
 def test_fake_world_lifecycle():
@@ -551,12 +709,14 @@ def test_full_config_record():
 
 def _main(argv):
     """``test_torch_dryrun.py gspmd``: every GSPMD case's count as one
-    JSON line of [arch, kind, [data, model], flops]."""
+    JSON line of [arch, kind, [data, model], flops, collective bytes by
+    kind]."""
     import json
     assert argv == ["gspmd"], argv
     assert len(jax.devices()) >= 4, jax.devices()
-    print(json.dumps([[a, k, list(m), _gspmd_flops(a, k, m)]
-                      for a, k in GSPMD_CASES for m in GSPMD_MESHES]))
+    cases = [(a, k, m) for a, k in GSPMD_CASES for m in GSPMD_MESHES]
+    print(json.dumps([[a, k, list(m), *_gspmd_count(a, k, m)]
+                      for a, k, m in cases + [GSPMD_EXPERTS]]))
     return 0
 
 

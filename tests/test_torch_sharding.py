@@ -9,7 +9,11 @@
     time limit of its own); ``constrain`` is a no-op outside its context
     and redistributes a DTensor inside it;
   * one production train step (DTensor params and optimizer state, each
-    weight gathered at use) is bitwise equal to the plain step;
+    weight gathered at use, a layer's inside its body) is bitwise equal
+    to the plain step, and issues no collective;
+  * the MoE token exchange: ``moe_ffn`` on D ranks (threads meeting at a
+    barrier, no process group), each with its block of the tokens and of
+    the experts, equals one process under ``moe_groups = D``;
   * the dry-run's per-chip param and optimizer bytes equal the sums of
     shard sizes from the reference's specs; ``model_flops_for`` equals the
     reference's and the roofline uses the H100's spec-sheet rates.
@@ -163,12 +167,15 @@ def test_constrain_is_a_noop_outside_its_context(world1):
     assert hints.static_hint("moe_groups", 1) == 1
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b",
+                                  "llama4-maverick-400b-a17b"])
 def test_production_step_equals_plain_step(arch, world1):
     """DTensor params and optimizer state placed by the rules on the host
-    mesh, each weight gathered at use: one step bitwise equal to the plain
-    step from the same params and batch."""
+    mesh, each weight gathered at use (a layer's inside its body): one
+    step bitwise equal to the plain step from the same params and batch,
+    and no collective issued (``step_cost``'s counter)."""
     from repro_torch.launch.mesh import production_state
+    from repro_torch.launch.step_cost import count_step
     cfg = smoke_config(arch)
     model = Model(cfg, param_dtype=torch.float32, device="cpu")
     batch = batch_to_device(next(iter(SyntheticLM(
@@ -186,13 +193,156 @@ def test_production_step_equals_plain_step(arch, world1):
     for t, s in zip(leaves(dopt.mu), leaves(want)):
         assert list(t.placements) == s.placements and t.dtype == torch.float32
     with hints.activation_sharding(hint):
-        p2, s2, m2 = step(dparams, dopt, batch)
+        (p2, s2, m2), totals, _ = count_step(step, dparams, dopt, batch)
+    assert totals.collective_bytes == 0, totals.per_collective
     assert float(m2["loss"]) == float(m1["loss"])
     assert float(m2["grad_norm"]) == float(m1["grad_norm"])
     for a, b in zip(leaves(p1), leaves(p2)):
         assert torch.equal(a, b.full_tensor())
     for a, b in zip(leaves(s1.nu), leaves(s2.nu)):
         assert torch.equal(a, b.full_tensor())
+
+
+class _ThreadGroup:
+    """``n`` threads standing in for the ranks of one process group (no
+    process group at all): each collective waits at a barrier for every
+    rank's operand."""
+
+    def __init__(self, n):
+        self.n = n
+        self.barrier = threading.Barrier(n, timeout=PG_LIMIT_S)
+        self.slots = [None] * n
+
+    def gather(self, rank, value):
+        self.slots[rank] = value
+        self.barrier.wait()
+        got = list(self.slots)
+        self.barrier.wait()
+        return got
+
+
+class _ThreadMesh:
+    """A one-axis ("data") mesh as rank ``rank`` of a ``_ThreadGroup``
+    sees it; its group handle is (the group, the rank)."""
+    mesh_dim_names = ("data",)
+
+    def __init__(self, group, rank):
+        self.shape = (group.n,)
+        self.handle = (group, rank)
+
+    def get_group(self, axis):
+        return self.handle
+
+    def get_local_rank(self, axis):
+        return self.handle[1]
+
+
+def _thread_all_reduce(t, handle, op=None):
+    group, rank = handle
+    return torch.stack(group.gather(rank, t.clone())).sum(0)
+
+
+def _thread_all_to_all(t, handle):
+    group, rank = handle
+    got = group.gather(rank, t.contiguous().chunk(group.n))
+    return torch.cat([got[i][rank] for i in range(group.n)])
+
+
+class _ThreadAllReduce(torch.autograd.Function):
+    """``torch.distributed.nn``'s all-reduce over a ``_ThreadGroup``: the
+    sum forward, and the sum of the outputs' gradients backward."""
+
+    @staticmethod
+    def forward(ctx, x, handle):
+        ctx.handle = handle
+        return _thread_all_reduce(x, handle)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _thread_all_reduce(g, ctx.handle), None
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
+def test_expert_exchange_equals_one_process(arch, D, monkeypatch):
+    """``moe_ffn`` on D ranks, each holding its block of the tokens and
+    of the experts and trading tokens by ``exchange_experts``, against one
+    process's ``moe_ffn`` under ``moe_groups = D`` on the same tokens
+    (fp32): the outputs exact, the aux loss and every gradient within
+    1e-6 — a rank's expert gradient is its block of the whole one (the
+    exchange's backward returns each rank's slots to it), its token
+    gradient its rows, and the router's gradients sum to the whole. The
+    ranks are threads and the collectives meet at a barrier
+    (``_ThreadGroup``), so no process group is started."""
+    from repro_torch.models.moe import moe_ffn
+    cfg = smoke_config(arch).moe
+    E, d, ff, T = cfg.num_experts, 32, 48, 24 * D
+    rng = np.random.default_rng(7)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * 0.3)
+
+    params = {"router": draw(d, E), "w_gate": draw(E, d, ff),
+              "w_up": draw(E, d, ff), "w_down": draw(E, ff, d)}
+    x, r = draw(T, d), draw(T, d)
+
+    def loss_of(p, x, r, ranks):
+        y, aux = moe_ffn(p, x, cfg)
+        return y, aux, (y * r).sum() + 0.01 * aux / ranks
+
+    names = sorted(params)
+    want = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xw = x.clone().requires_grad_()
+    with hints.activation_sharding({"moe_groups": D}):
+        y1, aux1, loss = loss_of(want, xw, r, 1)
+    g1 = dict(zip(names + ["x"], torch.autograd.grad(
+        loss, [want[k] for k in names] + [xw])))
+
+    import torch.distributed.nn.functional as dist_nn
+    monkeypatch.setattr(tsh, "_all_reduce", _thread_all_reduce)
+    monkeypatch.setattr(tsh, "_all_to_all", _thread_all_to_all)
+    monkeypatch.setattr(dist_nn, "all_reduce",
+                        lambda t, group: _ThreadAllReduce.apply(t, group))
+    group, out = _ThreadGroup(D), {}
+    Tr, Er = T // D, E // D
+
+    def rank(i):
+        mesh = _ThreadMesh(group, i)
+        mine = {k: (v[i * Er:(i + 1) * Er] if k != "router" else v)
+                .clone().requires_grad_() for k, v in params.items()}
+        xi = x[i * Tr:(i + 1) * Tr].clone().requires_grad_()
+        spec = {"btd": tsh.NamedSharding(mesh, ("data", None, None)),
+                "moe_groups": D}
+        try:
+            with hints.activation_sharding(spec):
+                y, aux, li = loss_of(mine, xi, r[i * Tr:(i + 1) * Tr], D)
+                grads = torch.autograd.grad(li, [mine[k] for k in names]
+                                            + [xi])
+            out[i] = (y, aux, dict(zip(names + ["x"], grads)))
+        except BaseException as e:            # raised on the test's thread
+            group.barrier.abort()
+            out[i] = e
+
+    threads = [threading.Thread(target=rank, args=(i,)) for i in range(D)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(2 * PG_LIMIT_S)
+    for i in range(D):
+        if isinstance(out.get(i), BaseException):
+            raise out[i]
+    assert torch.equal(torch.cat([out[i][0] for i in range(D)]), y1)
+    for i in range(D):
+        # the ranks' means of the routing fractions, summed (moe.route):
+        # another order of the same fp32 sum
+        torch.testing.assert_close(out[i][1], aux1, rtol=0, atol=1e-6)
+    got = {k: torch.cat([out[i][2][k] for i in range(D)])
+           for k in ("w_gate", "w_up", "w_down", "x")}
+    got["router"] = sum(out[i][2]["router"] for i in range(D))
+    for k, g in g1.items():
+        torch.testing.assert_close(got[k], g, rtol=0, atol=1e-6,
+                                   msg=lambda m, k=k: f"{k}: {m}")
 
 
 def _ref_bytes(arch, multi, itemsize=None):

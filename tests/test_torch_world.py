@@ -26,10 +26,14 @@ with their stderr.
     rank on (2, 2), the local layers' 32-token band straddling them) and
     4 greedy decode steps: tokens identical to one process and to the
     JAX package, the last step's logits within 2e-4; the launcher's
-    losses over 3 steps at world 4 within 2e-4 of a world-1 run;
-  * MoE (grok-1 smoke, fp32): world 4 on (2, 2), each expert's d_ff
-    tensor-parallel, against the JAX package's one-device loss and
-    gradients under ``moe_groups = 2``, same tolerances;
+    losses over 3 steps at world 4 within 2e-4 of a world-1 run; every
+    weight gathered a layer at a time where the layer runs (inside its
+    remat body), the served ranks' too;
+  * MoE (grok-1 smoke, fp32): world 4 on (2, 2), expert-parallel over
+    "data" (each rank holds 2 of the 4 experts and trades the dispatched
+    tokens by all-to-all) and each expert's d_ff tensor-parallel over
+    "model", against the JAX package's one-device loss and gradients
+    under ``moe_groups = 2``, same tolerances;
   * the checkpoint of a world-4 step restores at world 1 bitwise to the
     params the ranks gathered.
 
@@ -123,7 +127,7 @@ def _rank_step(out: Path, arch: str, mesh_text: str, params_npz: str):
 
     from repro_torch.configs import smoke_config
     from repro_torch.distributed.hints import activation_sharding
-    from repro_torch.distributed.sharding import full
+    from repro_torch.distributed.sharding import full, gather_at_use
     from repro_torch.launch.mesh import (AXES, MULTI_POD_AXES, make_mesh,
                                          production_state)
     from repro_torch.models import Model
@@ -143,6 +147,9 @@ def _rank_step(out: Path, arch: str, mesh_text: str, params_npz: str):
     served = _rank_decode(model, dparams, mesh, hints, batch) \
         if arch == "gemma3-1b" else {}
     with activation_sharding(hints):
+        used = gather_at_use(dparams)
+        held = {f"held/{k}": np.array(used["blocks"]["moe"][k].shape)
+                for k in ("w_gate", "w_up", "w_down")} if cfg.has_moe else {}
         loss, dgrads = loss_and_grads(model, dparams, batch)
         norm = global_norm(dgrads)
         grads = {path_key(p): full(g).numpy()
@@ -155,7 +162,7 @@ def _rank_step(out: Path, arch: str, mesh_text: str, params_npz: str):
     save_checkpoint(str(out / "ckpt.npz"), {"params": dparams, "opt": dopt},
                     step=1)
     np.savez(out / f"rank{dist.get_rank()}.npz", loss=loss.numpy(),
-             grad_norm=norm.numpy(), **served,
+             grad_norm=norm.numpy(), **served, **held,
              **{f"grad/{k}": v for k, v in grads.items()},
              **{f"param/{k}": v for k, v in stepped.items()})
 
@@ -168,7 +175,7 @@ def _rank_decode(model, dparams, mesh, hints, batch):
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed.hints import activation_sharding
     from repro_torch.distributed.sharding import (batch_shardings,
-                                                  gather_at_use, local_block)
+                                                  local_block)
     prefill = batch_shardings(model, InputShape("p", PROMPT, BATCH,
                                                 "prefill"), mesh)["tokens"]
     c_sh = batch_shardings(model, InputShape("d", CACHE_LEN, BATCH,
@@ -176,8 +183,8 @@ def _rank_decode(model, dparams, mesh, hints, batch):
     rows = local_block(torch.arange(BATCH)[:, None], prefill)[:, 0]
     prompts = local_block(batch["tokens"][:, :PROMPT], prefill)
     with torch.no_grad(), activation_sharding(hints):
-        tokens, logits, cache = _greedy(model, gather_at_use(dparams),
-                                        prompts, cache_shardings=c_sh)
+        tokens, logits, cache = _greedy(model, dparams, prompts,
+                                        cache_shardings=c_sh)
     return {"decode_tokens": tokens.numpy(), "decode_logits": logits.numpy(),
             "decode_rows": rows.numpy(),
             "decode_block": np.int64(cache["layers"]["k"].to_local()
@@ -510,14 +517,26 @@ def test_world_4_checkpoint_restores_at_world_1_bitwise(dense_world):
 
 def test_moe_world_4_equals_jax_package(tmp_path):
     """grok-1 smoke on (data 2, model 2): each rank routes its block as
-    one group and the aux loss is global, as the JAX package's one-device
-    step with ``moe_groups = 2``."""
+    one group, holds its block of the experts (2 of 4, and half of each
+    one's d_ff) and trades the dispatched tokens with the other data rank
+    by all-to-all (the gradients meet the JAX package's only if each
+    rank's tokens reach and return from the rank holding their experts),
+    and the aux loss is global, as the JAX package's one-device step with
+    ``moe_groups = 2``."""
+    from repro_torch.configs import smoke_config
     ranks = _start_step_ranks(tmp_path, "grok-1-314b", "2,2")
     try:
         loss, want = _jax_loss_and_grads("grok-1-314b", 2)
     finally:
         _wait_ranks(ranks)
-    _assert_ranks_equal_plain(_ranks_npz(tmp_path, 4), loss, want)
+    got = _ranks_npz(tmp_path, 4)
+    _assert_ranks_equal_plain(got, loss, want)
+    cfg = smoke_config("grok-1-314b")
+    L, E, d, ff = cfg.num_layers, cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    for r in got:
+        assert tuple(r["held/w_gate"]) == tuple(r["held/w_up"]) == (
+            L, E // 2, d, ff // 2)
+        assert tuple(r["held/w_down"]) == (L, E // 2, ff // 2, d)
 
 
 def _step_losses(stdout: str) -> list:
