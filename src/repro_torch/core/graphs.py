@@ -113,6 +113,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.kernels.coalesced_gemm import coalesced_gemm
 from repro_torch.kernels.coalesced_gemv import coalesced_gemv
 from repro_torch.kernels.flash_attention import flash_attention
@@ -513,8 +514,9 @@ class GraphCache:
             ent = None
         if ent is None:
             t0 = time.perf_counter()
-            outs = self._capture_call(key, kind, head, fn, inputs, operands,
-                                      io)
+            with telemetry.span("graphs.capture"):
+                outs = self._capture_call(key, kind, head, fn, inputs,
+                                          operands, io)
             self.capture_s[kind] += time.perf_counter() - t0
             _count(stats, kind, "captures")
             return outs

@@ -94,6 +94,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.core.autotuner import LiveTuner
 from repro_torch.core.clustering import (is_expert_op, op_weight_identity,
                                          op_weight_key, shared_weight_key,
@@ -1563,6 +1564,9 @@ class JitSession:
         self._dispatch_base = jit.executor.stats.copy()
 
     def _sync_cache_stats(self) -> None:
+        """Bring ``stats``' delta of the shared caches since the session
+        opened up to date (by its reader, when it reads them: not per
+        tick)."""
         self.stats.plan_cache = self.jit.plan_cache.stats - self._plan_base
         self.stats.block_plans = self.jit.block_plans.stats - self._block_base
         self.stats.tune_cache = self.jit.tune_cache.stats - self._tune_base
@@ -1728,12 +1732,15 @@ class JitSession:
                 ex.stats.weight_hits += 1
             ex.stats.dispatches += 1
             builds0 = build_count()
-            if self.jit.cuda_graphs:
-                # a replay of the body's CUDA graph (a capture at its key's
-                # first call); eager on the CPU
-                self.jit.graphs.run(st, prog.env, padded, ex, block)
-            else:
-                st.run(prog.env, padded, ex, block)
+            # the body's device time goes on the dispatch's span while
+            # tracing (core/telemetry.py)
+            with telemetry.body(prog.kind, next(iter(padded.values()))):
+                if self.jit.cuda_graphs:
+                    # a replay of the body's CUDA graph (a capture at its
+                    # key's first call); eager on the CPU
+                    self.jit.graphs.run(st, prog.env, padded, ex, block)
+                else:
+                    st.run(prog.env, padded, ex, block)
             ex.stats.retraces += build_count() - builds0
             self._advance(prog, completed)
 
@@ -1749,22 +1756,33 @@ class JitSession:
             self._push_op(prog, nxt)
 
     def tick(self, now: float) -> TickEvent:
-        """Execute one scheduler decision at virtual time ``now``."""
-        self._sync_cache_stats()
+        """Execute one scheduler decision at virtual time ``now``: the
+        decision and the dispatch are each a span while tracing."""
         completed, self._done = self._done, []
         if not self.live:
             return TickEvent("idle", now, completed=completed)
         self._started = True
-        decision = self.sched.decide(now)
-        self.stats.evictions = self.sched.evictions
-        self._sync_cache_stats()
+        with telemetry.span("jit.decide"):
+            decision = self.sched.decide(now)
+        stats = self.stats
+        stats.evictions = self.sched.evictions
         if decision.kind == "wait":
-            self.stats.waits += 1
+            stats.waits += 1
             if self.trace is not None:
                 self.trace.waits.append(decision.wait_until)
             return TickEvent("wait", decision.wait_until, completed=completed)
         assert decision.kind == "dispatch" and decision.plan
         plan = decision.plan
+        with telemetry.span("jit.dispatch") as sp:
+            t = self._dispatch(plan, now, completed)
+            if sp:
+                sp.set(group=len(plan.ops))
+        return TickEvent("dispatch", now + t, dt=t, completed=completed)
+
+    def _dispatch(self, plan, now: float,
+                  completed: List[KernelProgram]) -> float:
+        """Run a planned group and account it; returns its modelled
+        seconds."""
         # a group whose ops all carry ONE weight key loads the weights once
         shared = shared_weight_key(plan.ops) is not None
         stacked = plan.ops[0].stack is not None
@@ -1818,10 +1836,7 @@ class JitSession:
                 prog, st = self.live.pop(op.op_id)
                 st.output_fn(prog.env, out)
                 self._advance(prog, completed)
-        # re-sync so a session that ends on this tick still reports the
-        # executor/plan-cache work it just did
-        self._sync_cache_stats()
-        return TickEvent("dispatch", now + t, dt=t, completed=completed)
+        return t
 
 
 class VLIWJit:
@@ -1948,4 +1963,5 @@ class VLIWJit:
                     continue
                 break
             now = max(now, ev.t)
+        session._sync_cache_stats()
         return session.stats

@@ -29,14 +29,21 @@ open-loop Poisson traffic at ``--rate`` for ``--duration`` seconds, tiers
 closes the door; the daemon flushes and prints per-tier attainment,
 goodput and shed counts. ``--admission`` turns on the SLO-tiered
 admission controller; ``--stats-interval`` prints a heartbeat line while
-the daemon runs. The daemon floors the modelled device timelines at real
-elapsed time, and on a host-bound card a request takes longer than its
-modelled cost, so millisecond ``--slo-ms`` deadlines may all miss: that
-is the clock working, not a fault.
+the daemon runs: requests so far, tenants in flight, waiting requests,
+occupied of all decode slots and the epoch's mean group, then the
+interval's mean slot occupancy and waiting requests (the engine's gauge
+logs) and the p95 of queue wait and of latency (polled to admitted, to
+retired) over the requests admitted or retired in it (their lifecycles;
+``core/telemetry.py``). Ctrl-C stops the door: the daemon returns without
+draining and the report is printed. The daemon floors the modelled device
+timelines at real elapsed time, and on a host-bound card a request takes
+longer than its modelled cost, so millisecond ``--slo-ms`` deadlines may
+all miss: that is the clock working, not a fault.
 """
 from __future__ import annotations
 
 import argparse
+import signal
 import threading
 import time
 
@@ -44,9 +51,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, smoke_config
+from repro_torch.core import telemetry
 from repro_torch.models import Model
-from repro_torch.serving import (FrontDoor, ServeRequest, ServingEngine,
-                                  Tenant, make_trace)
+from repro_torch.serving import (DoorClosed, FrontDoor, ServeRequest,
+                                  ServingEngine, Tenant, make_trace)
 
 
 def _build_models(arch_names, device, dtype, seed):
@@ -110,6 +118,27 @@ def _mesh_lines(eng, rep):
               f"{gline}tenants={','.join(homed[d]) or '-'}")
 
 
+def _interval(t0: float, t1: float) -> str:
+    """The heartbeat interval [t0, t1] (host clock) from the engine's
+    telemetry: mean slot occupancy and waiting requests (the gauge logs),
+    p95 of queue wait and of latency over the requests admitted or
+    retired in it."""
+    rec = telemetry.RECORDER
+    occupied, total = rec.gauge_seconds("slots", t0, t1)
+    waiting, _ = rec.gauge_seconds("waiting", t0, t1)
+    lives = list(rec.requests.values())
+    qwait = [x.admitted - x.polled for x in lives if t0 < x.admitted <= t1]
+    lat = [x.retired - x.polled for x in lives if t0 < x.retired <= t1]
+
+    def p95(xs):
+        return f"{np.percentile(xs, 95) * 1e3:.1f}ms" if xs else "-"
+
+    occ = f"{occupied / total:.0%}" if total > 0 else "-"
+    return (f"interval: occupancy={occ} "
+            f"waiting={waiting / max(t1 - t0, 1e-9):.1f} "
+            f"qwait_p95={p95(qwait)} latency_p95={p95(lat)}")
+
+
 def _run_daemon(names, args, models, device) -> None:
     eng = ServingEngine(_make_tenants(names, args.tenants, models, args),
                         mode="vliw", certify=args.certify,
@@ -132,26 +161,45 @@ def _run_daemon(names, args, models, device) -> None:
             if pause > 0:
                 time.sleep(pause)
             tier = int(rng.choice(3, p=[0.5, 0.3, 0.2]))
-            door.submit(ServeRequest(
-                rid, names[rid % len(names)], 0.0, args.prompt_len,
-                args.max_new_tokens, slo_s=args.slo_ms / 1e3 * (2 ** tier),
-                tier=tier))
+            try:
+                door.submit(ServeRequest(
+                    rid, names[rid % len(names)], 0.0, args.prompt_len,
+                    args.max_new_tokens,
+                    slo_s=args.slo_ms / 1e3 * (2 ** tier), tier=tier))
+            except DoorClosed:         # stopped (Ctrl-C)
+                return
             rid += 1
         door.close()
 
+    last = [telemetry.now()]
+
     def heartbeat(stats) -> None:
+        t0, t1 = last[0], telemetry.now()
+        last[0] = t1
         print(f"  [t={stats['t']:6.2f}s] submitted={stats['submitted']:4d} "
               f"finished={stats['finished']:4d} shed={stats['shed']:3d} "
-              f"inflight={stats['inflight']} waiting={stats['waiting']}")
+              f"inflight={stats['inflight']} waiting={stats['waiting']} "
+              f"slots={stats['occupied']}/{stats['slots']} "
+              f"group={stats['mean_group']:.2f}  {_interval(t0, t1)}")
 
     print(f"daemon: {len(names)} tenants on {eng.device}, "
           f"{args.rate:.0f} req/s open-loop for {args.duration:.1f}s, "
           f"admission={'on' if args.admission else 'off'}\n")
     th = threading.Thread(target=feeder, daemon=True)
     th.start()
-    rep = eng.serve_forever(door, seed=args.seed, on_stats=heartbeat,
-                            stats_interval_s=args.stats_interval)
+    # Ctrl-C stops the door; the daemon returns at its next pass
+    on_main = threading.current_thread() is threading.main_thread()
+    if on_main:
+        prev = signal.signal(signal.SIGINT, lambda *_: door.stop())
+    try:
+        rep = eng.serve_forever(door, seed=args.seed, on_stats=heartbeat,
+                                stats_interval_s=args.stats_interval)
+    finally:
+        if on_main:
+            signal.signal(signal.SIGINT, prev)
     th.join()
+    if door.stopped:
+        print("\n  stopped: the requests in flight are left unfinished")
     print()
     print(_report_line("daemon", rep, args.certify))
     print(f"  served={len(rep.requests)} shed={rep.shed} "

@@ -140,6 +140,7 @@ import torch.nn.functional as F
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.analysis.certify import ScheduleCertifier, check_conservation
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry
 from repro_torch.core.costmodel import CostModel, H100
 from repro_torch.core.dispatch import DispatchStats
 from repro_torch.core.jit import (JitStats, KernelProgram, VLIWJit,
@@ -351,9 +352,12 @@ class _LoopState:
     busy: List[float]                    # analytic charges per device
     committed: List[float]               # admission-committed horizon
     certified: int = 0                   # dispatch records already certified
-    n_done: int = 0
+    n_done: int = 0                      # finished or shed
+    n_shed: int = 0
     total: int = 0
     next_hint: Optional[Any] = None      # daemon: door's scheduled lookahead
+    # per device: the waiting count last logged to the "waiting" gauge
+    waiting_logged: List[int] = dataclasses.field(default_factory=list)
 
 
 class ServingEngine:
@@ -453,6 +457,16 @@ class ServingEngine:
             t.slot_tok = torch.zeros((t.max_batch, 1), dtype=torch.long,
                                      device=self.device)
             t.slot_remaining = [0] * t.max_batch
+        # occupied decode slots per tenant, kept at each take and free
+        # (the "slots" gauge logs every change), and the seconds each
+        # tenant has had none free (a waiting request's slot wait)
+        self._occupied = {t.name: 0 for t in tenants}
+        self._full = {t.name: telemetry.SlotClock() for t in tenants}
+        self._slots_total = sum(t.max_batch for t in tenants)
+        # the daemon's open epoch (live_jit_stats) and its last report,
+        # kept also when the epoch ends by an exception
+        self._open: Optional[_LoopState] = None
+        self.last_report: Optional[ServeReport] = None
 
     # ------------------------------------------------------------------
     # modeled step times
@@ -504,6 +518,20 @@ class ServingEngine:
     def _emit_token(self, req: ServeRequest, tok: int, t: float) -> None:
         if self.token_sink is not None:
             self.token_sink(req, tok, t)
+
+    def _take_slot(self, t: Tenant, slot: int, req: ServeRequest) -> None:
+        t.slot_req[slot] = req
+        self._slots_changed(t, self._occupied[t.name] + 1)
+
+    def _free_slot(self, t: Tenant, slot: int) -> None:
+        t.slot_req[slot] = None
+        self._slots_changed(t, self._occupied[t.name] - 1)
+
+    def _slots_changed(self, t: Tenant, n: int) -> None:
+        self._occupied[t.name] = n
+        now = telemetry.now()
+        self._full[t.name].set(n >= t.max_batch, now)
+        telemetry.gauge("slots", t.name, n, t.max_batch, now)
 
     # ------------------------------------------------------------------
     # admission
@@ -565,7 +593,7 @@ class ServingEngine:
         slot_tok = tenant.slot_tok.clone()
         slot_tok[slot, 0] = tok
         tenant.slot_tok = slot_tok
-        tenant.slot_req[slot] = req
+        self._take_slot(tenant, slot, req)
         tenant.slot_remaining[slot] = req.max_new_tokens - 1
         return dt
 
@@ -605,54 +633,62 @@ class ServingEngine:
 
     def _decode_step(self, t: Tenant):
         """``Model.decode_step`` on the tenant's slotted batch: (logits,
-        new cache); on the card a replay of its CUDA graph."""
+        new cache); on the card a replay of its CUDA graph. Its device
+        time goes on the enclosing span while tracing."""
         m = t.model
-        if not self.jit.cuda_graphs:
-            return m.decode_step(t.params, t.slot_tok, t.cache)
-        out = self.jit.graphs.monolithic(
-            self._model_head(t, "decode_step"),
-            lambda p, a: dict(zip(("logits", "cache"), m.decode_step(
-                p, a["tokens"], a["cache"]))),
-            t.params, {"tokens": t.slot_tok, "cache": t.cache},
-            self.jit.executor.stats)
+        with telemetry.body("decode", t.slot_tok):
+            if not self.jit.cuda_graphs:
+                return m.decode_step(t.params, t.slot_tok, t.cache)
+            out = self.jit.graphs.monolithic(
+                self._model_head(t, "decode_step"),
+                lambda p, a: dict(zip(("logits", "cache"), m.decode_step(
+                    p, a["tokens"], a["cache"]))),
+                t.params, {"tokens": t.slot_tok, "cache": t.cache},
+                self.jit.executor.stats)
         return out["logits"], out["cache"]
 
     def _prefill(self, t: Tenant, pbatch: Dict[str, torch.Tensor]):
         """``Model.prefill`` of one prompt at the tenant's cache length:
         (logits, cache); on the card a replay of its CUDA graph (the
-        prompt's length is in the key, through its shape)."""
+        prompt's length is in the key, through its shape). Its device
+        time goes on the enclosing span while tracing."""
         m, cl = t.model, t.cache_len
-        if not self.jit.cuda_graphs:
-            return m.prefill(t.params, pbatch, cache_len=cl)
-        out = self.jit.graphs.monolithic(
-            self._model_head(t, "prefill") + (cl,),
-            lambda p, a: dict(zip(("logits", "cache"),
-                                  m.prefill(p, a, cache_len=cl))),
-            t.params, pbatch, self.jit.executor.stats)
+        with telemetry.body("prefill", pbatch["tokens"]):
+            if not self.jit.cuda_graphs:
+                return m.prefill(t.params, pbatch, cache_len=cl)
+            out = self.jit.graphs.monolithic(
+                self._model_head(t, "prefill") + (cl,),
+                lambda p, a: dict(zip(("logits", "cache"),
+                                      m.prefill(p, a, cache_len=cl))),
+                t.params, pbatch, self.jit.executor.stats)
         return out["logits"], out["cache"]
 
     def _consume(self, t: Tenant, logits: torch.Tensor,
                  now: float = 0.0) -> None:
         """Append each active slot's greedy token and stream it out at
-        ``now``. Reading the tokens on the host waits for the card."""
-        toks = torch.argmax(logits[:, -1], dim=-1)
-        t.slot_tok = toks[:, None].to(torch.long)
-        host = toks.tolist()
-        for slot in t.active_slots():
-            req = t.slot_req[slot]
-            req.tokens_out.append(int(host[slot]))
-            self._emit_token(req, int(host[slot]), now)
-            t.slot_remaining[slot] -= 1
+        ``now``. Reading the tokens on the host waits for the card, so
+        the device times of the bodies before it resolve here."""
+        with telemetry.span("engine.readback"):
+            toks = torch.argmax(logits[:, -1], dim=-1)
+            t.slot_tok = toks[:, None].to(torch.long)
+            host = toks.tolist()
+            telemetry.resolve()
+            for slot in t.active_slots():
+                req = t.slot_req[slot]
+                req.tokens_out.append(int(host[slot]))
+                self._emit_token(req, int(host[slot]), now)
+                t.slot_remaining[slot] -= 1
 
     def _retire(self, t: Tenant, now: float) -> List[ServeRequest]:
         """Free slots of finished requests; returns the retired requests."""
         done: List[ServeRequest] = []
-        for slot in t.active_slots():
-            if t.slot_remaining[slot] <= 0:
-                req = t.slot_req[slot]
-                req.finish_t = now
-                t.slot_req[slot] = None
-                done.append(req)
+        with telemetry.span("engine.retire"):
+            for slot in t.active_slots():
+                if t.slot_remaining[slot] <= 0:
+                    req = t.slot_req[slot]
+                    req.finish_t = now
+                    self._free_slot(t, slot)
+                    done.append(req)
         return done
 
     # ------------------------------------------------------------------
@@ -709,7 +745,7 @@ class ServingEngine:
             kv_writes=(("kv", t.name, slot),) if slot is not None else (),
             env_extra={"real_len": s, "slot": slot, "req": req})
         if needs_slot:
-            t.slot_req[slot] = req
+            self._take_slot(t, slot, req)
             t.slot_remaining[slot] = req.max_new_tokens - 1
         return prog
 
@@ -718,18 +754,20 @@ class ServingEngine:
         """Land a completed prefill: first token, KV slot state, traffic
         charge. Returns (now, requests retired here)."""
         req: ServeRequest = prog.env["req"]
-        tok = int(torch.argmax(prog.env["logits"][0]))
-        req.tokens_out = [tok]
-        now += self._prefill_attn_time(t.cfg, prog.env["real_len"])
-        self._emit_token(req, tok, now)
-        slot = prog.env["slot"]
-        if slot is None:
-            req.finish_t = now     # single token: done at prefill, no slot
-            return now, 1
-        t.cache = prog.env["cache"]
-        slot_tok = t.slot_tok.clone()
-        slot_tok[slot, 0] = tok
-        t.slot_tok = slot_tok
+        with telemetry.span("engine.land"):
+            tok = int(torch.argmax(prog.env["logits"][0]))
+            telemetry.resolve()
+            req.tokens_out = [tok]
+            now += self._prefill_attn_time(t.cfg, prog.env["real_len"])
+            self._emit_token(req, tok, now)
+            slot = prog.env["slot"]
+            if slot is None:
+                req.finish_t = now  # single token: done at prefill, no slot
+                return now, 1
+            t.cache = prog.env["cache"]
+            slot_tok = t.slot_tok.clone()
+            slot_tok[slot, 0] = tok
+            t.slot_tok = slot_tok
         return now, 0
 
     def _build_program(self, t: Tenant, stream_id: int, now: float
@@ -774,6 +812,12 @@ class ServingEngine:
         coalescer (the single-device setup)."""
         # arrival history of a previous epoch describes another workload
         self._arrival_pred.reset()
+        # the gauges' values as the epoch opens (a change log needs them)
+        for t in self.tenants.values():
+            telemetry.gauge("slots", t.name, self._occupied[t.name],
+                            t.max_batch)
+        for d in range(len(self.devices)):
+            telemetry.gauge("waiting", d, 0)
         n_dev = len(self.devices)
         trace = ScheduleTrace() if self.certify else None
         sessions = [self.jit.session(
@@ -790,7 +834,8 @@ class ServingEngine:
             queues=[[] for _ in range(n_dev)], pis=[0] * n_dev,
             waiting=[[] for _ in range(n_dev)], inflight={},
             now=[0.0] * n_dev, busy=[0.0] * n_dev,
-            committed=[0.0] * n_dev, next_hint=next_hint)
+            committed=[0.0] * n_dev, next_hint=next_hint,
+            waiting_logged=[0] * n_dev)
 
     def _dev_of(self, st: _LoopState, name: str) -> int:
         """The tenant's home device, bound at its first admission. A MoE
@@ -811,6 +856,7 @@ class ServingEngine:
         d = self._dev_of(st, req.tenant)
         st.queues[d].append(req)
         st.total += 1
+        telemetry.polled(req.req_id, req.tenant)
         return d
 
     def _door_decision(self, st: _LoopState, req: ServeRequest, d: int
@@ -827,6 +873,7 @@ class ServingEngine:
         if dec.action == "shed":
             req.shed = True
             st.n_done += 1
+            st.n_shed += 1
             return False
         if dec.action == "degrade":
             req.degraded_from = req.tier
@@ -837,6 +884,11 @@ class ServingEngine:
         return True
 
     def _note_retires(self, st: _LoopState, reqs, d: int) -> None:
+        t, lives = telemetry.now(), telemetry.RECORDER.requests
+        for r in reqs:
+            life = lives.get(r.req_id)
+            if life is not None:
+                life.retired = t
         if st.trace is not None:
             st.trace.req_retires.extend((r.req_id, st.now[d]) for r in reqs)
             for r in reqs:
@@ -847,59 +899,15 @@ class ServingEngine:
         (through the admission controller when there is one), admit
         waiting requests, keep every tenant homed here with live requests
         in the pool, take one scheduler decision and land completions.
-        Returns True if anything progressed."""
+        Returns True if anything progressed. Each phase is a top-level
+        span while tracing (``core/telemetry.py``)."""
         progressed = False
-        session, q, wq = st.sessions[d], st.queues[d], st.waiting[d]
+        session, q = st.sessions[d], st.queues[d]
         trace, cert, now, busy = st.trace, st.cert, st.now, st.busy
-        # 1. live admission on device d's timeline: dense tenants DECLARE
-        #    the prompt pass as a prefill program; short prompts and MoE /
-        #    SSM tenants take the analytic charge. A tenant with a program
-        #    inflight admits at its next step boundary; other tenants' due
-        #    requests are admitted past it.
-        while st.pis[d] < len(q) and q[st.pis[d]].arrival_t <= now[d]:
-            req = q[st.pis[d]]
-            st.pis[d] += 1
-            if self.predict_arrivals or self.admission is not None:
-                self._arrival_pred.observe(req.tenant, req.arrival_t)
-            if self.admission is not None \
-                    and not self._door_decision(st, req, d):
-                progressed = True   # shed at the door: resolved here
-                continue
-            wq.append(req)
-        still: List[ServeRequest] = []
-        for req in wq:
-            t = self.tenants[req.tenant]
-            if req.tenant in st.inflight:
-                still.append(req)
-                continue
-            if self._prefill_capable(t) \
-                    and req.prompt_len >= self.prefill_declare_min:
-                prog = self._declare_prefill(
-                    t, req, st.stream_ids[req.tenant], now[d])
-                if prog is None:
-                    still.append(req)  # slots full; retry later
-                    continue
-                st.inflight[req.tenant] = prog
-                session.admit(prog)
-                if trace is not None:
-                    trace.req_admits.append((req.req_id, now[d]))
-                    trace.req_devices[req.req_id] = d
-                progressed = True
-                continue
-            dt = self._admit(t, req, now[d])
-            if dt == 0.0 and req.tokens_out is None:
-                still.append(req)      # tenant slots full; retry later
-                continue
-            now[d] += dt
-            busy[d] += dt
-            if trace is not None:
-                trace.req_admits.append((req.req_id, now[d]))
-                trace.req_devices[req.req_id] = d
-            if not math.isnan(req.finish_t):
-                st.n_done += 1         # retired at admission
-                self._note_retires(st, [req], d)
-            progressed = True
-        st.waiting[d] = still
+        # 1. live admission (_admit_waiting)
+        if st.waiting[d] or (st.pis[d] < len(q)
+                             and q[st.pis[d]].arrival_t <= now[d]):
+            progressed = self._admit_waiting(st, d)
         if self.predict_arrivals:
             hint = self._arrival_pred.predict(now[d])
         else:
@@ -918,17 +926,19 @@ class ServingEngine:
         # 2. every JIT-capable tenant homed here with live requests keeps
         #    a decode program in this device's pool — admitted between
         #    dispatches
-        for name, t in self.tenants.items():
-            if st.tenant_dev.get(name) != d:
-                continue
-            if self._jit_capable(t) and name not in st.inflight \
-                    and t.active_slots():
-                prog = self._build_program(t, st.stream_ids[name], now[d])
-                if t.cfg.arch_type in ("moe", "ssm"):
-                    session.stats.nondense_programs += 1
-                st.inflight[name] = prog
-                session.admit(prog)
-                progressed = True
+        due = [(name, t) for name, t in self.tenants.items()
+               if st.tenant_dev.get(name) == d and self._jit_capable(t)
+               and name not in st.inflight and t.active_slots()]
+        if due:
+            with telemetry.span("engine.bind"):
+                for name, t in due:
+                    prog = self._build_program(t, st.stream_ids[name],
+                                               now[d])
+                    if t.cfg.arch_type in ("moe", "ssm"):
+                        session.stats.nondense_programs += 1
+                    st.inflight[name] = prog
+                    session.admit(prog)
+            progressed = True
 
         # 3. one scheduler decision on device d's virtual clock
         ev = session.tick(now[d])
@@ -968,7 +978,8 @@ class ServingEngine:
             if st.tenant_dev.get(name) != d:
                 continue
             if not self._jit_capable(t) and t.active_slots():
-                dt = self._tenant_batched_step(t, now[d])
+                with telemetry.span("engine.step"):
+                    dt = self._tenant_batched_step(t, now[d])
                 now[d] += dt
                 busy[d] += dt
                 retired = self._retire(t, now[d])
@@ -976,6 +987,98 @@ class ServingEngine:
                 self._note_retires(st, retired, d)
                 progressed = True
         return progressed
+
+    def _admit_waiting(self, st: _LoopState, d: int) -> bool:
+        """Step 1 of a device pass, live admission on device d's timeline:
+        dense tenants DECLARE the prompt pass as a prefill program; short
+        prompts and MoE / SSM tenants take the analytic charge. A tenant
+        with a program inflight admits at its next step boundary; other
+        tenants' due requests are admitted past it. Stamps each request's
+        lifecycle with its admission and its slot wait. Returns True if
+        anything progressed."""
+        progressed = False
+        session, q, wq = st.sessions[d], st.queues[d], st.waiting[d]
+        trace, now, busy = st.trace, st.now, st.busy
+        with telemetry.span("engine.admit"):
+            t_in = telemetry.now()
+            while st.pis[d] < len(q) and q[st.pis[d]].arrival_t <= now[d]:
+                req = q[st.pis[d]]
+                st.pis[d] += 1
+                if self.predict_arrivals or self.admission is not None:
+                    self._arrival_pred.observe(req.tenant, req.arrival_t)
+                if self.admission is not None \
+                        and not self._door_decision(st, req, d):
+                    progressed = True   # shed at the door: resolved here
+                    continue
+                wq.append(req)
+                self._begins_wait(req, t_in)
+            still: List[ServeRequest] = []
+            for req in wq:
+                t = self.tenants[req.tenant]
+                if req.tenant in st.inflight:
+                    still.append(req)
+                    continue
+                if self._prefill_capable(t) \
+                        and req.prompt_len >= self.prefill_declare_min:
+                    full_s = self._full[req.tenant].reading(telemetry.now())
+                    prog = self._declare_prefill(
+                        t, req, st.stream_ids[req.tenant], now[d])
+                    if prog is None:
+                        still.append(req)  # slots full; retry later
+                        continue
+                    self._admitted(req, telemetry.now(), full_s)
+                    st.inflight[req.tenant] = prog
+                    session.admit(prog)
+                    if trace is not None:
+                        trace.req_admits.append((req.req_id, now[d]))
+                        trace.req_devices[req.req_id] = d
+                    progressed = True
+                    continue
+                t_admit = telemetry.now()
+                full_s = self._full[req.tenant].reading(t_admit)
+                dt = self._admit(t, req, now[d])
+                if dt == 0.0 and req.tokens_out is None:
+                    still.append(req)      # tenant slots full; retry later
+                    continue
+                self._admitted(req, t_admit, full_s)
+                now[d] += dt
+                busy[d] += dt
+                if trace is not None:
+                    trace.req_admits.append((req.req_id, now[d]))
+                    trace.req_devices[req.req_id] = d
+                if not math.isnan(req.finish_t):
+                    st.n_done += 1         # retired at admission
+                    self._note_retires(st, [req], d)
+                progressed = True
+            st.waiting[d] = still
+            self._note_waiting(st, d)
+        return progressed
+
+    def _begins_wait(self, req: ServeRequest, t: float) -> None:
+        """``req`` joins its device's waiting list at host time ``t``."""
+        life = telemetry.RECORDER.requests.get(req.req_id)
+        if life is not None:
+            life.mark = self._full[req.tenant].reading(t)
+
+    def _admitted(self, req: ServeRequest, t: float, full_s: float
+                  ) -> None:
+        """``req`` left the waiting list at host time ``t`` (a declared
+        prefill program, or the monolithic ``_admit``): its lifecycle's
+        admission stamp and the seconds of its wait its tenant had no free
+        slot, from ``full_s``, its tenant's slot clock read before the
+        request took a slot."""
+        life = telemetry.RECORDER.requests.get(req.req_id)
+        if life is not None:
+            life.admitted = t
+            life.wait_slots = full_s - life.mark
+
+    def _note_waiting(self, st: _LoopState, d: int) -> None:
+        """After device d's admission the "waiting" gauge logs a change
+        of its waiting requests."""
+        n = len(st.waiting[d])
+        if n != st.waiting_logged[d]:
+            st.waiting_logged[d] = n
+            telemetry.gauge("waiting", d, n)
 
     def _close_loop(self, st: _LoopState,
                     requests: Sequence[ServeRequest]) -> None:
@@ -1003,20 +1106,34 @@ class ServingEngine:
         self._last_device_busy = [
             st.busy[d] + sessions[d].stats.modeled_time_s
             for d in range(len(sessions))]
-        # the shared caches' delta of the whole loop (its last monolithic
-        # steps ran after the last tick). The mesh's sessions share one
-        # executor and one pair of plan caches, so each session's delta of
-        # them holds the others' work too: fold the loop's delta in once
-        # (device 0's, which was opened first)
-        sessions[0]._sync_cache_stats()
-        if len(sessions) > 1:
-            for s in sessions[1:]:
-                s.stats.plan_cache = PlanCacheStats()
-                s.stats.block_plans = PlanCacheStats()
-                s.stats.tune_cache = PlanCacheStats()
-                s.stats.dispatch = DispatchStats()
-        for s in sessions:
-            self.jit_stats.merge(s.stats)
+        telemetry.resolve()
+        self.jit_stats.merge(self._loop_stats(st))
+
+    @staticmethod
+    def _loop_stats(st: _LoopState) -> JitStats:
+        """The epoch's counters so far, summed over its sessions. The
+        shared caches' delta covers the whole loop (its last monolithic
+        steps ran after the last tick). The mesh's sessions share one
+        executor and one pair of plan caches, so each session's delta of
+        them holds the others' work too: it is taken once, from device 0's
+        session (opened first), brought up to date here."""
+        st.sessions[0]._sync_cache_stats()
+        out = JitStats().merge(st.sessions[0].stats)
+        for s in st.sessions[1:]:
+            out.merge(dataclasses.replace(
+                s.stats, plan_cache=PlanCacheStats(),
+                block_plans=PlanCacheStats(), tune_cache=PlanCacheStats(),
+                dispatch=DispatchStats()))
+        return out
+
+    def live_jit_stats(self) -> JitStats:
+        """The engine's folded ``JitStats`` with the open daemon epoch's
+        sessions added, in the middle of the epoch (a copy; what the
+        epoch's close will fold, before the certifier's close-out)."""
+        out = JitStats().merge(self.jit_stats)
+        if self._open is not None:
+            out.merge(self._loop_stats(self._open))
+        return out
 
     def _all_idle(self, st: _LoopState) -> bool:
         """Nothing live, inflight or decoding on any device."""
@@ -1042,6 +1159,7 @@ class ServingEngine:
             self._route(st, req)
         n_dev = len(self.devices)
         while True:
+            telemetry.refresh()
             progressed = False
             for d in range(n_dev):
                 progressed |= self._device_pass(st, d)
@@ -1070,14 +1188,23 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _live_stats(self, st: _LoopState, served: List[ServeRequest],
                     t: float) -> Dict[str, Any]:
+        """The heartbeat's dict, from running counts kept at the events
+        (no scan of the epoch's requests): requests submitted, finished,
+        shed, tenants with a program in flight, waiting requests, occupied
+        of all decode slots, the epoch's mean group so far."""
+        groups = st.sessions[0].stats.groups
+        for s in st.sessions[1:]:
+            groups = groups + s.stats.groups
         return {
             "t": t,
             "submitted": len(served),
-            "finished": sum(1 for r in served
-                            if not math.isnan(r.finish_t)),
-            "shed": sum(1 for r in served if r.shed),
+            "finished": st.n_done - st.n_shed,
+            "shed": st.n_shed,
             "inflight": len(st.inflight),
             "waiting": sum(len(w) for w in st.waiting),
+            "occupied": sum(self._occupied.values()),
+            "slots": self._slots_total,
+            "mean_group": groups.mean,
             "device_time_s": list(st.now),
         }
 
@@ -1105,15 +1232,22 @@ class ServingEngine:
         preloaded with scheduled submissions replays exactly like ``run``.
         ``seed`` keys prompt synthesis, as in ``run``. ``on_stats`` is
         called at most every ``stats_interval_s`` clock seconds with a
-        live-stats dict — the daemon's heartbeat. All torch work runs on
-        the calling thread."""
+        live-stats dict (``_live_stats``) — the daemon's heartbeat.
+        ``door.stop()`` leaves the loop at its next pass without draining.
+        However the loop ends — the door drained, stopped, or an exception
+        from ``on_stats`` or the loop — the epoch closes: unfinished
+        requests give back their slots, its ``JitStats`` fold into
+        ``jit_stats`` and its report, unfinished requests counted, stays
+        on ``last_report`` (the exception then propagates). All torch
+        work runs on the calling thread; each phase of a pass is a
+        top-level span while tracing (``core/telemetry.py``)."""
         assert self.mode == "vliw", \
             "daemon serving is a vliw-engine feature (baseline modes " \
             "define closed-trace round semantics)"
         self._seed = int(seed)
         clock = clock if clock is not None else MonotonicClock()
         wall0 = _time.perf_counter()
-        st = self._open_loop(next_hint=door.next_arrival)
+        st = self._open = self._open_loop(next_hint=door.next_arrival)
         served: List[ServeRequest] = []
         seen_ids: Dict[int, int] = {}
         n_dev = len(self.devices)
@@ -1121,22 +1255,26 @@ class ServingEngine:
         if prev_sink is None:
             self.token_sink = door.deliver
         last_stats = clock.now()
+        span = telemetry.span
+        telemetry.refresh(start=True)
         try:
-            while True:
-                now_r = clock.now()
-                if clock.authoritative:
-                    # real clock: a device cannot serve in the past
-                    for d in range(n_dev):
-                        st.now[d] = max(st.now[d], now_r)
-                for req in door.poll(now_r):
-                    if req.req_id in seen_ids:
-                        raise ValueError(
-                            f"duplicate req_id {req.req_id} through the "
-                            f"door — request ids key prompt synthesis "
-                            f"and retirement accounting")
-                    seen_ids[req.req_id] = 1
-                    served.append(req)
-                    self._route(st, req)
+            while not door.stopped:
+                telemetry.refresh()
+                with span("engine.poll"):
+                    now_r = clock.now()
+                    if clock.authoritative:
+                        # real clock: a device cannot serve in the past
+                        for d in range(n_dev):
+                            st.now[d] = max(st.now[d], now_r)
+                    for req in door.poll(now_r):
+                        if req.req_id in seen_ids:
+                            raise ValueError(
+                                f"duplicate req_id {req.req_id} through "
+                                f"the door — request ids key prompt "
+                                f"synthesis and retirement accounting")
+                        seen_ids[req.req_id] = 1
+                        served.append(req)
+                        self._route(st, req)
                 progressed = False
                 for d in range(n_dev):
                     progressed |= self._device_pass(st, d)
@@ -1146,7 +1284,8 @@ class ServingEngine:
                 if on_stats is not None \
                         and clock.now() - last_stats >= stats_interval_s:
                     last_stats = clock.now()
-                    on_stats(self._live_stats(st, served, last_stats))
+                    with span("engine.heartbeat"):
+                        on_stats(self._live_stats(st, served, last_stats))
                 if progressed or self._idle_jump(st):
                     continue
                 if self._all_idle(st):
@@ -1163,18 +1302,29 @@ class ServingEngine:
                     if door.close_at is not None \
                             and door.close_at > now_r:
                         targets.append(door.close_at)
-                    clock.sleep_until(min(targets) if targets
-                                      else now_r + idle_poll_s)
+                    with span("engine.idle"):
+                        clock.sleep_until(min(targets) if targets
+                                          else now_r + idle_poll_s)
         finally:
             self.token_sink = prev_sink
-        self._close_loop(st, served)
+            self._open = None
+            # requests left unfinished (a stop, an exception) give their
+            # slots back, so a later epoch starts with every slot free;
+            # their programs in flight go with this epoch's sessions
+            for t in self.tenants.values():
+                for slot in t.active_slots():
+                    t.slot_remaining[slot] = 0
+                    self._free_slot(t, slot)
+            self._close_loop(st, served)
+            self.last_report = ServeReport(
+                "vliw", served, max(st.now) if st.now else 0.0,
+                _time.perf_counter() - wall0, jit=self.jit_stats,
+                device_time_s=self._last_device_time,
+                device_busy_s=self._last_device_busy)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        wall = _time.perf_counter() - wall0
-        return ServeReport("vliw", served, max(st.now) if st.now else 0.0,
-                           wall, jit=self.jit_stats,
-                           device_time_s=self._last_device_time,
-                           device_busy_s=self._last_device_busy)
+        self.last_report.wall_time_s = _time.perf_counter() - wall0
+        return self.last_report
 
     # ------------------------------------------------------------------
     # round loop (baseline modes: rounds ARE their semantics)

@@ -7,7 +7,7 @@ lookahead for one mesh device sees only the submissions that can land
 there (the JAX package's daemon gives every device the fleet's next
 arrival, and a device then waits for a request it will never serve). The
 engine does all torch work on the thread that runs ``serve_forever``;
-another thread only calls ``submit`` and ``close``.
+another thread only calls ``submit``, ``close`` and ``stop``.
 
 Replay (``engine.run``) consumes a finite trace and terminates when it is
 exhausted; the daemon instead serves whatever arrives at a ``FrontDoor``
@@ -118,7 +118,9 @@ class FrontDoor:
     then ``close()`` (or construct the closing time up front with
     ``close(at=...)``). Submissions accepted before closing are always
     honored — closing stops NEW intake; the daemon drains what was
-    accepted, flushes in-flight work and returns.
+    accepted, flushes in-flight work and returns. ``stop()`` (from any
+    thread) closes the door and has the daemon return at its next pass
+    without draining.
     """
 
     def __init__(self) -> None:
@@ -127,6 +129,7 @@ class FrontDoor:
         self._heap: List[Tuple[float, int, ServeRequest]] = []
         self._seq = 0
         self._closed = False
+        self._stopped = False
         self.close_at: Optional[float] = None
         self.tickets: Dict[int, Ticket] = {}
 
@@ -162,6 +165,18 @@ class FrontDoor:
             else:
                 self.close_at = at if self.close_at is None \
                     else min(self.close_at, at)
+
+    def stop(self) -> None:
+        """Close the door and stop serving: the daemon leaves its loop at
+        its next pass without draining (what it had not finished stays
+        unfinished in its report)."""
+        with self._lock:
+            self._closed = True
+            self._stopped = True
+
+    @property
+    def stopped(self) -> bool:
+        return self._stopped
 
     # -- daemon side ---------------------------------------------------
     def poll(self, now: float) -> List[ServeRequest]:
